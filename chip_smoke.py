@@ -17,7 +17,23 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    result equals k_total·G (python-int oracle), and one incremented scalar
    moves the result by exactly (i+1)·G; then best-of-3 points/s;
 5. kernel timings with CUDA events at the main path's shapes, beside each
-   kernel's bound and its plain twin's time.
+   kernel's bound and its plain twin's time;
+6. the dense bucket folds (fold_buckets_chunked K=8, fold_buckets_halving 4
+   layers per call, fold_buckets_grid_dense wb=512 4 layers) over the
+   micro-benchmarks' (256, 4,624) matrix of G or the identity (numpy seed
+   1), each run with its launch count read around it; gates: every bucket
+   sum equals count·G (python-int oracle), each driver's first level equals
+   its plain version slot for slot in affine form; ms per driver and level;
+7. the add-chain probe: CH = 16 chained RC15 adds and Fq multiplies at
+   B = 256 and 2^17, bit-identical to 16 steps of their plain versions;
+8. the field kernels (Fq and Fr, B = 65,536) and the Poseidon permutation
+   (B = 1,024, plus the hadeshash x5_254_3 vector), bit-identical to their
+   plain versions;
+9. the verify path: `batch_succinct_verify` at batch 1,024 (the 16 committed
+   vanilla-PLONK k=10 fixtures tiled) with every kernel's launch count read
+   around one call; gates: every lane's accumulator equals the port's
+   python-int oracle for its fixture, and a tampered instance in lane 0
+   moves lane 0 alone; then best-of-3 succinct proofs/s and its phases.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -37,6 +53,9 @@ import numpy as np
 LOG2N = 20
 C_BITS = 8
 CHECK_B = 1 << 16
+DENSE_SHAPE = (256, 4624)  # the Pallas fold micro-benchmarks' window
+PROBE_BATCHES = (256, 1 << 17)
+VERIFY_BATCH = 1024
 # Peak rates of one H100 SXM (700 W): HBM3 bandwidth, and the 32-bit integer
 # multiply-add throughput (64 per SM per clock, 132 SMs, 1.98 GHz boost).
 HBM_BYTES_PER_S = 3.35e12
@@ -45,6 +64,13 @@ MULADDS_PER_FQ_MUL = 136  # CIOS, 8x32-bit words: 64 a*b + 8 m + 64 m*p
 MULADDS_PER_ADD = 12 * MULADDS_PER_FQ_MUL
 MULADDS_PER_DOUBLE = 8 * MULADDS_PER_FQ_MUL
 POINT_BYTES = 96
+# hadeshash poseidonperm_x5_254_3: the permutation of (0, 1, 2) (T = 3, R_F = 8,
+# R_P = 57), the reference's Poseidon test vector.
+PERM_X5_254_3 = [
+    7853200120776062878684798364095072458815029376092732009249414926327459813530,
+    7142104613055408817911962100316808866448378443474503659992478482890339429929,
+    6549537674122432311777789598043107870002137484850126429160507761192163713804,
+]
 
 
 def log(msg):
@@ -79,6 +105,385 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def proj_equal(a, b):
+    """(..., 3, 8) projective words -> bool (...): the same affine point.
+    Cross-multiplied: X1·Z2 = X2·Z1 and Y1·Z2 = Y2·Z1 with both Z nonzero,
+    or both Z zero (the identity)."""
+    import torch
+    from snark_verifier_tpu_torch.ff import FQW
+
+    z1, z2 = a[..., 2, :], b[..., 2, :]
+    lhs = FQW.canon(FQW.mul(a[..., :2, :], z2[..., None, :]))
+    rhs = FQW.canon(FQW.mul(b[..., :2, :], z1[..., None, :]))
+    same = (lhs == rhs).all(-1).all(-1)
+    z1z, z2z = FQW.is_zero(z1), FQW.is_zero(z2)
+    return torch.where(z1z | z2z, z1z & z2z, same)
+
+
+def word_err(got, want):
+    """The largest difference between two word tensors' int32 words (0 when
+    they are bit-identical)."""
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def affine_err(a, b):
+    """The largest word difference between the canonical affine coordinates
+    of two (..., 3, 8) point tensors: 0 when they hold the same points (the
+    identity maps to (0, 0), which no curve point has)."""
+    from snark_verifier_tpu_torch.ff import FQW
+    from snark_verifier_tpu_torch.msm import cuda_ops
+
+    xa, ya, _ = cuda_ops.to_affine(a)
+    xb, yb, _ = cuda_ops.to_affine(b)
+    return max(word_err(FQW.canon(xa), FQW.canon(xb)), word_err(FQW.canon(ya), FQW.canon(yb)))
+
+
+def rand_lazy_words(rng, shape, p, device):
+    """int32 words of values uniform in [0, 2p], the lazy contract."""
+    import torch
+    from snark_verifier_tpu_torch.ff import limbs_to_words
+
+    n = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(32), "little") % (2 * p + 1) for _ in range(n)]
+    vals[: min(n, 3)] = [0, p, 2 * p][: min(n, 3)]
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), dtype="<u2")
+    limbs = torch.from_numpy(raw.astype(np.int64).reshape(*shape, 16))
+    return limbs_to_words(limbs).to(device)
+
+
+def dense_fold_phase(dev, kernels):
+    """The dense bucket-fold path: the three drivers over the
+    micro-benchmarks' (256, 4,624) matrix of G or the identity."""
+    import torch
+    from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words, py_ec, to_affine_int
+    from snark_verifier_tpu_torch.ec import words_to_limbs
+    from snark_verifier_tpu_torch.msm import cuda_ops
+
+    NB, cap = DENSE_SHAPE
+    pad = (-cap) % 512
+    rng = np.random.default_rng(1)  # micro_pallas_fold20.py's matrix
+    fill = rng.integers(0, 2, size=(NB, cap)).astype(bool)
+    counts = fill.sum(1)
+    g = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))[0]
+    mat = torch.where(torch.from_numpy(fill).to(dev)[..., None, None], g,
+                      cuda_ops.identity((), dev)).contiguous()
+    want = [py_ec.scalar_mul(py_ec.G1_GEN, int(c)) for c in counts]
+    drivers = {
+        "fold_buckets_chunked": (lambda m, **k: cuda_ops.fold_buckets_chunked(m, K=8, **k),
+                                 lambda m: cuda_ops.fold_level(m, 8),
+                                 lambda m: cuda_ops.fold_segments_plain(m, 1, 8, 1, 8)),
+        "fold_buckets_halving": (lambda m, **k: cuda_ops.fold_buckets_halving(m, 4, **k),
+                                 lambda m: cuda_ops.fold_halving(m, 4),
+                                 lambda m: cuda_ops.fold_segments_plain(m, cap >> 4, cap,
+                                                                        cap >> 4, 16)),
+        "fold_buckets_grid_dense": (
+            lambda m, **k: cuda_ops.fold_buckets_grid_dense(m, wb=512, layers=4, **k),
+            lambda m: cuda_ops.fold_grid(cuda_ops._pad_identity(m, pad), 512, 4),
+            lambda m: cuda_ops.fold_segments_plain(cuda_ops._pad_identity(m, pad), 32, 512, 32, 16)),
+    }
+    full_adds = NB * (cap - 1)
+    full_bound = bound_ms(mat.numel() * 4 + NB * POINT_BYTES, full_adds * MULADDS_PER_ADD)
+    launches, err, drv_ms, level_ms = 0, 0, {}, {}
+    for name, (drive, first, first_plain) in drivers.items():
+        cuda_ops.reset_launches()
+        out = drive(mat)
+        torch.cuda.synchronize()
+        n_launch = cuda_ops.LAUNCHES["fold_segments"]
+        check(n_launch > 0, f"{name} launched no fold_segments kernel")
+        launches += n_launch
+        got = to_affine_int(words_to_limbs(out))
+        bad = sum(x != y for x, y in zip(got, want))
+        check(bad == 0, f"{name}: {bad} of {NB} bucket sums differ from count·G")
+        lk, lp = first(mat), first_plain(mat)
+        torch.cuda.synchronize()
+        eq = proj_equal(lk, lp)
+        check(bool(eq.all()), f"{name}: first level differs from its plain version in "
+                              f"{int((~eq).sum())} slots")
+        err = max(err, affine_err(lk, lp))
+        check(err == 0, f"{name}: first level's affine words differ from its plain version")
+        drv_ms[name] = time_ms(lambda: drive(mat), 3, warmup=1)
+        marks = []
+
+        def on_level(m):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((tuple(m.shape[:2]), ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        drive(mat, on_level=on_level)
+        torch.cuda.synchronize()
+        prev, levels = start, []
+        for shape, ev in marks:
+            levels.append((shape, round(prev.elapsed_time(ev), 4)))
+            prev = ev
+        level_ms[name] = levels
+        log(f"# {name} at ({NB}, {cap}): {drv_ms[name]:.3f} ms, {n_launch} launches, "
+            f"== count·G in all {NB} buckets, first level == plain version slot for slot; "
+            f"levels (out shape, ms): {levels}")
+    log(f"# dense fold bound (full fold, {full_adds} adds): {full_bound[0]:.4f} ms "
+        f"({full_bound[1]})")
+    lvl_mat = mat
+    ms = time_ms(lambda: cuda_ops.fold_level(lvl_mat, 8), 5)
+    plain = time_ms(lambda: cuda_ops.fold_segments_plain(lvl_mat, 1, 8, 1, 8), 1, warmup=1)
+    lvl_adds = NB * (cap // 8) * 7
+    bms, by = bound_ms(mat.numel() * 4 + NB * (cap // 8) * POINT_BYTES, lvl_adds * MULADDS_PER_ADD)
+    kernels.append(dict(
+        name="fold_segments", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
+        replaces="snark_verifier_tpu/msm/pallas_ops.py:246", launches=launches, max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        shape=[NB, cap, 3, 8], timed="first K=8 level (one launch)",
+        also_replaces=["snark_verifier_tpu/msm/pallas_ops.py:326",
+                       "snark_verifier_tpu/msm/pallas_ops.py:589"],
+        drivers_ms=drv_ms, full_fold_bound_ms=full_bound[0], tolerance="exact, affine"))
+
+
+def probe_phase(dev, kernels):
+    """The add-chain probe (micro_packed_dissect.py): CH = 16 chained RC15
+    adds and Fq multiplies on register-resident data, against CH steps of
+    their plain versions."""
+    import torch
+    from snark_verifier_tpu_torch.ff import FQ
+    from snark_verifier_tpu_torch.msm import cuda_ops
+
+    CH = 16
+    rng = np.random.default_rng(3)
+    ins = {B: (rand_lazy_words(rng, (B, 3), FQ.p, dev), rand_lazy_words(rng, (B, 3), FQ.p, dev))
+           for B in PROBE_BATCHES}
+    cuda_ops.reset_launches()
+    outs = {B: (cuda_ops.g1_add_chain(a, b, CH), cuda_ops.fq_mul_chain(a[:, 0].contiguous(),
+                                                                       b[:, 0].contiguous(), CH))
+            for B, (a, b) in ins.items()}
+    torch.cuda.synchronize()
+    counts = {k: cuda_ops.LAUNCHES[k] for k in ("g1_add_chain", "fq_mul_chain")}
+    rows, errs = {}, [0, 0]
+    for B, (a, b) in ins.items():
+        x, y = a[:, 0].contiguous(), b[:, 0].contiguous()
+        errs[0] = max(errs[0], word_err(outs[B][0], cuda_ops.g1_add_chain_plain(a, b, CH)))
+        errs[1] = max(errs[1], word_err(outs[B][1], cuda_ops.fq_mul_chain_plain(x, y, CH)))
+        check(errs == [0, 0], f"a chain differs from {CH} steps of its plain version at B={B}")
+        ms_a = time_ms(lambda: cuda_ops.g1_add_chain(a, b, CH), 10)
+        ms_m = time_ms(lambda: cuda_ops.fq_mul_chain(x, y, CH), 10)
+        pa = time_ms(lambda: cuda_ops.g1_add_chain_plain(a, b, CH), 1, warmup=0)
+        pm = time_ms(lambda: cuda_ops.fq_mul_chain_plain(x, y, CH), 1, warmup=0)
+        ba = bound_ms(3 * POINT_BYTES * B, B * CH * MULADDS_PER_ADD)
+        bm = bound_ms(3 * 32 * B, B * CH * MULADDS_PER_FQ_MUL)
+        rows[B] = (ms_a, pa, ba, ms_m, pm, bm)
+        log(f"# probe B={B} CH={CH}: add chain {ms_a:.4f} ms = {ms_a / CH * 1e3:.3f} us/add-step, "
+            f"{B * CH / ms_a / 1e6:.3f} G adds/s (bound {ba[0]:.4f} ms, "
+            f"{B * CH / ba[0] / 1e6:.3f} G adds/s); Fq mul chain {ms_m:.4f} ms = "
+            f"{B * CH / ms_m / 1e6:.3f} G Fq-muls/s (bound {bm[0]:.4f} ms, "
+            f"{B * CH / bm[0] / 1e6:.3f} G Fq-muls/s); plain {pa:.1f} / {pm:.1f} ms")
+    small, big = PROBE_BATCHES
+    ms_a, pa, ba, ms_m, pm, bm = rows[big]
+    kernels.append(dict(
+        name="g1_add_chain", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
+        replaces="benchmarks/micro_packed_dissect.py:48", launches=counts["g1_add_chain"],
+        max_abs_err=errs[0], ms=ms_a, plain_ms=pa, bound_ms=ba[0], bound_by=ba[1], library_ms=None,
+        shape=[big, 3, 8], ch=CH, ms_b256=rows[small][0], tolerance="exact, lazy words"))
+    kernels.append(dict(
+        name="fq_mul_chain", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
+        replaces="benchmarks/micro_packed_dissect.py:48", launches=counts["fq_mul_chain"],
+        max_abs_err=errs[1], ms=ms_m, plain_ms=pm, bound_ms=bm[0], bound_by=bm[1], library_ms=None,
+        shape=[big, 8], ch=CH, ms_b256=rows[small][3], tolerance="exact, lazy words"))
+
+
+def field_checks(dev):
+    """Every field kernel and the Poseidon permutation against their plain
+    versions on the card, bit for bit on lazy words; the hadeshash vector.
+    Returns each kernel's largest word difference (all 0)."""
+    from snark_verifier_tpu_torch.ff import FQW, FRW
+    from snark_verifier_tpu_torch.hash import permute, permute_plain
+
+    rng = np.random.default_rng(4)
+    B = CHECK_B
+    errs = {}
+    for F in (FQW, FRW):
+        a = rand_lazy_words(rng, (B,), F.spec.p, dev)
+        b = rand_lazy_words(rng, (B,), F.spec.p, dev)
+        c = a[5]  # one element broadcast over the batch, as the verifier's constants
+        cases = [(op, (x, y)) for op in ("mul", "add", "sub") for x, y in ((a, b), (a, c))]
+        cases += [("neg", (a,)), ("canon", (a,)), ("inv", (a[:8192],))]
+        for op, args in cases:
+            e = word_err(getattr(F, op)(*args), F.plain(op, *args))
+            check(e == 0, f"field_{op} ({F.spec.name}) differs from its plain version")
+            errs[f"field_{op}"] = max(errs.get(f"field_{op}", 0), e)
+    st = rand_lazy_words(rng, (1024, 3), FRW.spec.p, dev)
+    errs["poseidon_permute"] = word_err(permute(st), permute_plain(st))
+    check(errs["poseidon_permute"] == 0, "poseidon_permute differs from its plain version")
+    kat = permute(FRW.from_int([0, 1, 2]).view(1, 3, 8).to(dev))
+    check([int(v) for v in FRW.to_int(kat[0])] == PERM_X5_254_3, "poseidon hadeshash vector")
+    log(f"# field kernels (Fq, Fr) at B={B} and poseidon_permute at B=1024: bit-identical to "
+        f"their plain versions; hadeshash x5_254_3 vector OK")
+    return errs
+
+
+def verify_phase(dev, kernels, errs):
+    """The verify path: batch_succinct_verify at batch 1024 over the 16 committed
+    vanilla-PLONK k=10 fixtures, tiled."""
+    import torch
+    from pathlib import Path
+
+    from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
+    from snark_verifier_tpu_torch.ff import FQW, FRW
+    from snark_verifier_tpu_torch.hash import permute, permute_plain
+    from snark_verifier_tpu_torch.loader.base import TorchLoader
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+    from snark_verifier_tpu_torch.sdk.snark import Snark
+    from snark_verifier_tpu_torch.sdk.srs import load_params
+    from snark_verifier_tpu_torch.transcript import PoseidonTranscript
+    from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
+
+    B = VERIFY_BATCH
+    d = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    t0 = time.time()
+    srs = load_params(str(d / "srs.bin"))
+    base = [Snark.load(str(d / f"snark_{i:02d}.json")) for i in range(16)]
+    snarks = [base[i % 16] for i in range(B)]
+    oracle = [pv.succinct_verify_native(s, srs)[0] for s in base]
+    log(f"# verify inputs: SRS + 16 fixtures + 16 oracle runs: {time.time() - t0:.2f}s")
+
+    cuda_ops.reset_launches()
+    (lhs, rhs), = agg.batch_succinct_verify(snarks, srs)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    path = ("add", "double", "field_mul", "field_add", "field_sub", "field_neg", "field_inv",
+            "field_canon", "poseidon_permute")
+    log(f"# verify path launches per batch of {B}: { {k: launches[k] for k in path} }")
+    for k in path:
+        check(launches[k] > 0, f"kernel {k} was not launched on the verify path")
+    got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
+    bad = [b for b in range(B) if got[b] != oracle[b % 16]]
+    check(not bad, f"{len(bad)} lanes differ from the native oracle, first {bad[:5]}")
+    tam = Snark(base[0].protocol, [list(c) for c in base[0].instances], base[0].scalars,
+                base[0].points)
+    tam.instances[0][0] = (tam.instances[0][0] + 1) % FRW.spec.p
+    (tl, tr), = agg.batch_succinct_verify([tam] + snarks[1:], srs)
+    moved = ~(proj_equal(tl, lhs) & proj_equal(tr, rhs))
+    check(bool(moved[0]) and not bool(moved[1:].any()),
+          f"tampered lane 0: moved lanes {torch.nonzero(moved).flatten()[:5].tolist()}")
+    tgot = (to_affine_int(words_to_limbs(tl[0])), to_affine_int(words_to_limbs(tr[0])))
+    check(tgot == pv.succinct_verify_native(tam, srs)[0], "tampered lane != its oracle")
+    log(f"# verify gates: all {B} lanes == the native oracle of their fixture; the tampered "
+        f"instance moved lane 0 alone")
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        agg.batch_succinct_verify(snarks, srs)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    best = min(times)
+    log(f"# succinct verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} "
+        f"succinct proofs/s (runs {[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
+
+    # Phases of one batch, host clock around synchronized steps.
+    msm_s = [0.0]
+
+    class TimedLoader(TorchLoader):
+        def msm_evaluate(self, expr, g):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = super().msm_evaluate(expr, g)
+            torch.cuda.synchronize()
+            msm_s[0] += time.time() - t
+            return out
+
+    def phase(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.time() - t) * 1e3
+
+    protocol = base[0].protocol
+    (sc, pts, inst), t_stack = phase(lambda: agg._stack_streams(snarks, dev)
+                                     + (agg._stack_instances(snarks, dev),))
+    L = TimedLoader(B, dev)
+    proof, t_read = phase(lambda: pv.PlonkSuccinctVerifier.read_proof(
+        protocol, inst, PoseidonTranscript(sc, pts, dev), Bdfg21, L))
+    (cpe, evals), t_cpe = phase(lambda: (lambda c: (c, proof.instance_evals_and_map(
+        protocol, inst, c, L)))(pv.CommonPolynomialEvaluation(
+            protocol.domain, protocol.langranges(), proof.z, L)))
+    comms, t_comm = phase(lambda: proof.commitments(protocol, cpe, evals, L))
+    _, t_bdfg = phase(lambda: Bdfg21.verify(srs.g_dev(dev), comms, proof.z,
+                                            proof.queries(protocol, evals), proof.pcs, L))
+    t_msm = msm_s[0] * 1e3
+    log(f"# verify phases (ms): stacking and upload {t_stack:.2f}, transcript and read_proof "
+        f"{t_read:.2f}, CPE and evaluations {t_cpe:.2f}, commitments {t_comm:.2f}, "
+        f"Bdfg21 scalar work {t_bdfg - t_msm:.2f}, MSMs (msm_windowed) {t_msm:.2f}")
+
+    # Device busy share of one batch: kernel time from a torch.profiler
+    # trace over the host-clock wall time of the same (traced) call.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        agg.batch_succinct_verify(snarks, srs)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+    if busy_ms > 0:
+        log(f"# verify device time (torch.profiler, one traced batch): {busy_ms:.2f} ms busy of "
+            f"{wall_ms:.2f} ms wall = {busy_ms / wall_ms:.1%} busy; top: " + ", ".join(
+                f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+    else:
+        log("# verify device time: not measured (the profiler recorded no device events)")
+
+    # Kernel rows: times at the verify path's (1024, ·) shapes.
+    rng = np.random.default_rng(5)
+    a = rand_lazy_words(rng, (B,), FRW.spec.p, dev)
+    b = rand_lazy_words(rng, (B,), FRW.spec.p, dev)
+    n_inv = 254 + bin(FRW.spec.p - 2).count("1")
+    rows = {
+        "field_mul": (lambda: FRW.mul(a, b), lambda: FRW.plain("mul", a, b), 3 * 32 * B,
+                      MULADDS_PER_FQ_MUL * B, "snark_verifier_tpu/ff/jnp_field.py:145"),
+        "field_add": (lambda: FRW.add(a, b), lambda: FRW.plain("add", a, b), 3 * 32 * B, 0,
+                      "snark_verifier_tpu/ff/jnp_field.py:127"),
+        "field_sub": (lambda: FRW.sub(a, b), lambda: FRW.plain("sub", a, b), 3 * 32 * B, 0,
+                      "snark_verifier_tpu/ff/jnp_field.py:132"),
+        "field_neg": (lambda: FRW.neg(a), lambda: FRW.plain("neg", a), 2 * 32 * B, 0,
+                      "snark_verifier_tpu/ff/jnp_field.py:141"),
+        "field_canon": (lambda: FRW.canon(a), lambda: FRW.plain("canon", a), 2 * 32 * B, 0,
+                        "snark_verifier_tpu/ff/jnp_field.py:121"),
+        "field_inv": (lambda: FRW.inv(a), lambda: FRW.plain("inv", a), 2 * 32 * B,
+                      n_inv * MULADDS_PER_FQ_MUL * B, "snark_verifier_tpu/ff/jnp_field.py:211"),
+    }
+    st = rand_lazy_words(rng, (B, 3), FRW.spec.p, dev)
+    rows["poseidon_permute"] = (lambda: permute(st), lambda: permute_plain(st), 2 * 96 * B,
+                                828 * MULADDS_PER_FQ_MUL * B,
+                                "snark_verifier_tpu/hash/poseidon.py:110")
+    for name, (kern, plain, nbytes, nops, where) in rows.items():
+        ms = time_ms(kern, 50)
+        pms = time_ms(plain, 2, warmup=1)
+        bms, by = bound_ms(nbytes, nops)
+        src = "poseidon_kernels.cu" if name == "poseidon_permute" else "field_kernels.cu"
+        kernels.append(dict(
+            name=name, route="cuda", source=f"snark_verifier_tpu_torch/csrc/{src}",
+            replaces=where, launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=[B, 3, 8] if name == "poseidon_permute" else [B, 8],
+            tolerance="exact, lazy words"))
+    for row in kernels:
+        if row["name"] in ("add", "double"):
+            row["launches_verify"] = launches[row["name"]]
+    return B / best
+
+
 def main() -> int:
     import torch
 
@@ -98,10 +503,7 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(f"# device: {name} (count {count}); nvidia-smi: {smi}")
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -198,6 +600,8 @@ def main() -> int:
         gb = to_affine_int(words_to_limbs(out_p))
         bad = sum(x != y for x, y in zip(ga, gb))
         check(bad == 0, f"fold_buckets ({label}) disagrees with its twin in {bad} buckets")
+        errs["fold_buckets"] = max(errs["fold_buckets"], affine_err(out_k, out_p))
+        check(errs["fold_buckets"] == 0, f"fold_buckets ({label}): affine words differ")
         log(f"# fold_buckets vs twin at {tuple(idx.shape)} ({label}): affine-equal")
 
     # ---------------------------------------------------------- main path
@@ -208,8 +612,8 @@ def main() -> int:
     first_s = time.time() - t0
     launches = dict(cuda_ops.LAUNCHES)
     log(f"# msm 2^{LOG2N} first call: {first_s:.3f}s, launches {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("add", "double", "fold_buckets"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     check(not bool(ovf), "bucket overflow at 2^20")
     got = to_affine_int(out)
     check(got == want, "msm result != k_total·G")
@@ -323,6 +727,22 @@ def main() -> int:
         f"{bound_ms(3 * POINT_BYTES * big, MULADDS_PER_ADD * big)[0]:.4f} ms); "
         f"double at B=2^19: {ms_dbig:.4f} ms (bound "
         f"{bound_ms(2 * POINT_BYTES * big, MULADDS_PER_DOUBLE * big)[0]:.4f} ms)")
+    del pts_w, points, points_ext, scalars, digits, sa, sb, saw, sbw, ba, bb2, buckets, stacked
+    torch.cuda.empty_cache()
+
+    # ------------------------- the dense folds, the probe, the succinct verify
+    t0 = time.time()
+    dense_fold_phase(dev, kernels)
+    log(f"# dense fold phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    probe_phase(dev, kernels)
+    log(f"# probe phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    errs_field = field_checks(dev)
+    log(f"# field checks: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    rate = verify_phase(dev, kernels, errs_field)
+    log(f"# verify phase: {time.time() - t0:.1f}s; {rate:.1f} succinct proofs/s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`nvcc` compiles csrc/*.cu (sources of this checkout only) for sm_90a into
-build/ inside the package (listed in .gitignore): a plain C interface, no
-PyTorch headers, so a build takes seconds.  The library name carries a hash
-of the sources, so an edited kernel is never served from a stale build.
+`nvcc` compiles every csrc/*.cu (sources of this checkout only) for sm_90a,
+one process per source, all started together, then links the objects into
+one shared library in build/ inside the package (listed in .gitignore): a
+plain C interface, no PyTorch headers, so a build takes seconds.  The
+library name carries a hash of the sources, so an edited kernel is never
+served from a stale build.
 """
 
 from __future__ import annotations
@@ -19,18 +21,33 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-# C entry points of msm_kernels.cu: name -> argtypes (all return cudaError_t)
+_I = ctypes.c_int
+# C entry points of csrc/*.cu: name -> argtypes (all return a cudaError_t)
 _SIGNATURES = {
+    # msm_kernels.cu
     "svt_g1_add": [_P, _P, _P, _LL, _P],
     "svt_g1_double": [_P, _P, _LL, _P],
-    "svt_fold_buckets": [_P, _P, _LL, _LL, ctypes.c_int, _P, _P],
+    "svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _P],
+    # fold_kernels.cu
+    "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],
+    "svt_g1_add_chain": [_P, _P, _P, _LL, _I, _P],
+    "svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
+    # field_kernels.cu
+    "svt_field_mul": [_I, _P, _LL, _P, _LL, _P, _LL, _P],
+    "svt_field_add": [_I, _P, _LL, _P, _LL, _P, _LL, _P],
+    "svt_field_sub": [_I, _P, _LL, _P, _LL, _P, _LL, _P],
+    "svt_field_neg": [_I, _P, _P, _LL, _P],
+    "svt_field_inv": [_I, _P, _P, _LL, _P],
+    "svt_field_canon": [_I, _P, _P, _LL, _P],
+    # poseidon_kernels.cu
+    "svt_poseidon_load_constants": [_P, _P],
+    "svt_poseidon_permute": [_P, _P, _LL, _P],
 }
 
 _lib = None
@@ -48,8 +65,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _units():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
 def _sources():
-    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+    return _units() + sorted(SRC_DIR.glob("*.cuh"))
 
 
 def library_path() -> Path:
@@ -57,26 +78,38 @@ def library_path() -> Path:
     for f in _sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsvt_msm_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"libsvt_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands side by side; raise with every failing one's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        msg = "\n".join(f"{' '.join(c)}\n  -> rc {rc}\n{o}" for c, rc, o in failed)
+        raise RuntimeError(f"nvcc failed:\n{msg}")
+    return "".join(outs)
 
 
 def build() -> Path:
-    """Compile msm_kernels.cu unless this exact source is built already."""
+    """Compile and link csrc/*.cu unless these exact sources are built."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / "msm_kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (u.stem + ".o") for u in _units()]
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(u)]
+                        for u, o in zip(_units(), objs)])
+        lib_tmp = Path(tmp) / out.name
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib_tmp), *map(str, objs)]])
+        build_log = log
+        os.replace(lib_tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
 

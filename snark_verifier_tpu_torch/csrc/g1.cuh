@@ -1,5 +1,5 @@
 // BN254 G1 group law on the GPU: homogeneous projective (X : Y : Z) over Fq
-// (fq.cuh), infinity (0 : 1 : 0).  The Renes-Costello 2015 complete
+// (fq.cuh, field tag FQ), infinity (0 : 1 : 0).  The Renes-Costello 2015 complete
 // formulas (alg. 7 add, alg. 9 double, a = 0, 3b = 9) with the same field
 // ops in the same order as ec/curve.py, so results equal the plain twin's
 // bit for bit.  Complete: no branch for P == Q, P == -Q or the identity.
@@ -22,7 +22,7 @@ __device__ __forceinline__ void g1_identity(G1& p) {
 #pragma unroll
   for (int i = 0; i < FQ_WORDS; i++) {
     p.x[i] = 0u;
-    p.y[i] = FQ_ONE[i];
+    p.y[i] = FIELD_ONE[FQ][i];
     p.z[i] = 0u;
   }
 }

@@ -2,6 +2,7 @@ from .curve import CurveOps
 from .g1 import (
     G1,
     from_affine_int,
+    from_affine_int_np,
     from_jax_points,
     generator,
     limbs_to_words,
@@ -15,6 +16,7 @@ __all__ = [
     "CurveOps",
     "G1",
     "from_affine_int",
+    "from_affine_int_np",
     "from_jax_points",
     "generator",
     "limbs_to_words",

@@ -19,31 +19,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ff import FQ, FQ_FIELD, NLIMBS
+from ..ff import FQ, FQ_FIELD, NLIMBS, limbs_to_words, np_limbs_to_words, words_to_limbs
 from ..ff.spec import BN254_B, int_to_limbs, limbs_to_int
 from .curve import CurveOps
 
 G1 = CurveOps(FQ_FIELD, b=BN254_B, name="bn254_g1")
 
 NWORDS = 8  # 32-bit words per coordinate in the kernels' layout
-
-
-# ------------------------------------------------------------------ layouts
-
-
-def limbs_to_words(limbs):
-    """(..., 16) 16-bit limbs (any integer dtype) -> (..., 8) int32 words."""
-    l = limbs.to(torch.int64).reshape(*limbs.shape[:-1], NWORDS, 2)
-    w = l[..., 0] | (l[..., 1] << 16)
-    return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
-
-
-def words_to_limbs(words):
-    """(..., 8) int32 words -> (..., 16) int64 16-bit limbs."""
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(
-        *words.shape[:-1], 2 * NWORDS
-    )
 
 
 def from_jax_points(points, device=None):
@@ -78,6 +60,12 @@ def from_affine_int(pts, device="cpu"):
         out[i, 1] = int_to_limbs(y * R % p)
         out[i, 2] = int_to_limbs(R % p)  # Z = 1 in Montgomery form
     return torch.as_tensor(out, device=device)
+
+
+def from_affine_int_np(pts) -> np.ndarray:
+    """Host: affine (x, y) int tuples (None = infinity) -> (n, 3, 8) int32
+    projective Montgomery words in numpy, ready for one upload."""
+    return np_limbs_to_words(from_affine_int(pts).numpy())
 
 
 def to_affine_int(pt):

@@ -115,13 +115,6 @@ def _identity(k: int, device):
     return limbs_to_words(G1.infinity((k,), device=device))
 
 
-def _add(a, b):
-    """cuda_ops.add over any matching batch shape (..., 3, 8)."""
-    shape = a.shape
-    out = cuda_ops.add(a.reshape(-1, 3, 8).contiguous(), b.reshape(-1, 3, 8).contiguous())
-    return out.view(shape)
-
-
 def _weighted_bucket_sum(buckets):
     """Σ_{b>=1} b·B_b over axis 1 of (W, n_buckets, 3, 8), as the tree sum of
     suffix sums: a Hillis-Steele scan (log2 steps) then a halving tree, each
@@ -130,11 +123,11 @@ def _weighted_bucket_sum(buckets):
     width = s.shape[1]
     d = 1
     while d < width:
-        s = torch.cat([s[:, :d], _add(s[:, d:], s[:, : width - d])], dim=1)
+        s = torch.cat([s[:, :d], cuda_ops.add_nd(s[:, d:], s[:, : width - d])], dim=1)
         d *= 2
     while s.shape[1] > 1:  # tree sum, odd widths carry their last column
         half = s.shape[1] // 2
-        s = torch.cat([_add(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
+        s = torch.cat([cuda_ops.add_nd(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
     return s[:, 0]
 
 

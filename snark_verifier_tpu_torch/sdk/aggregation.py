@@ -1,0 +1,82 @@
+"""Batched succinct verification: the counterpart of the JAX package's
+`sdk/aggregation.py` (`_stack_streams` :40, `_stack_instances` :50,
+`batch_succinct_verify` :80).
+
+B snarks of one protocol verify as one batch on one device: their streams
+are stacked on the host and uploaded once per stream, and every field,
+Poseidon and group op of the verifier then works on all B lanes at once
+(one kernel launch per op on the card).  The result is each proof's KZG
+accumulator, to be decided by pairings.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ff import np_limbs_to_words
+from ..ff.spec import FR, int_to_limbs
+from ..loader.base import TorchLoader
+from ..pcs.kzg.multiopen import Bdfg21
+from ..transcript.poseidon_transcript import PoseidonTranscript
+from ..verifier.plonk.verifier import PlonkSuccinctVerifier
+from .snark import Snark
+
+SCHEMES = {"shplonk": Bdfg21}
+TRANSCRIPTS = {"poseidon": PoseidonTranscript}
+
+
+def _stack_streams(snarks: Sequence[Snark], device):
+    """-> scalars (B, n, 8), points (B, m, 2, 8) words: one upload each."""
+    pairs = [s.host_streams() for s in snarks]
+    sc = torch.from_numpy(np.stack([p[0] for p in pairs], 0)).to(device)
+    pts = torch.from_numpy(np.stack([p[1] for p in pairs], 0)).to(device)
+    return sc, pts
+
+
+def _stack_instances(snarks: Sequence[Snark], device):
+    """-> a list (per instance column) of lists of (B, 8) Fr words, from one
+    host block and one upload."""
+    p, R = FR.p, 1 << 256
+    num_instance = snarks[0].protocol.num_instance
+    flat = np.zeros((len(snarks), sum(num_instance), 16), np.uint32)
+    for b, s in enumerate(snarks):
+        vals = [v for col in s.instances for v in col]
+        for k, v in enumerate(vals):
+            flat[b, k] = int_to_limbs((v % p) * R % p)
+    flat_dev = torch.from_numpy(np_limbs_to_words(flat)).to(device)
+    out, k = [], 0
+    for ncol in num_instance:
+        out.append([flat_dev[:, k + i] for i in range(ncol)])
+        k += ncol
+    return out
+
+
+def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",
+                          transcript: str = "poseidon", device=None):
+    """One batched succinct verification of B same-protocol snarks on
+    `device` (None: the CUDA card).  Returns the list of (lhs, rhs)
+    accumulators, each (B, 3, 8) projective G1 words.
+
+    Supported: scheme "shplonk" with transcript "poseidon"; any other pair
+    raises ValueError."""
+    if scheme_name not in SCHEMES or transcript not in TRANSCRIPTS:
+        raise ValueError(f"unsupported scheme/transcript pair {scheme_name}/{transcript}: "
+                         f"the port verifies {sorted(SCHEMES)} with {sorted(TRANSCRIPTS)}")
+    if not snarks:
+        raise ValueError("batch_succinct_verify: empty batch")
+    dev = resolve_device(device)
+    protocol = snarks[0].protocol
+    digests = {id(s.protocol): s.protocol for s in snarks}  # tiled batches share objects
+    if len({p.content_hash() for p in digests.values()}) != 1:
+        raise ValueError("a batch verifies one shared protocol")
+    scheme = SCHEMES[scheme_name]
+    sc, pts = _stack_streams(snarks, dev)
+    instances = _stack_instances(snarks, dev)
+    L = TorchLoader(len(snarks), dev)
+    td = TRANSCRIPTS[transcript](sc, pts, dev)
+    proof = PlonkSuccinctVerifier.read_proof(protocol, instances, td, scheme, L)
+    return PlonkSuccinctVerifier.verify(srs.g_dev(dev), protocol, instances, proof, scheme, L)

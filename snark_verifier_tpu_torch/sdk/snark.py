@@ -1,0 +1,98 @@
+"""The Snark container: the counterpart of the JAX package's `sdk/snark.py`
+(`Snark.load`, `validate`, `host_streams`).
+
+A proof is kept as its pre-parsed transcript streams: Fr scalars and affine
+G1 points, python ints in transcript order.  `host_streams` turns them into
+one numpy block each in the port's word layout, so stacking a batch is one
+upload per stream.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+from .. import errors
+from ..ec import py_ec
+from ..ec.g1 import from_affine_int_np
+from ..ff import np_limbs_to_words
+from ..ff.spec import FQ, FR, int_to_limbs
+from ..verifier.plonk.protocol import PlonkProtocol
+
+
+@dataclass
+class Snark:
+    protocol: PlonkProtocol
+    instances: List[List[int]]
+    scalars: List[int]  # proof scalar stream (transcript order)
+    points: List[Tuple[int, int]]  # proof point stream (affine)
+
+    @staticmethod
+    def from_json(d: dict) -> "Snark":
+        toint = lambda v: int(v, 16)
+        return Snark(
+            protocol=PlonkProtocol.from_json(d["protocol"]),
+            instances=[[toint(v) for v in col] for col in d["instances"]],
+            scalars=[toint(s) for s in d["scalars"]],
+            points=[(toint(x), toint(y)) for x, y in d["points"]],
+        )
+
+    @staticmethod
+    def load(path: str) -> "Snark":
+        with open(path) as f:
+            return Snark.from_json(json.load(f))
+
+    def validate(self):
+        """Reject malformed proofs before any kernel sees them: every proof
+        point on the curve with reduced coordinates (the identity is
+        invalid: the transcript absorbs affine coordinates), every scalar
+        and instance a reduced Fr element, instance columns of the
+        protocol's sizes.  Raises errors.TranscriptError /
+        errors.InvalidInstances."""
+        for i, pt in enumerate(self.points):
+            if pt is None:
+                raise errors.TranscriptError(f"proof point {i} is the identity")
+            x, y = pt
+            if not (0 <= x < FQ.p and 0 <= y < FQ.p):
+                raise errors.TranscriptError(f"proof point {i} coordinate not reduced")
+            if not py_ec.is_on_curve((x, y)):
+                raise errors.TranscriptError(f"proof point {i} not on curve")
+        for i, s in enumerate(self.scalars):
+            if not 0 <= s < FR.p:
+                raise errors.TranscriptError(f"proof scalar {i} not reduced")
+        if [len(c) for c in self.instances] != self.protocol.num_instance:
+            raise errors.InvalidInstances(
+                f"{[len(c) for c in self.instances]} != {self.protocol.num_instance}"
+            )
+        for col in self.instances:
+            for v in col:
+                if not 0 <= v < FR.p:
+                    raise errors.InvalidInstances("instance value not reduced")
+        if self.protocol.accumulator_indices:
+            raise errors.InvalidProtocol("instance-encoded accumulators are not supported yet")
+        return self
+
+    def host_streams(self):
+        """-> (scalars (n, 8), points (m, 2, 8)) int32 numpy Montgomery
+        words, validated first.  Memoized: a batch tiles a few fixture
+        snarks, and each is converted once."""
+        cached = getattr(self, "_host_streams", None)
+        if cached is not None:
+            return cached
+        self.validate()
+        p, R = FR.p, 1 << 256
+        sc = (
+            np_limbs_to_words(np.stack([int_to_limbs(s * R % p) for s in self.scalars]))
+            if self.scalars
+            else np.zeros((0, 8), np.int32)
+        )
+        pts = (
+            np.ascontiguousarray(from_affine_int_np(self.points)[:, :2])
+            if self.points
+            else np.zeros((0, 2, 8), np.int32)
+        )
+        self._host_streams = (sc, pts)
+        return sc, pts

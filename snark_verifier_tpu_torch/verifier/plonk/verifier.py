@@ -1,0 +1,214 @@
+"""The generic PLONK succinct verifier, written once against a loader: the
+counterpart of the JAX package's `verifier/plonk/verifier.py`.
+
+  * CommonPolynomialEvaluation — z^n, z^n − 1 and the Lagrange evaluations
+    with one batched inversion (reference protocol.rs:188-279);
+  * PlonkProof.read — transcript-driven proof parsing (proof.rs:52-153),
+    instance evaluations (:283-318), linearization MSM assembly (:179-281);
+  * PlonkSuccinctVerifier.verify -> [accumulator] (verifier/plonk.rs:58-92).
+
+The protocol is host data; scalars and points are loader handles.  Under
+`TorchLoader` one call verifies a batch of proofs of one protocol on one
+device; under `NATIVE` it is the python-int oracle
+(`succinct_verify_native`).  Supported: SHPLONK (`Bdfg21`) with the
+Poseidon transcript, protocols whose instances are absorbed as scalars
+(no instance committing key) and carry no old accumulators.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from ... import errors
+from ...pcs.kzg.multiopen import Bdfg21, Query as PcsQuery
+from .protocol import PlonkProtocol, Query, R
+
+
+class CommonPolynomialEvaluation:
+    def __init__(self, domain, lagranges: List[int], z, L):
+        self.zn = L.pow_static(z, domain.n)
+        self.zn_minus_one = L.sub(self.zn, L.scalar(1))
+        self.identity = z
+
+        numer = L.mul(self.zn_minus_one, L.scalar(domain.n_inv))
+        omegas = [domain.rotate(i) for i in lagranges]
+        numers = [L.mul(numer, L.scalar(w)) for w in omegas]
+        denoms = [L.sub(z, L.scalar(w)) for w in omegas]
+        invs = L.batch_inv(denoms + [self.zn_minus_one])
+        self.zn_minus_one_inv = invs[-1]
+        self.lagrange = {
+            i: L.mul(num, invs[j]) for j, (i, num) in enumerate(zip(lagranges, numers))
+        }
+
+    def get(self, cp):
+        if cp[0] == "identity":
+            return self.identity
+        return self.lagrange[cp[1]]
+
+
+class PlonkProof:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    @staticmethod
+    def read(protocol: PlonkProtocol, instances, transcript, pcs_scheme, L):
+        """instances: list (per instance column) of lists of loader scalars."""
+        if protocol.transcript_initial_state is not None:
+            transcript.common_scalar(L.scalar(protocol.transcript_initial_state))
+        if [len(i) for i in instances] != protocol.num_instance:
+            raise errors.InvalidInstances(
+                f"{[len(i) for i in instances]} != {protocol.num_instance}"
+            )
+        if protocol.instance_committing_key is not None:
+            raise errors.InvalidProtocol("instance committing keys are not supported yet")
+        if protocol.accumulator_indices:
+            raise errors.InvalidProtocol("instance-encoded accumulators are not supported yet")
+        for cols in instances:
+            for v in cols:
+                transcript.common_scalar(v)
+
+        witnesses, challenges = [], []
+        for n, m in zip(protocol.num_witness, protocol.num_challenge):
+            witnesses.extend(transcript.read_n_ec_points(n))
+            challenges.extend(transcript.squeeze_challenge() for _ in range(m))
+
+        quotients = transcript.read_n_ec_points(protocol.quotient.num_chunk())
+        z = transcript.squeeze_challenge()
+        evaluations = transcript.read_n_scalars(len(protocol.evaluations))
+        pcs_proof = pcs_scheme.read_proof(PlonkProof.empty_queries(protocol), transcript)
+        return PlonkProof(
+            witnesses=witnesses,
+            challenges=challenges,
+            quotients=quotients,
+            z=z,
+            evaluations=evaluations,
+            pcs=pcs_proof,
+        )
+
+    @staticmethod
+    def empty_queries(protocol: PlonkProtocol) -> List[PcsQuery]:
+        return [PcsQuery(q.poly, protocol.domain.rotate(q.rotation)) for q in protocol.queries]
+
+    def queries(self, protocol, evaluations: Dict) -> List[PcsQuery]:
+        return [
+            PcsQuery(pq.poly, pq.shift, evaluations[q])
+            for q, pq in zip(protocol.queries, PlonkProof.empty_queries(protocol))
+        ]
+
+    def instance_evals_and_map(self, protocol, instances, cpe, L) -> Dict:
+        """The evaluations map: Query -> loader scalar (proof.rs:283-318)."""
+        evals: Dict[Query, object] = {}
+        offset = len(protocol.preprocessed)
+        rng = range(offset, offset + len(protocol.num_instance))
+        inst_queries = [q for q in protocol.quotient.numerator.used_query() if q.poly in rng]
+        for q in inst_queries:
+            acc = None
+            for i, v in enumerate(instances[q.poly - offset]):
+                term = L.mul(v, cpe.get(("lagrange", i - q.rotation)))
+                acc = term if acc is None else L.add(acc, term)
+            evals[q] = L.scalar(0) if acc is None else acc
+        for q, v in zip(protocol.evaluations, self.evaluations):
+            evals[q] = v
+        return evals
+
+    def commitments(self, protocol, cpe, evaluations: Dict, L) -> List:
+        """Linearization MSM assembly (proof.rs:179-281)."""
+        comms: List = [L.msm_base_int(pt) for pt in protocol.preprocessed]
+        comms.extend(L.msm_zero() for _ in protocol.num_instance)
+        comms.extend(L.msm_base(w) for w in self.witnesses)
+
+        def constant(v):
+            return L.msm_constant(L.scalar(v))
+
+        def common_poly(cp):
+            return L.msm_constant(cpe.get(cp))
+
+        def poly(q: Query):
+            if q in evaluations:
+                return L.msm_constant(evaluations[q])
+            if q.rotation != 0:
+                raise errors.InvalidProtocol(f"missing query {q}")
+            return comms[q.poly]
+
+        def challenge(idx):
+            return L.msm_constant(self.challenges[idx])
+
+        zero = L.zero_scalar()
+
+        def product(a, b):
+            if a.size() == 0:
+                return b * a.try_constant(zero)
+            if b.size() == 0:
+                return a * b.try_constant(zero)
+            raise errors.InvalidProtocol("invalid linearization")
+
+        numerator = protocol.quotient.numerator.evaluate(
+            constant,
+            common_poly,
+            poly,
+            challenge,
+            lambda a: -a,
+            lambda a, b: a + b,
+            product,
+            lambda a, s: a * L.scalar(s),
+        )
+
+        quotient_query = Query(
+            len(protocol.preprocessed) + len(protocol.num_instance) + len(self.witnesses), 0
+        )
+        zn_chunk = L.pow_static(cpe.zn, protocol.quotient.chunk_degree)
+        pow_zn = L.powers(zn_chunk, len(self.quotients))
+        quotient = L.msm_sum([L.msm_base(c) * p for c, p in zip(self.quotients, pow_zn)])
+
+        lin = protocol.linearization
+        if lin == "WithoutConstant":
+            lin_query = Query(quotient_query.poly + 1, 0)
+            msm, const = numerator.split()
+            comms.append(quotient)
+            comms.append(msm)
+            base = const if const is not None else L.scalar(0)
+            evaluations[quotient_query] = L.mul(
+                L.add(base, evaluations[lin_query]), cpe.zn_minus_one_inv
+            )
+        elif lin == "MinusVanishingTimesQuotient":
+            msm, const = (numerator - quotient * cpe.zn_minus_one).split()
+            comms.append(msm)
+            evaluations[quotient_query] = const if const is not None else L.scalar(0)
+        else:
+            comms.append(quotient)
+            c = numerator.try_constant(zero)
+            if c is None:
+                raise errors.InvalidProtocol("invalid linearization")
+            evaluations[quotient_query] = L.mul(c, cpe.zn_minus_one_inv)
+        return comms
+
+
+class PlonkSuccinctVerifier:
+    """verify -> [accumulator] (verifier/plonk.rs:58-92; a protocol with
+    instance-encoded old accumulators is refused by `PlonkProof.read`)."""
+
+    @staticmethod
+    def read_proof(protocol, instances, transcript, pcs_scheme, L):
+        return PlonkProof.read(protocol, instances, transcript, pcs_scheme, L)
+
+    @staticmethod
+    def verify(svk_g, protocol, instances, proof, pcs_scheme, L):
+        cpe = CommonPolynomialEvaluation(protocol.domain, protocol.langranges(), proof.z, L)
+        evaluations = proof.instance_evals_and_map(protocol, instances, cpe, L)
+        commitments = proof.commitments(protocol, cpe, evaluations, L)
+        queries = proof.queries(protocol, evaluations)
+        accumulator = pcs_scheme.verify(svk_g, commitments, proof.z, queries, proof.pcs, L)
+        return [accumulator]
+
+
+def succinct_verify_native(snark, srs):
+    """Python-int succinct verification of one `sdk.snark.Snark` (SHPLONK,
+    Poseidon transcript) -> [(lhs, rhs)] affine-int accumulators: the
+    port's own oracle, the reference's NativeLoader path."""
+    from ...loader.base import NATIVE
+    from ...transcript.poseidon_transcript import PoseidonTranscriptPy
+
+    t = PoseidonTranscriptPy(scalars=snark.scalars, points=snark.points)
+    instances = [[v % R for v in col] for col in snark.instances]
+    proof = PlonkProof.read(snark.protocol, instances, t, Bdfg21, NATIVE)
+    return PlonkSuccinctVerifier.verify(srs.g, snark.protocol, instances, proof, Bdfg21, NATIVE)

@@ -139,5 +139,28 @@ def test_plain_twins_count_no_launches():
     w = from_jax_points(_rand_triples(2, 6), device="cpu")
     cuda_ops.add(w, w)
     cuda_ops.double(w)
-    assert cuda_ops.LAUNCHES == {"add": 0, "double": 0, "fold_buckets": 0}
+    cuda_ops.fold_level(w.view(1, 2, 3, 8), 2)
+    assert {"add", "double", "fold_buckets", "fold_segments"} <= set(cuda_ops.LAUNCHES)
+    assert all(v == 0 for v in cuda_ops.LAUNCHES.values())
     assert words_to_limbs(w).dtype == torch.int64
+
+
+def test_msm_windowed_and_tree_sum_match_jax():
+    """The verify-path MSM (c = 4 windows, shared doublings) over bases with
+    the identity among them, and the halving tree sum with an odd width."""
+    pts = py_ec.rand_points(4, seed=12) + [None]
+    rng = np.random.default_rng(13)
+    digits = rng.integers(0, 16, size=(5, 6)).astype(np.uint32)
+    jpts = j_from_affine(pts)
+    wpts = from_jax_points(np.asarray(jpts), device="cpu")
+    got = cuda_ops.msm_windowed(wpts, torch.from_numpy(digits.astype(np.int64)), c=4)
+    want = JG1.msm_windowed(jpts, jnp.asarray(digits), c=4)
+    ks = [sum(int(d) << (4 * w) for w, d in enumerate(row)) for row in digits]
+    assert to_affine_int(to_jax_points(got)) == j_to_affine(want) == py_ec.msm(pts, ks)
+    got = cuda_ops.tree_sum(wpts, dim=0)
+    want = JG1.tree_sum(jpts, axis=0)
+    assert np.array_equal(to_jax_points(got), np.asarray(want))  # same adds, same limbs
+    x, y, inf = cuda_ops.to_affine(torch.stack([got, cuda_ops.identity((), "cpu")]))
+    assert inf.tolist() == [False, True]
+    assert (FQ_FIELD.to_int(words_to_limbs(x[0])), FQ_FIELD.to_int(words_to_limbs(y[0]))) \
+        == to_affine_int(to_jax_points(got))

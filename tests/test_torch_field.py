@@ -11,7 +11,9 @@ import torch
 import jax.numpy as jnp
 
 from snark_verifier_tpu.ff import FQ_FIELD as JFQ, FR_FIELD as JFR
+from snark_verifier_tpu.ff.jnp_field import u16_limbs_to_digits4
 from snark_verifier_tpu_torch.ff import FQ, FR, FQ_FIELD as TFQ, FR_FIELD as TFR
+from snark_verifier_tpu_torch.ff import FQW, FRW, digits4, from_jax_elems, to_jax_elems
 from snark_verifier_tpu_torch.ff.spec import int_to_limbs, limbs_to_int
 
 
@@ -107,3 +109,67 @@ def test_is_zero(fname):
                          .astype(np.int64))
     assert ft.is_zero(a).tolist() == [True, True, True, False]
     assert fj.is_zero(jnp.asarray(a.numpy().astype(np.uint32))).tolist() == [True] * 3 + [False]
+
+
+# ------------------------------------------- the verifier's word-layout field
+
+WORD_FIELDS = {"fq": (FQ, JFQ, FQW), "fr": (FR, JFR, FRW)}
+
+
+def _words(arr):
+    return from_jax_elems(arr, device="cpu")
+
+
+def _canon_ints(F, words):
+    return [int(v) for v in np.asarray(F.to_int(words)).reshape(-1)]
+
+
+@pytest.mark.parametrize("fname", ["fq", "fr"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_word_field_ops_match_jax(fname, op):
+    spec, fj, fw = WORD_FIELDS[fname]
+    a, b = _lazy_reprs(spec.p, 6), _lazy_reprs(spec.p, 7)[::-1].copy()
+    got = to_jax_elems(getattr(fw, op)(_words(a), _words(b)))
+    assert np.array_equal(got, np.asarray(getattr(fj, op)(jnp.asarray(a), jnp.asarray(b))))
+    one = fw.scalar(3, "cpu")  # a broadcast (8,) constant
+    got = to_jax_elems(getattr(fw, op)(_words(a), one))
+    assert np.array_equal(got, np.asarray(getattr(fj, op)(jnp.asarray(a), fj.from_int(3))))
+
+
+@pytest.mark.parametrize("fname", ["fq", "fr"])
+def test_word_field_pow_inv_and_montgomery_match_jax(fname):
+    spec, fj, fw = WORD_FIELDS[fname]
+    a = _lazy_reprs(spec.p, 8, n=10)
+    aj, aw = jnp.asarray(a), _words(a)
+    for e in (0, 1, 5, 1024):
+        assert _canon_ints(fw, fw.pow_static(aw, e)) == \
+            [int(v) for v in np.asarray(fj.to_int(fj.pow_static(aj, e))).reshape(-1)]
+    assert _canon_ints(fw, fw.inv(aw)) == [int(v) for v in np.asarray(fj.to_int(fj.inv(aj)))]
+    plain = np.stack([int_to_limbs(v % spec.p) for v in (0, 1, 5, spec.p - 1)])
+    mont = fw.to_mont(_words(plain))
+    assert np.array_equal(to_jax_elems(mont), np.asarray(fj.to_mont(jnp.asarray(plain))))
+    assert np.array_equal(to_jax_elems(fw.from_mont(mont)), plain)
+    assert np.array_equal(to_jax_elems(fw.from_mont(aw)), np.asarray(fj.from_mont(aj)))
+
+
+@pytest.mark.parametrize("fname", ["fq", "fr"])
+def test_word_field_batch_inv_matches_jax(fname):
+    """A sequential prefix where JAX scans in parallel: the same values,
+    compared canonically; zeros (0, p and 2p) map to zero."""
+    spec, fj, fw = WORD_FIELDS[fname]
+    a = _lazy_reprs(spec.p, 9, n=12).reshape(6, 2, 16)
+    got = fw.batch_inv(_words(a))
+    want = fj.batch_inv(jnp.asarray(a))
+    assert _canon_ints(fw, got) == [int(v) for v in np.asarray(fj.to_int(want)).reshape(-1)]
+    vals = _canon_ints(fw, _words(a))
+    assert _canon_ints(fw, got) == [pow(v, -1, spec.p) if v else 0 for v in vals]
+
+
+def test_digits4_match_jax():
+    rng = np.random.default_rng(10)
+    vals = [0, FR.p - 1] + [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(6)]
+    limbs = np.stack([int_to_limbs(v) for v in vals])
+    got = digits4(_words(limbs)).numpy()  # (8, 64) int64
+    assert np.array_equal(got, np.asarray(u16_limbs_to_digits4(jnp.asarray(limbs)))
+                          .astype(np.int64))
+    assert [sum(int(d) << (4 * i) for i, d in enumerate(row)) for row in got] == vals

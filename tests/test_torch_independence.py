@@ -39,6 +39,19 @@ import snark_verifier_tpu_torch.ec
 import snark_verifier_tpu_torch.ff
 import snark_verifier_tpu_torch.msm
 import snark_verifier_tpu_torch.msm.cuda_ops
+import snark_verifier_tpu_torch.errors
+import snark_verifier_tpu_torch.hash
+import snark_verifier_tpu_torch.transcript
+import snark_verifier_tpu_torch.loader.base
+import snark_verifier_tpu_torch.loader.msm_expr
+import snark_verifier_tpu_torch.pairing.py_pairing
+import snark_verifier_tpu_torch.pcs.kzg.multiopen
+import snark_verifier_tpu_torch.verifier.plonk.protocol
+import snark_verifier_tpu_torch.verifier.plonk.verifier
+import snark_verifier_tpu_torch.sdk.aggregation
+import snark_verifier_tpu_torch.sdk.proof_io
+import snark_verifier_tpu_torch.sdk.snark
+import snark_verifier_tpu_torch.sdk.srs
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "snark_verifier_tpu")]
 assert not bad, bad
 print("OK")
