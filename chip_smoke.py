@@ -9,13 +9,16 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 2. builds the CUDA kernels from this checkout's sources (nvcc, sm_90a);
 3. holds each kernel against its plain PyTorch twin on the card: `add` and
    `double` at B = 65,536 (with identity, P == Q and P == -Q lanes) exactly,
-   after canonicalization; `fold_buckets` at the MSM's real main-window
-   (256, 4,624) and top-window (49, 25,846) shapes, in affine form;
+   after canonicalization; `fold_buckets` at the MSM's real shapes, in
+   affine form: one main window (256, 4,624), all 31 main windows in one
+   launch (7,936, 4,624), and the top window (49, 25,846) both whole and
+   split into segments (`fold_buckets_split`);
 4. the main path: `msm` at n = 2^20, c = 8 over [1..n]·G (built on the card
    with the add kernel) and bench.py's scalars (numpy seed 42), with every
    kernel's launch count read around that one call; gates: no overflow, the
-   result equals k_total·G (python-int oracle), and one incremented scalar
-   moves the result by exactly (i+1)·G; then best-of-3 points/s;
+   result equals k_total·G (python-int oracle), one incremented scalar
+   moves the result by exactly (i+1)·G, and at most 3 fold launches; then
+   best-of-3 points/s;
 5. kernel timings with CUDA events at the main path's shapes, beside each
    kernel's bound and its plain twin's time;
 6. the dense bucket folds (fold_buckets_chunked K=8, fold_buckets_halving 4
@@ -24,11 +27,13 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    1), each run with its launch count read around it; gates: every bucket
    sum equals count·G (python-int oracle), each driver's first level equals
    its plain version slot for slot in affine form; ms per driver and level;
-7. the add-chain probe: CH = 16 chained RC15 adds and Fq multiplies at
-   B = 256 and 2^17, bit-identical to 16 steps of their plain versions;
-8. the field kernels (Fq and Fr, B = 65,536) and the Poseidon permutation
-   (B = 1,024, plus the hadeshash x5_254_3 vector), bit-identical to their
-   plain versions;
+7. the add-chain probe: CH = 16 chained RC15 adds, Fq multiplies and Fq
+   squares at B = 256 and 2^17, bit-identical to 16 steps of their plain
+   versions;
+8. the field kernels (Fq and Fr, B = 65,536), the Poseidon permutation
+   (B = 1,024, plus the hadeshash x5_254_3 vector) and the fused sponge
+   squeeze `poseidon_absorb` (B = 1,024, buffers of 0 to 5 elements),
+   bit-identical to their plain versions;
 9. the verify path: `batch_succinct_verify` at batch 1,024 (the 16 committed
    vanilla-PLONK k=10 fixtures tiled) with every kernel's launch count read
    around one call; gates: every lane's accumulator equals the port's
@@ -60,7 +65,15 @@ VERIFY_BATCH = 1024
 # multiply-add throughput (64 per SM per clock, 132 SMs, 1.98 GHz boost).
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 64 * 132 * 1.98e9
-MULADDS_PER_FQ_MUL = 136  # CIOS, 8x32-bit words: 64 a*b + 8 m + 64 m*p
+MULADDS_PER_FQ_MUL = 136  # word-serial Montgomery, 8x32-bit words: 64 a*b + 8 m + 64 m*p
+MULS_PER_PERMUTATION = 828  # 8 full rounds of 9 + 9, 57 partial rounds of 3 + 9
+# The multiplies one lane runs per permutation when a team of lanes shares
+# a state: 65 rounds of 3 (S-box) + 3 (its MDS row).  A warp alone on its
+# scheduler starts each multiply's 136 multiply-adds two clocks apart at the
+# 1.98 GHz boost clock, whatever their dependence: the floor of one launch
+# at a batch too small to give a scheduler a second warp.
+POSEIDON_CHAIN_MULS = 65 * 6
+CHAIN_FLOOR_MS_PER_MUL = 136 * 2 / 1.98e9 * 1e3
 MULADDS_PER_ADD = 12 * MULADDS_PER_FQ_MUL
 MULADDS_PER_DOUBLE = 8 * MULADDS_PER_FQ_MUL
 POINT_BYTES = 96
@@ -263,14 +276,16 @@ def probe_phase(dev, kernels):
             for B, (a, b) in ins.items()}
     torch.cuda.synchronize()
     counts = {k: cuda_ops.LAUNCHES[k] for k in ("g1_add_chain", "fq_mul_chain")}
-    rows, errs = {}, [0, 0]
+    rows, errs, sqr_ms = {}, [0, 0], {}
     for B, (a, b) in ins.items():
         x, y = a[:, 0].contiguous(), b[:, 0].contiguous()
         errs[0] = max(errs[0], word_err(outs[B][0], cuda_ops.g1_add_chain_plain(a, b, CH)))
-        errs[1] = max(errs[1], word_err(outs[B][1], cuda_ops.fq_mul_chain_plain(x, y, CH)))
+        errs[1] = max(errs[1], word_err(outs[B][1], cuda_ops.fq_mul_chain_plain(x, y, CH)),
+                      word_err(cuda_ops.fq_sqr_chain(x, CH), cuda_ops.fq_sqr_chain_plain(x, CH)))
         check(errs == [0, 0], f"a chain differs from {CH} steps of its plain version at B={B}")
         ms_a = time_ms(lambda: cuda_ops.g1_add_chain(a, b, CH), 10)
         ms_m = time_ms(lambda: cuda_ops.fq_mul_chain(x, y, CH), 10)
+        sqr_ms[B] = time_ms(lambda: cuda_ops.fq_sqr_chain(x, CH), 10)
         pa = time_ms(lambda: cuda_ops.g1_add_chain_plain(a, b, CH), 1, warmup=0)
         pm = time_ms(lambda: cuda_ops.fq_mul_chain_plain(x, y, CH), 1, warmup=0)
         ba = bound_ms(3 * POINT_BYTES * B, B * CH * MULADDS_PER_ADD)
@@ -280,7 +295,9 @@ def probe_phase(dev, kernels):
             f"{B * CH / ms_a / 1e6:.3f} G adds/s (bound {ba[0]:.4f} ms, "
             f"{B * CH / ba[0] / 1e6:.3f} G adds/s); Fq mul chain {ms_m:.4f} ms = "
             f"{B * CH / ms_m / 1e6:.3f} G Fq-muls/s (bound {bm[0]:.4f} ms, "
-            f"{B * CH / bm[0] / 1e6:.3f} G Fq-muls/s); plain {pa:.1f} / {pm:.1f} ms")
+            f"{B * CH / bm[0] / 1e6:.3f} G Fq-muls/s), the same chain of squares (fe_sqr) "
+            f"{sqr_ms[B]:.4f} ms = {B * CH / sqr_ms[B] / 1e6:.3f} G squares/s; "
+            f"plain {pa:.1f} / {pm:.1f} ms")
     small, big = PROBE_BATCHES
     ms_a, pa, ba, ms_m, pm, bm = rows[big]
     kernels.append(dict(
@@ -292,7 +309,8 @@ def probe_phase(dev, kernels):
         name="fq_mul_chain", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
         replaces="benchmarks/micro_packed_dissect.py:48", launches=counts["fq_mul_chain"],
         max_abs_err=errs[1], ms=ms_m, plain_ms=pm, bound_ms=bm[0], bound_by=bm[1], library_ms=None,
-        shape=[big, 8], ch=CH, ms_b256=rows[small][3], tolerance="exact, lazy words"))
+        shape=[big, 8], ch=CH, ms_b256=rows[small][3], sqr_ms=sqr_ms[big],
+        sqr_ms_b256=sqr_ms[small], tolerance="exact, lazy words"))
 
 
 def field_checks(dev):
@@ -300,7 +318,8 @@ def field_checks(dev):
     versions on the card, bit for bit on lazy words; the hadeshash vector.
     Returns each kernel's largest word difference (all 0)."""
     from snark_verifier_tpu_torch.ff import FQW, FRW
-    from snark_verifier_tpu_torch.hash import permute, permute_plain
+    from snark_verifier_tpu_torch.hash import absorb, absorb_plain, permute, permute_plain
+    from snark_verifier_tpu_torch.msm import cuda_ops
 
     rng = np.random.default_rng(4)
     B = CHECK_B
@@ -318,10 +337,21 @@ def field_checks(dev):
     st = rand_lazy_words(rng, (1024, 3), FRW.spec.p, dev)
     errs["poseidon_permute"] = word_err(permute(st), permute_plain(st))
     check(errs["poseidon_permute"] == 0, "poseidon_permute differs from its plain version")
+    # The bare permutation's own path is `hash.permute`, as the tests and
+    # this vector call it (the verify path squeezes through poseidon_absorb).
+    cuda_ops.reset_launches()
     kat = permute(FRW.from_int([0, 1, 2]).view(1, 3, 8).to(dev))
     check([int(v) for v in FRW.to_int(kat[0])] == PERM_X5_254_3, "poseidon hadeshash vector")
-    log(f"# field kernels (Fq, Fr) at B={B} and poseidon_permute at B=1024: bit-identical to "
-        f"their plain versions; hadeshash x5_254_3 vector OK")
+    errs["poseidon_permute_kat_launches"] = cuda_ops.LAUNCHES["poseidon_permute"]
+    check(errs["poseidon_permute_kat_launches"] > 0, "permute launched no kernel")
+    errs["poseidon_absorb"] = 0
+    for k in range(6):
+        buf = rand_lazy_words(rng, (1024, k), FRW.spec.p, dev)
+        e = word_err(absorb(st, buf), absorb_plain(st, buf))
+        check(e == 0, f"poseidon_absorb differs from the plain sponge at k={k}")
+        errs["poseidon_absorb"] = max(errs["poseidon_absorb"], e)
+    log(f"# field kernels (Fq, Fr) at B={B}, poseidon_permute at B=1024 and poseidon_absorb at "
+        f"B=1024, k=0..5: bit-identical to their plain versions; hadeshash x5_254_3 vector OK")
     return errs
 
 
@@ -333,7 +363,7 @@ def verify_phase(dev, kernels, errs):
 
     from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
     from snark_verifier_tpu_torch.ff import FQW, FRW
-    from snark_verifier_tpu_torch.hash import permute, permute_plain
+    from snark_verifier_tpu_torch.hash import absorb, absorb_plain, permute, permute_plain
     from snark_verifier_tpu_torch.loader.base import TorchLoader
     from snark_verifier_tpu_torch.msm import cuda_ops
     from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
@@ -357,7 +387,7 @@ def verify_phase(dev, kernels, errs):
     torch.cuda.synchronize()
     launches = dict(cuda_ops.LAUNCHES)
     path = ("add", "double", "field_mul", "field_add", "field_sub", "field_neg", "field_inv",
-            "field_canon", "poseidon_permute")
+            "field_canon", "poseidon_absorb")
     log(f"# verify path launches per batch of {B}: { {k: launches[k] for k in path} }")
     for k in path:
         check(launches[k] > 0, f"kernel {k} was not launched on the verify path")
@@ -464,20 +494,46 @@ def verify_phase(dev, kernels, errs):
                       n_inv * MULADDS_PER_FQ_MUL * B, "snark_verifier_tpu/ff/jnp_field.py:211"),
     }
     st = rand_lazy_words(rng, (B, 3), FRW.spec.p, dev)
+    perm_ops = MULS_PER_PERMUTATION * MULADDS_PER_FQ_MUL
     rows["poseidon_permute"] = (lambda: permute(st), lambda: permute_plain(st), 2 * 96 * B,
-                                828 * MULADDS_PER_FQ_MUL * B,
-                                "snark_verifier_tpu/hash/poseidon.py:110")
+                                perm_ops * B, "snark_verifier_tpu/hash/poseidon.py:110")
+    K_ABSORB = 2  # a two-element buffer: two chained permutations
+    buf = rand_lazy_words(rng, (B, K_ABSORB), FRW.spec.p, dev)
+    n_perm = K_ABSORB // 2 + 1
+    rows["poseidon_absorb"] = (lambda: absorb(st, buf), lambda: absorb_plain(st, buf),
+                               (2 * 96 + 32 * K_ABSORB) * B, n_perm * perm_ops * B,
+                               "snark_verifier_tpu/hash/poseidon.py:192")
     for name, (kern, plain, nbytes, nops, where) in rows.items():
         ms = time_ms(kern, 50)
         pms = time_ms(plain, 2, warmup=1)
         bms, by = bound_ms(nbytes, nops)
-        src = "poseidon_kernels.cu" if name == "poseidon_permute" else "field_kernels.cu"
+        src = "poseidon_kernels.cu" if name.startswith("poseidon") else "field_kernels.cu"
         kernels.append(dict(
             name=name, route="cuda", source=f"snark_verifier_tpu_torch/csrc/{src}",
             replaces=where, launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
             bound_ms=bms, bound_by=by, library_ms=None,
-            shape=[B, 3, 8] if name == "poseidon_permute" else [B, 8],
+            shape=[B, 3, 8] if name.startswith("poseidon") else [B, 8],
             tolerance="exact, lazy words"))
+    # Poseidon at this batch is held to the latency of one state's chain of
+    # dependent multiplies, not to throughput; at B = 65,536 to throughput.
+    BIG = 1 << 16
+    st_big = rand_lazy_words(rng, (BIG, 3), FRW.spec.p, dev)
+    ms_big = time_ms(lambda: permute(st_big), 10)
+    big_bound = bound_ms(2 * 96 * BIG, perm_ops * BIG)[0]
+    floor = POSEIDON_CHAIN_MULS * CHAIN_FLOOR_MS_PER_MUL
+    for row in kernels:
+        if row["name"] == "poseidon_permute":
+            # `launches` is the verify call's own count: 0 since a squeeze is one
+            # poseidon_absorb launch.  The bare permutation is `hash.permute`'s
+            # kernel; the hadeshash vector's launch is counted apart.
+            row.update(launches_kat=errs["poseidon_permute_kat_launches"],
+                       chain_floor_ms=floor, ms_b65536=ms_big, bound_ms_b65536=big_bound)
+            log(f"# poseidon_permute: B={B} {row['ms']:.4f} ms (throughput bound "
+                f"{row['bound_ms']:.4f} ms; chain floor {floor:.4f} ms = {POSEIDON_CHAIN_MULS} "
+                f"multiplies per lane: the yardstick at this batch); B={BIG} {ms_big:.4f} ms "
+                f"(throughput bound {big_bound:.4f} ms)")
+        if row["name"] == "poseidon_absorb":
+            row.update(k=K_ABSORB, permutations=n_perm, chain_floor_ms=n_perm * floor)
     for row in kernels:
         if row["name"] in ("add", "double"):
             row["launches_verify"] = launches[row["name"]]
@@ -588,13 +644,18 @@ def main() -> int:
     cap = pip.default_capacity(n, 1 << C_BITS)
     trange = pip.top_range(C_BITS)
     tcap = max(cap, pip.top_capacity(n, C_BITS))
-    idx_main, _ = pip._slot_indices(digits[:1], 1 << C_BITS, cap)
+    idx_all, _ = pip._slot_indices(digits[:-1], 1 << C_BITS, cap)  # (31, 256, cap)
     idx_top, _ = pip._slot_indices(digits[-1:], trange, tcap)
-    idx_main, idx_top = idx_main[0], idx_top[0]
+    idx_main, idx_top = idx_all[0].contiguous(), idx_top[0]
+    idx_rows = idx_all.view(-1, cap)  # every main window's rows, as msm folds them
     errs["fold_buckets"] = 0
-    for label, idx in (("main", idx_main), ("top", idx_top)):
-        out_k = cuda_ops.fold_buckets(points_ext, idx)
-        out_p = cuda_ops.fold_buckets_plain(points_ext, idx)
+    plain_main = cuda_ops.fold_buckets_plain(points_ext, idx_main)
+    plain_top = cuda_ops.fold_buckets_plain(points_ext, idx_top)
+    for label, out_k, out_p in (
+        ("main", cuda_ops.fold_buckets(points_ext, idx_main), plain_main),
+        ("top", cuda_ops.fold_buckets(points_ext, idx_top), plain_top),
+        ("top, split", cuda_ops.fold_buckets_split(points_ext, idx_top), plain_top),
+    ):
         torch.cuda.synchronize()
         ga = to_affine_int(words_to_limbs(out_k))
         gb = to_affine_int(words_to_limbs(out_p))
@@ -602,7 +663,20 @@ def main() -> int:
         check(bad == 0, f"fold_buckets ({label}) disagrees with its twin in {bad} buckets")
         errs["fold_buckets"] = max(errs["fold_buckets"], affine_err(out_k, out_p))
         check(errs["fold_buckets"] == 0, f"fold_buckets ({label}): affine words differ")
-        log(f"# fold_buckets vs twin at {tuple(idx.shape)} ({label}): affine-equal")
+        log(f"# fold_buckets vs twin at {tuple(out_k.shape[:1])} buckets ({label}): affine-equal")
+    # All main windows in one launch, against the plain version window by
+    # window (its gathered matrix is 0.45 GB per window).
+    out_all = cuda_ops.fold_buckets(points_ext, idx_rows).view(idx_all.shape[0], -1, 3, 8)
+    for w in range(idx_all.shape[0]):
+        out_p = plain_main if w == 0 else cuda_ops.fold_buckets_plain(points_ext, idx_all[w])
+        eq = proj_equal(out_all[w], out_p)
+        check(bool(eq.all()), f"fold_buckets (all windows in one launch): window {w} differs "
+                              f"from its twin in {int((~eq).sum())} buckets")
+        errs["fold_buckets"] = max(errs["fold_buckets"], affine_err(out_all[w], out_p))
+    check(errs["fold_buckets"] == 0, "fold_buckets (all windows in one launch): affine words differ")
+    log(f"# fold_buckets vs twin at {tuple(idx_rows.shape)} (all main windows, one launch): "
+        f"affine-equal in every window")
+    del out_all, plain_main, plain_top
 
     # ---------------------------------------------------------- main path
     cuda_ops.reset_launches()
@@ -612,8 +686,9 @@ def main() -> int:
     first_s = time.time() - t0
     launches = dict(cuda_ops.LAUNCHES)
     log(f"# msm 2^{LOG2N} first call: {first_s:.3f}s, launches {launches}")
-    for k in ("add", "double", "fold_buckets"):
+    for k in ("add", "double", "fold_buckets", "fold_segments"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    check(launches["fold_buckets"] <= 3, "more than 3 fold_buckets launches per msm")
     check(not bool(ovf), "bucket overflow at 2^20")
     got = to_affine_int(out)
     check(got == want, "msm result != k_total·G")
@@ -655,11 +730,7 @@ def main() -> int:
     (idx_all, idx_t), t_slots = phase(lambda: (
         pip._slot_indices(d_all[:-1], 1 << C_BITS, cap)[0],
         pip._slot_indices(d_all[-1:], trange, tcap)[0]))
-    buckets, t_fold = phase(lambda: [cuda_ops.fold_buckets(pe, idx_all[w])
-                                     for w in range(idx_all.shape[0])]
-                            + [cuda_ops.fold_buckets(pe, idx_t[0])])
-    stacked = torch.stack(buckets[:-1] + [torch.cat(
-        [buckets[-1], pip._identity((1 << C_BITS) - trange, dev)])])
+    stacked, t_fold = phase(lambda: pip.bucket_sums(pe, idx_all, idx_t[0]))
     wsums, t_wsum = phase(lambda: pip._weighted_bucket_sum(stacked))
     _, t_horner = phase(lambda: pip._horner(wsums, C_BITS))
     log(f"# msm phases (ms): prep {t_prep:.2f}, slot indices {t_slots:.2f}, "
@@ -702,21 +773,30 @@ def main() -> int:
         library_ms=None, shape=[1, 3, 8], tolerance="exact, canonical"))
 
     fold_bounds = {}
-    for label, idx in (("main", idx_main), ("top", idx_top)):
+    for label, idx in (("main", idx_main), ("all", idx_rows), ("top", idx_top)):
         live = (idx != n).sum(1)
         adds = int((live - 1).clamp(min=0).sum())
         n_bytes = points_ext.numel() * 4 + idx.numel() * 4 + idx.shape[0] * POINT_BYTES
         fold_bounds[label] = bound_ms(n_bytes, adds * MULADDS_PER_ADD)
     ms = time_ms(lambda: cuda_ops.fold_buckets(points_ext, idx_main), 5)
+    ms_all = time_ms(lambda: cuda_ops.fold_buckets(points_ext, idx_rows), 3, warmup=1)
     ms_top = time_ms(lambda: cuda_ops.fold_buckets(points_ext, idx_top), 5)
+    ms_split = time_ms(lambda: cuda_ops.fold_buckets_split(points_ext, idx_top), 5)
     plain = time_ms(lambda: cuda_ops.fold_buckets_plain(points_ext, idx_main), 1, warmup=1)
     bms, by = fold_bounds["main"]
+    log(f"# fold_buckets: one main window {tuple(idx_main.shape)} {ms:.4f} ms (bound {bms:.4f}); "
+        f"all main windows {tuple(idx_rows.shape)} in one launch {ms_all:.4f} ms (bound "
+        f"{fold_bounds['all'][0]:.4f}); top window {tuple(idx_top.shape)} whole {ms_top:.4f} ms, "
+        f"split (fold_buckets_split, with its fold_segments pass) {ms_split:.4f} ms (bound "
+        f"{fold_bounds['top'][0]:.4f})")
     kernels.append(dict(
         name="fold_buckets", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_kernels.cu",
         replaces="snark_verifier_tpu/msm/pallas_ops.py:490", launches=launches["fold_buckets"],
         max_abs_err=errs["fold_buckets"], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=None, shape=list(idx_main.shape), tolerance="exact, affine",
-        top_shape=list(idx_top.shape), top_ms=ms_top, top_bound_ms=fold_bounds["top"][0]))
+        all_shape=list(idx_rows.shape), all_ms=ms_all, all_bound_ms=fold_bounds["all"][0],
+        top_shape=list(idx_top.shape), top_ms=ms_top, top_split_ms=ms_split,
+        top_bound_ms=fold_bounds["top"][0], launches_fold_segments_msm=launches["fold_segments"]))
 
     # add throughput at a large batch (the ladder's last step), for PERF.md
     big = 1 << 19
@@ -727,7 +807,8 @@ def main() -> int:
         f"{bound_ms(3 * POINT_BYTES * big, MULADDS_PER_ADD * big)[0]:.4f} ms); "
         f"double at B=2^19: {ms_dbig:.4f} ms (bound "
         f"{bound_ms(2 * POINT_BYTES * big, MULADDS_PER_DOUBLE * big)[0]:.4f} ms)")
-    del pts_w, points, points_ext, scalars, digits, sa, sb, saw, sbw, ba, bb2, buckets, stacked
+    del pts_w, points, points_ext, scalars, digits, sa, sb, saw, sbw, ba, bb2, stacked
+    del idx_all, idx_rows, idx_main, idx_top, idx_t, pe, d_all
     torch.cuda.empty_cache()
 
     # ------------------------- the dense folds, the probe, the succinct verify

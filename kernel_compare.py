@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Time this checkout's kernels beside another checkout's, in one process on
+one card: the only fair comparison of two versions of a kernel.
+
+    python3 kernel_compare.py --parent DIR [--log2n 20] [--out FILE]
+
+`DIR` is the csrc/ directory of the other checkout (for example one unpacked
+with `git archive <commit> snark_verifier_tpu_torch/csrc`).  Its
+`fold_kernels.cu`, `msm_kernels.cu` and `poseidon_kernels.cu` are built side
+by side with nvcc, each against the headers beside it, and three of its
+entry points are called as the first version of the port declared them:
+
+* `svt_fq_mul_chain(a, b, out, n, ch, stream)`: chains of dependent Fq
+  multiplies at B = 2^17, CH = 16 and 256;
+* `svt_fold_buckets(points, idx, nb, cap, sentinel, out, stream)`: one main
+  window (256, cap) and the whole top window of the 2^`log2n` MSM's slot
+  indices (points [1..n]·G, scalars from numpy seed 42);
+* `svt_poseidon_permute(in, out, n, stream)` at B = 1,024 and 65,536.
+
+This checkout's kernels run through their wrappers on the same tensors.
+Each pair is timed with CUDA events in the order parent, this, this, parent,
+and both outputs are held against the plain PyTorch version: multiplies and
+permutations bit for bit, folds as affine points.  Prints the card's name
+and power limit and one JSON object per line (also written to `--out`);
+exits 1 if any output disagrees.  Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+PARENT_UNITS = {
+    "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P]},
+    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _P]},
+    "poseidon_kernels": {"svt_poseidon_load_constants": [_P, _P],
+                         "svt_poseidon_permute": [_P, _P, _LL, _P]},
+}
+
+
+def build_parent(csrc: Path, out_dir: Path):
+    """{entry point: ctypes function} of the parent's three units, one nvcc
+    process each, all started together."""
+    from snark_verifier_tpu_torch import _build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = _build.ARCH_FLAGS + ["-O3", "-shared", "-Xcompiler", "-fPIC"]
+    procs = {}
+    for unit in PARENT_UNITS:
+        lib = out_dir / f"libparent_{unit}.so"
+        cmd = [_build._nvcc(), *flags, "-o", str(lib), str(csrc / f"{unit}.cu")]
+        procs[unit] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for unit, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {unit}.cu:\n{out}")
+        loaded = ctypes.CDLL(str(lib))
+        for name, argtypes in PARENT_UNITS[unit].items():
+            fn = getattr(loaded, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[name] = fn
+    return fns
+
+
+def time_ms(fn, reps, warmup=2):
+    """Mean ms per call over `reps` calls, timed with CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def word_err(got, want):
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def affine_err(a, b):
+    """0 when two (..., 3, 8) point tensors hold the same points."""
+    from snark_verifier_tpu_torch.ff import FQW
+    from snark_verifier_tpu_torch.msm import cuda_ops
+
+    xa, ya, _ = cuda_ops.to_affine(a)
+    xb, yb, _ = cuda_ops.to_affine(b)
+    return max(word_err(FQW.canon(xa), FQW.canon(xb)), word_err(FQW.canon(ya), FQW.canon(yb)))
+
+
+def rand_lazy_words(rng, shape, p, device):
+    """int32 words of values uniform in [0, 2p], the lazy contract."""
+    import torch
+    from snark_verifier_tpu_torch.ff import limbs_to_words
+
+    n = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(32), "little") % (2 * p + 1) for _ in range(n)]
+    vals[:3] = [0, p, 2 * p]
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), dtype="<u2")
+    return limbs_to_words(torch.from_numpy(raw.astype(np.int64).reshape(*shape, 16))).to(device)
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, required=True, help="csrc/ of the other checkout")
+    ap.add_argument("--log2n", type=int, default=20)
+    ap.add_argument("--out", type=Path, default=None, help="also write the rows to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_compare: no CUDA device", file=sys.stderr)
+        return 2
+
+    from snark_verifier_tpu_torch import _build
+    from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words, py_ec
+    from snark_verifier_tpu_torch.ff import FQ, FR, FRW
+    from snark_verifier_tpu_torch.hash import permute, permute_plain, poseidon
+    from snark_verifier_tpu_torch.msm import cuda_ops, scalars_from_int
+    from snark_verifier_tpu_torch.msm import pippenger as pip
+
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    t0 = time.time()
+    parent = build_parent(args.parent, _build.BUILD_DIR / "compare")
+    _build.load_library()
+    print(f"# card: {card}; builds {time.time() - t0:.1f}s", flush=True)
+    rows = []
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def call(fn, *a):
+        err = fn(*a, stream())
+        if err:
+            raise RuntimeError(f"launch refused: cudaError {err}")
+
+    def compare(kind, run_parent, run_this, out_parent, err_fn, want, reps, **row):
+        """One row: times in the order parent, this, this, parent, and each
+        version's distance from the plain version's `want`."""
+        ms = [time_ms(run_parent, reps), time_ms(run_this, reps), time_ms(run_this, reps),
+              time_ms(run_parent, reps)]
+        row.update(kind=kind, parent_ms=[ms[0], ms[3]], this_ms=[ms[1], ms[2]],
+                   speedup=(ms[0] + ms[3]) / (ms[1] + ms[2]),
+                   parent_err=err_fn(out_parent, want), this_err=err_fn(run_this(), want),
+                   card=card)
+        if "muls" in row:
+            row.update(parent_g_muls_per_s=row["muls"] / max(ms[0], ms[3]) / 1e6,
+                       this_g_muls_per_s=row["muls"] / max(ms[1], ms[2]) / 1e6)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    # ------------------------------------------------------- multiply chain
+    rng = np.random.default_rng(3)
+    B = 1 << 17
+    a = rand_lazy_words(rng, (B,), FQ.p, dev)
+    b = rand_lazy_words(rng, (B,), FQ.p, dev)
+    for ch in (16, 256):
+        out = torch.empty_like(a)
+        compare("fq_mul_chain",
+                lambda: call(parent["svt_fq_mul_chain"], a.data_ptr(), b.data_ptr(),
+                             out.data_ptr(), B, ch),
+                lambda: cuda_ops.fq_mul_chain(a, b, ch), out, word_err,
+                cuda_ops.fq_mul_chain_plain(a, b, ch), 10, B=B, ch=ch,
+                muls=B * ch)
+
+    # ----------------------------------------------------------- bucket fold
+    n = 1 << args.log2n
+    pts = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))
+    pt = py_ec.G1_GEN
+    for _ in range(args.log2n):  # pts[i] = (i+1)·G by a doubling ladder
+        step = limbs_to_words(from_affine_int([pt], device=dev)).expand_as(pts).contiguous()
+        pts = torch.cat([pts, cuda_ops.add(pts, step)], 0)
+        pt = py_ec.double(pt)
+    points_ext = torch.cat([pts, pip._identity(1, dev)], 0)
+    rng_k = np.random.default_rng(42)
+    ks = [int.from_bytes(rng_k.bytes(32), "little") % FR.p for _ in range(n)]
+    digits = pip.extract_digits(scalars_from_int(ks).to(dev), 8)
+    cap = pip.default_capacity(n, 256)
+    tcap = max(cap, pip.top_capacity(n, 8))
+    idx_main, _ = pip._slot_indices(digits[:1], 256, cap)
+    idx_top, _ = pip._slot_indices(digits[-1:], pip.top_range(8), tcap)
+    for label, ix in (("one main window", idx_main[0].contiguous()),
+                      ("top window, whole", idx_top[0].contiguous())):
+        out = torch.empty((ix.shape[0], 3, 8), dtype=torch.int32, device=dev)
+        compare("fold_buckets",
+                lambda: call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(),
+                             ix.shape[0], ix.shape[1], n, out.data_ptr()),
+                lambda: cuda_ops.fold_buckets(points_ext, ix), out, affine_err,
+                cuda_ops.fold_buckets_plain(points_ext, ix), 5, shape=label,
+                rows=ix.shape[0], cap=ix.shape[1])
+    del points_ext, pts, digits
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- Poseidon
+    rc, md = poseidon._host_constants()
+    err = parent["svt_poseidon_load_constants"](rc.ctypes.data, md.ctypes.data)
+    if err:
+        raise RuntimeError(f"the parent's constants did not load: cudaError {err}")
+    rng = np.random.default_rng(5)
+    for B in (1024, 1 << 16):
+        st = rand_lazy_words(rng, (B, 3), FRW.spec.p, dev)
+        out = torch.empty_like(st)
+        compare("poseidon_permute",
+                lambda: call(parent["svt_poseidon_permute"], st.data_ptr(), out.data_ptr(), B),
+                lambda: permute(st), out, word_err, permute_plain(st), 10, B=B)
+
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    bad = [r for r in rows if r["parent_err"] or r["this_err"]]
+    if bad:
+        print(f"kernel_compare: {len(bad)} rows disagree with the plain version", file=sys.stderr)
+        return 1
+    print(f"# kernel_compare: {len(rows)} rows, every output equals its plain version; "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,7 +33,7 @@ _SIGNATURES = {
     # msm_kernels.cu
     "svt_g1_add": [_P, _P, _P, _LL, _P],
     "svt_g1_double": [_P, _P, _LL, _P],
-    "svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _P],
+    "svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
     # fold_kernels.cu
     "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],
     "svt_g1_add_chain": [_P, _P, _P, _LL, _I, _P],
@@ -48,6 +48,7 @@ _SIGNATURES = {
     # poseidon_kernels.cu
     "svt_poseidon_load_constants": [_P, _P],
     "svt_poseidon_permute": [_P, _P, _LL, _P],
+    "svt_poseidon_absorb": [_P, _P, _I, _P, _LL, _P],
 }
 
 _lib = None

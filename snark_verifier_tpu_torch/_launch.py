@@ -19,7 +19,7 @@ LAUNCHES = {
     "field_mul": 0, "field_add": 0, "field_sub": 0, "field_neg": 0,
     "field_inv": 0, "field_canon": 0,
     # hash/poseidon.py
-    "poseidon_permute": 0,
+    "poseidon_permute": 0, "poseidon_absorb": 0,
 }
 
 

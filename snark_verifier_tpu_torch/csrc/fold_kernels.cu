@@ -17,7 +17,8 @@
 //   chain instead of a tree), so outputs agree in affine form.
 // * svt_g1_add_chain and svt_fq_mul_chain replace the probe
 //   benchmarks/micro_packed_dissect.py (:48): a chain of CH dependent RC15
-//   adds a <- a + b (or Fq multiplies a <- a*b) on register-resident data.
+//   adds a <- a + b (or Fq multiplies a <- a*b, or squares a <- a^2 when no
+//   b is given) on register-resident data.
 //   The TPU probe stubbed parts of its RNS multiply; these are exact, and
 //   their time is the pure arithmetic rate of one thread's add or multiply
 //   with no memory traffic.
@@ -29,12 +30,14 @@
 // lane once and do CH * 1632 (or CH * 136) multiply-adds: bound by
 // operations at any CH > 1.
 //
-// What this simple design leaves on the table: one thread per output slot
-// (a level of the K = 8 fold launches NB * w / 8 threads, each with a
-// dependent chain of 7 adds; the last levels of a fold have too few slots to
-// fill 132 SMs); point rows of 96 bytes strided by S slots, so neighbouring
-// threads read neighbouring rows only when G > 1; the field multiply of
-// fq.cuh (64-bit C++ arithmetic, one thread per product).
+// What bounds them: the multiply of fq.cuh (carry-flag rows; 58 G muls/s on a
+// full card), which is what the multiply chain measures, and for the folds
+// the latency of each thread's chain of dependent adds.  What this simple
+// design still leaves on the table: one thread per output slot (a level of
+// the K = 8 fold launches NB * w / 8 threads, each with a dependent chain of
+// 7 adds; the last levels of a fold have too few slots to fill 132 SMs);
+// point rows of 96 bytes strided by S slots, so neighbouring threads read
+// neighbouring rows only when G > 1.
 
 #include <cuda_runtime.h>
 
@@ -80,6 +83,9 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   g1_store(out + i * G1_WORDS, p);
 }
 
+// SQUARE: ch steps of x <- x^2 through fe_sqr (b is not read); else ch steps
+// of x <- x*b through fe_mul.
+template <bool SQUARE>
 __global__ void __launch_bounds__(CHAIN_THREADS)
     fq_mul_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                         uint32_t* __restrict__ out, long long n, int ch) {
@@ -89,10 +95,16 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
 #pragma unroll
   for (int k = 0; k < FQ_WORDS; k++) {
     x[k] = a[i * FQ_WORDS + k];
-    y[k] = b[i * FQ_WORDS + k];
+    y[k] = SQUARE ? 0u : b[i * FQ_WORDS + k];
   }
 #pragma unroll 1
-  for (int k = 0; k < ch; k++) fq_mul(x, x, y);
+  for (int k = 0; k < ch; k++) {
+    if constexpr (SQUARE) {
+      fe_sqr<FQ>(x, x);
+    } else {
+      fq_mul(x, x, y);
+    }
+  }
 #pragma unroll
   for (int k = 0; k < FQ_WORDS; k++) out[i * FQ_WORDS + k] = x[k];
 }
@@ -129,8 +141,12 @@ extern "C" int svt_fq_mul_chain(const void* a, const void* b, void* out, long lo
                                 void* stream) {
   if (n > 0) {
     const unsigned blocks = (unsigned)((n + svt::CHAIN_THREADS - 1) / svt::CHAIN_THREADS);
-    svt::fq_mul_chain_kernel<<<blocks, svt::CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, ch);
+    if (b == nullptr)  // the squaring chain
+      svt::fq_mul_chain_kernel<true><<<blocks, svt::CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)a, nullptr, (uint32_t*)out, n, ch);
+    else
+      svt::fq_mul_chain_kernel<false><<<blocks, svt::CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, ch);
   }
   return (int)cudaGetLastError();
 }

@@ -1,3 +1,12 @@
-from .poseidon import PoseidonPy, PoseidonSponge, get_spec, permute, permute_plain
+from .poseidon import (
+    PoseidonPy,
+    PoseidonSponge,
+    absorb,
+    absorb_plain,
+    get_spec,
+    permute,
+    permute_plain,
+)
 
-__all__ = ["PoseidonPy", "PoseidonSponge", "get_spec", "permute", "permute_plain"]
+__all__ = ["PoseidonPy", "PoseidonSponge", "absorb", "absorb_plain", "get_spec", "permute",
+           "permute_plain"]

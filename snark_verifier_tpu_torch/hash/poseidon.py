@@ -16,7 +16,11 @@ permutation; the squeeze is state[1]).
   compiles); on a CPU tensor it runs `permute_plain`, the same rounds over
   `LimbField` with the same field ops in the same order as the JAX scan
   body, so kernel, twin and JAX agree bit for bit on lazy limbs.
-* `PoseidonSponge` — the batched sponge over `permute` (the JAX package's
+* `absorb` — a whole squeeze of the sponge: on a CUDA tensor one launch of
+  `svt_poseidon_absorb` (the chunk adds, the padding and all k // 2 + 1
+  permutations in the kernel); on a CPU tensor `absorb_plain`, the same
+  adds and `permute_plain` in the same order.
+* `PoseidonSponge` — the batched sponge over `absorb` (the JAX package's
   `PoseidonJax` :135).
 """
 
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from .._build import load_library
-from .._launch import check, launch
+from .._launch import check, launch, same_device
 from ..ff import FR, FR_FIELD, FRW, limbs_to_words, np_limbs_to_words, words_to_limbs
 from ..ff.spec import int_to_limbs
 from .grain import generate_constants
@@ -139,35 +143,73 @@ def permute_plain(state):
     return limbs_to_words(s)
 
 
-def permute(state):
-    """One permutation of (B, 3, 8) Fr Montgomery words -> (B, 3, 8)."""
-    check("poseidon_permute", state, 3, (T, 8))
-    if state.device.type == "cpu":
-        return permute_plain(state)
+def _library(dev):
+    """The kernel library, with the spec's constants on device `dev`."""
     lib = load_library()
-    dev = state.device
     if str(dev) not in _loaded:
         rc, md = _host_constants()
         with torch.cuda.device(dev):
             err = lib.svt_poseidon_load_constants(rc.ctypes.data, md.ctypes.data)
         if err:
-            raise RuntimeError(f"poseidon_permute: loading the constants failed ({err})")
+            raise RuntimeError(f"poseidon: loading the constants failed ({err})")
         _loaded.add(str(dev))
+    return lib
+
+
+def permute(state):
+    """One permutation of (B, 3, 8) Fr Montgomery words -> (B, 3, 8)."""
+    check("poseidon_permute", state, 3, (T, 8))
+    if state.device.type == "cpu":
+        return permute_plain(state)
     out = torch.empty_like(state)
     if state.shape[0]:
-        launch("poseidon_permute", lib.svt_poseidon_permute, state.data_ptr(), out.data_ptr(),
-               state.shape[0], device=dev)
+        launch("poseidon_permute", _library(state.device).svt_poseidon_permute,
+               state.data_ptr(), out.data_ptr(), state.shape[0], device=state.device)
     return out
 
 
 # -------------------------------------------------------------------- sponge
 
 
+def absorb_plain(state, inputs):
+    """The sponge's squeeze in plain PyTorch on any device: state (B, 3, 8)
+    absorbs inputs (B, k, 8) RATE elements at a time into state[1..], one
+    `permute_plain` per chunk; a short final chunk is padded with one 1, and
+    an exact multiple (k = 0 included) is followed by one all-padding
+    permutation: k // 2 + 1 permutations."""
+    k = inputs.shape[1]
+    one = FRW.const("ONE", state.device).expand(state.shape[0], 1, 8)
+    for i in range(0, k + 1, RATE):
+        cols = torch.cat([inputs[:, i : i + RATE], one], 1)[:, :RATE]  # m < RATE: the 1 pads
+        m = cols.shape[1] if i < k else 1
+        mid = FRW.plain("add", state[:, 1 : 1 + m], cols[:, :m])
+        state = permute_plain(torch.cat([state[:, :1], mid, state[:, 1 + m :]], 1))
+    return state
+
+
+def absorb(state, inputs):
+    """(B, 3, 8) state, (B, k, 8) buffered elements -> the state after the
+    squeeze's k // 2 + 1 permutations.  On a CUDA tensor one launch of
+    `svt_poseidon_absorb`; on a CPU tensor `absorb_plain`."""
+    check("poseidon_absorb", state, 3, (T, 8))
+    check("poseidon_absorb", inputs, 3, (8,))
+    same_device("poseidon_absorb", state, inputs)
+    if inputs.shape[0] != state.shape[0]:
+        raise ValueError(f"poseidon_absorb: {state.shape[0]} states but {inputs.shape[0]} buffers")
+    if state.device.type == "cpu":
+        return absorb_plain(state, inputs)
+    out = torch.empty_like(state)
+    if state.shape[0]:
+        launch("poseidon_absorb", _library(state.device).svt_poseidon_absorb, state.data_ptr(),
+               inputs.data_ptr(), inputs.shape[1], out.data_ptr(), state.shape[0],
+               device=state.device)
+    return out
+
+
 class PoseidonSponge:
     """The batched sponge: state (B, 3, 8) Fr words on one device; inputs
-    are (B, 8) or (8,) word handles.  Absorbing a chunk is one field-add
-    launch on the slots it touches (the JAX sponge adds slot by slot: the
-    same values), then one permutation launch."""
+    are (B, 8) or (8,) word handles.  A squeeze knows its whole buffer, so
+    it is one `absorb`: on the card one launch for all its permutations."""
 
     def __init__(self, batch: int, device):
         self.device = torch.device(device)
@@ -176,24 +218,15 @@ class PoseidonSponge:
         self.state = init.to(self.device).expand(batch, T, 8).contiguous()
         self.buf: List = []
 
-    def _permute(self, inputs):
-        if len(inputs) >= T:
-            raise ValueError("a permutation absorbs at most t - 1 elements")
-        batch = self.state.shape[0]
-        cols = list(inputs)
-        if len(cols) < RATE:
-            cols.append(FRW.const("ONE", self.device))
-        m = len(cols)
-        mid = FRW.add(self.state[:, 1 : 1 + m], torch.stack([c.expand(batch, 8) for c in cols], 1))
-        self.state = permute(torch.cat([self.state[:, :1], mid, self.state[:, 1 + m :]], 1))
-
     def update(self, elements: Sequence):
         self.buf.extend(elements)
 
     def squeeze(self):
         buf, self.buf = self.buf, []
-        for i in range(0, len(buf), RATE):
-            self._permute(buf[i : i + RATE])
-        if len(buf) % RATE == 0:
-            self._permute([])
+        batch = self.state.shape[0]
+        if buf:
+            inputs = torch.stack([c.expand(batch, 8) for c in buf], 1)
+        else:
+            inputs = torch.empty((batch, 0, 8), dtype=torch.int32, device=self.device)
+        self.state = absorb(self.state, inputs)
         return self.state[:, 1]

@@ -8,17 +8,17 @@ Points are (..., 3, 8) int32 tensors in the kernels' word layout (ec/g1.py).
 | --- | --- | --- |
 | `add` | `svt_g1_add` (msm_kernels.cu) | `msm/pallas_ops.py::add` :178 |
 | `double` | `svt_g1_double` (msm_kernels.cu) | `msm/pallas_ops.py::double` :657 |
-| `fold_buckets` | `svt_fold_buckets` (msm_kernels.cu) | `msm/pippenger.py::_fold_buckets_pallas` (gather + `fold_buckets_grid_pk` :490 / `fold_buckets_grid` :560) |
+| `fold_buckets`, `fold_buckets_split` | `svt_fold_buckets` (msm_kernels.cu) | `msm/pippenger.py::_fold_buckets_pallas` (gather + `fold_buckets_grid_pk` :490 / `fold_buckets_grid` :560) |
 | `fold_level`, `fold_halving`, `fold_grid` | `svt_fold_segments` (fold_kernels.cu) | `_pallas_fold_level` :246, `_pallas_fold_halving` :326, `_pallas_fold_grid` :589 |
-| `g1_add_chain`, `fq_mul_chain` | `svt_g1_add_chain`, `svt_fq_mul_chain` (fold_kernels.cu) | the probe `benchmarks/micro_packed_dissect.py` :48 |
+| `g1_add_chain`, `fq_mul_chain`, `fq_sqr_chain` | `svt_g1_add_chain`, `svt_fq_mul_chain` (fold_kernels.cu) | the probe `benchmarks/micro_packed_dissect.py` :48 |
 
 Each wrapper checks device, dtype, shape, contiguity and alignment.  For a
 CUDA tensor it launches its kernel on the current stream, into an output
 from `torch.empty`, raises if the launch is refused, and adds one to its
 entry in `LAUNCHES`.  Only for a CPU tensor does it run its plain twin
 (`*_plain`, the same function in plain PyTorch): there is no fallback.
-The source notes in csrc/ give each kernel's bound and what its simple
-design leaves on the table.
+The source notes in csrc/ give each kernel's bound and what its design
+does about it.
 
 Drivers over the wrappers: the dense bucket-fold level walks
 (`fold_buckets_chunked`, `fold_buckets_halving`, `fold_buckets_grid_dense`,
@@ -104,10 +104,32 @@ def fold_buckets_plain(points_ext, idx):
     return limbs_to_words(mat[:, 0])
 
 
+# Fold blocks (128 threads) resident on one SM: csrc/msm_kernels.cu bounds the
+# kernel's registers for this many (FOLD_BLOCKS_PER_SM there).
+_FOLD_BLOCKS_PER_SM = 3
+# `fold_buckets_split` cuts long rows into as many segments as keep the
+# launch within this many rows: one resident wave of 128-thread teams on a
+# card of 128 SMs or more.
+SPLIT_ROWS = 128 * _FOLD_BLOCKS_PER_SM
+
+
+def _fold_team(nb: int, device) -> int:
+    """Threads per bucket row: the largest team (128, 64) whose blocks are
+    all resident at once, so a launch of few rows still fills the card;
+    one warp per row when rows alone fill it."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave_threads = 128 * _FOLD_BLOCKS_PER_SM * sms
+    for team in (128, 64):
+        if nb * team <= wave_threads:
+            return team
+    return 32
+
+
 def fold_buckets(points_ext, idx):
     """Bucket sums: points_ext (n+1, 3, 8) with the identity at row n, idx
     (nb, cap) int32 point indices with n as the empty-slot sentinel ->
-    (nb, 3, 8).  The gather is fused into the kernel."""
+    (nb, 3, 8).  The gather is fused into the kernel; nb may stack the
+    rows of many windows (one launch folds them all)."""
     _check("fold_buckets", points_ext, 3, (3, 8))
     _check("fold_buckets", idx, 2)
     _same_device("fold_buckets", points_ext, idx)
@@ -123,8 +145,27 @@ def fold_buckets(points_ext, idx):
     if nb:
         lib = load_library()
         _launch("fold_buckets", lib.svt_fold_buckets, points_ext.data_ptr(), idx.data_ptr(),
-                nb, cap, sentinel, out.data_ptr(), device=idx.device)
+                nb, cap, sentinel, out.data_ptr(), _fold_team(nb, idx.device), device=idx.device)
     return out
+
+
+def fold_buckets_split(points_ext, idx):
+    """`fold_buckets` for a few long rows (the MSM's top window): each row
+    is cut into S equal segments, padded with the sentinel, S the most
+    that keeps the (nb·S, cap/S) launch within SPLIT_ROWS rows; `fold_level`
+    then sums each row's S partial sums.  The same reshapes on every device."""
+    _check("fold_buckets_split", idx, 2)
+    nb, cap = idx.shape
+    if nb == 0 or cap == 0:
+        return fold_buckets(points_ext, idx)
+    segs = max(1, min(SPLIT_ROWS // nb, cap))
+    seg_len = -(-cap // segs)
+    pad = segs * seg_len - cap
+    if pad:
+        sentinel = points_ext.shape[0] - 1
+        idx = torch.cat([idx, idx.new_full((nb, pad), sentinel)], dim=1)
+    parts = fold_buckets(points_ext, idx.view(nb * segs, seg_len))
+    return fold_level(parts.view(nb, segs, 3, 8), segs)[:, 0]
 
 
 def add_nd(a, b):
@@ -324,6 +365,30 @@ def fq_mul_chain(a, b, ch: int):
     out = torch.empty_like(a)
     if a.shape[0]:
         _launch("fq_mul_chain", load_library().svt_fq_mul_chain, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), a.shape[0], ch, device=a.device)
+    return out
+
+
+def fq_sqr_chain_plain(a, ch: int):
+    """ch steps of a <- a·a (Fq Montgomery) in plain PyTorch."""
+    x = words_to_limbs(a)
+    for _ in range(ch):
+        x = FQ_FIELD.mul(x, x)
+    return limbs_to_words(x)
+
+
+def fq_sqr_chain(a, ch: int):
+    """(B,8) Fq words -> ch chained Montgomery squarings per lane: the same
+    kernel as `fq_mul_chain`, stepping through the dedicated square
+    (csrc/fq.cuh::fe_sqr)."""
+    _check("fq_sqr_chain", a, 2, (8,))
+    if ch < 0:
+        raise ValueError("fq_sqr_chain: ch < 0")
+    if a.device.type == "cpu":
+        return fq_sqr_chain_plain(a, ch)
+    out = torch.empty_like(a)
+    if a.shape[0]:
+        _launch("fq_mul_chain", load_library().svt_fq_mul_chain, a.data_ptr(), None,
                 out.data_ptr(), a.shape[0], ch, device=a.device)
     return out
 

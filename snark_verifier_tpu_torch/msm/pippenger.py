@@ -6,9 +6,11 @@ Same window/bucket semantics and the same static shapes:
   1. slot assignment (`_slot_indices`, plain torch on the device): c-bit
      digits -> a (buckets, capacity) matrix of point indices per window,
      with n as the empty-slot sentinel and an overflow flag;
-  2. bucket sums: the fused gather + fold kernel (`cuda_ops.fold_buckets`),
-     one launch per window; the top window keeps its own (top_range,
-     top_capacity) matrix, as in the JAX package (pippenger.py:307-311);
+  2. bucket sums (`bucket_sums`): the fused gather + fold kernel
+     (`cuda_ops.fold_buckets`), one launch for the rows of all main windows;
+     the top window keeps its own (top_range, top_capacity) matrix, as in
+     the JAX package (pippenger.py:307-311), whose few long rows are split
+     into segments, folded, and their partial sums folded again;
   3. Σ_b b·B_b per window: a log-step suffix scan plus a tree sum, each step
      one add-kernel launch batched over all windows;
   4. the Horner window combine: c double launches + one add launch per
@@ -141,6 +143,19 @@ def _horner(wsums, c: int):
     return acc
 
 
+def bucket_sums(points_ext, idx_all, top_idx):
+    """Every window's bucket sums, (W, n_buckets, 3, 8): all main windows'
+    rows idx_all (W-1, n_buckets, cap) in one fold launch; the top window's
+    few long rows top_idx (trange, tcap) split into segments and folded
+    twice.  The top window's trange buckets are padded with identities to
+    n_buckets, so it joins the others in one batched weighted sum."""
+    n_main, n_buckets, cap = idx_all.shape
+    main = cuda_ops.fold_buckets(points_ext, idx_all.view(n_main * n_buckets, cap))
+    top = cuda_ops.fold_buckets_split(points_ext, top_idx)
+    fill = _identity(n_buckets - top.shape[0], top.device)
+    return torch.cat([main, top, fill], dim=0).view(n_main + 1, n_buckets, 3, 8)
+
+
 def _as_limbs(x, name: str, tail: tuple, device):
     """numpy (the JAX package's uint32 arrays) or tensor -> int64 on device."""
     if isinstance(x, np.ndarray):
@@ -182,12 +197,8 @@ def msm(points, scalars_u16, capacity: Optional[int] = None, c: int = C_BITS, de
     tcap = max(capacity, top_capacity(n, c))
     top_idx, top_o = _slot_indices(digits[-1:], trange, tcap)
 
-    buckets = [cuda_ops.fold_buckets(points_ext, idx_all[w]) for w in range(idx_all.shape[0])]
-    top_b = cuda_ops.fold_buckets(points_ext, top_idx[0])
-    # The top window's trange buckets, padded with identities to n_buckets,
-    # joins the others in one batched weighted sum.
-    buckets.append(torch.cat([top_b, _identity(n_buckets - trange, dev)], dim=0))
-    wsums = _weighted_bucket_sum(torch.stack(buckets, 0))  # (W, 3, 8)
+    buckets = bucket_sums(points_ext, idx_all, top_idx[0])
+    wsums = _weighted_bucket_sum(buckets)  # (W, 3, 8)
     acc = _horner(wsums, c)
     return words_to_limbs(acc[0]), overflow | top_o
 

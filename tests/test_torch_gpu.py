@@ -87,6 +87,43 @@ def test_fold_kernel_matches_twin_and_oracle(cuda):
     assert ga == want
 
 
+@pytest.mark.parametrize("rows,team", [(1, 128), (49, 128), (256, 128), (500, 64), (7936, 32)])
+def test_fold_teams_match_twin(cuda, rows, team):
+    """From one row to all main windows of an MSM: each row count gets the
+    team its launch fills the card with (128, 64 or 32 threads a row on a
+    card of 132 SMs); caps that leave lanes without a slot, a row of
+    sentinels only."""
+    base = py_ec.rand_points(5, seed=21)
+    pts_ext = limbs_to_words(from_affine_int(base + [None], device=cuda))
+    rng = np.random.default_rng(rows)
+    cap = 37 if rows > 256 else 333
+    idx = torch.as_tensor(rng.integers(0, 6, size=(rows, cap)), dtype=torch.int32, device=cuda)
+    idx[rows // 2] = 5  # a row of sentinels only
+    if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert cuda_ops._fold_team(rows, cuda) == team
+    cuda_ops.reset_launches()
+    got = cuda_ops.fold_buckets(pts_ext, idx)
+    assert cuda_ops.LAUNCHES["fold_buckets"] == 1
+    twin = cuda_ops.fold_buckets_plain(pts_ext, idx)
+    ga = to_affine_int(words_to_limbs(got))
+    assert ga == to_affine_int(words_to_limbs(twin))
+    assert ga[rows // 2] is None
+
+
+def test_fold_split_on_card_matches_twin(cuda):
+    base = py_ec.rand_points(5, seed=22)
+    pts_ext = limbs_to_words(from_affine_int(base + [None], device=cuda))
+    rng = np.random.default_rng(23)
+    idx = torch.as_tensor(rng.integers(0, 6, size=(49, 1001)), dtype=torch.int32, device=cuda)
+    idx[3] = 5
+    idx[4, 100:] = 5  # its later segments hold sentinels only
+    cuda_ops.reset_launches()
+    got = cuda_ops.fold_buckets_split(pts_ext, idx)
+    assert cuda_ops.LAUNCHES["fold_buckets"] == 1 and cuda_ops.LAUNCHES["fold_segments"] == 1
+    twin = cuda_ops.fold_buckets_plain(pts_ext, idx)
+    assert to_affine_int(words_to_limbs(got)) == to_affine_int(words_to_limbs(twin))
+
+
 def test_msm_on_card_matches_oracle(cuda):
     pts = py_ec.rand_points(300, seed=7)
     rng = np.random.default_rng(8)
@@ -157,6 +194,9 @@ def test_chain_kernels_match_twins(cuda):
     assert torch.equal(cuda_ops.g1_add_chain(a, b, 5), cuda_ops.g1_add_chain_plain(a, b, 5))
     x, y = a[:, 0].contiguous(), b[:, 1].contiguous()
     assert torch.equal(cuda_ops.fq_mul_chain(x, y, 7), cuda_ops.fq_mul_chain_plain(x, y, 7))
+    cuda_ops.reset_launches()
+    assert torch.equal(cuda_ops.fq_sqr_chain(x, 7), cuda_ops.fq_sqr_chain_plain(x, 7))
+    assert cuda_ops.LAUNCHES["fq_mul_chain"] == 1
 
 
 @pytest.mark.parametrize("fname", ["fq", "fr"])
@@ -200,6 +240,26 @@ def test_poseidon_kernel_matches_twin_and_kat(cuda):
     ]
 
 
+@pytest.mark.parametrize("k", range(6))
+def test_poseidon_absorb_kernel_matches_plain_sponge(cuda, k):
+    from snark_verifier_tpu_torch._launch import LAUNCHES, reset_launches
+    from snark_verifier_tpu_torch.ff import FRW
+    from snark_verifier_tpu_torch.hash import absorb, absorb_plain
+
+    rng = np.random.default_rng(17 + k)
+    B = 131  # not a multiple of a warp's states: the tail block shadows
+    vals = [int.from_bytes(rng.bytes(32), "little") % (2 * FR.p + 1) for _ in range(B * (3 + k))]
+    vals[:3] = [0, FR.p, 2 * FR.p]
+    raw = np.asarray([[(v >> (16 * i)) & 0xFFFF for i in range(16)] for v in vals])
+    words = limbs_to_words(torch.as_tensor(raw, device=cuda))
+    st = words[: 3 * B].view(B, 3, 8).contiguous()
+    buf = words[3 * B :].view(B, k, 8).contiguous()
+    reset_launches()
+    got = absorb(st, buf)
+    assert LAUNCHES["poseidon_absorb"] == 1 and LAUNCHES["poseidon_permute"] == 0
+    assert torch.equal(got, absorb_plain(st.cpu(), buf.cpu()).to(cuda))
+
+
 def test_batch_succinct_verify_on_card_matches_oracle(cuda):
     from pathlib import Path
 
@@ -215,7 +275,7 @@ def test_batch_succinct_verify_on_card_matches_oracle(cuda):
     reset_launches()
     (lhs, rhs), = batch_succinct_verify(snarks, srs)
     for k in ("add", "double", "field_mul", "field_add", "field_sub", "field_inv",
-              "field_canon", "poseidon_permute"):
+              "field_canon", "poseidon_absorb"):
         assert LAUNCHES[k] > 0, k
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     assert got == [succinct_verify_native(s, srs)[0] for s in snarks]
