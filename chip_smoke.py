@@ -9,16 +9,19 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 2. builds the CUDA kernels from this checkout's sources (nvcc, sm_90a);
 3. holds each kernel against its plain PyTorch twin on the card: `add` and
    `double` at B = 65,536 (with identity, P == Q and P == -Q lanes) exactly,
-   after canonicalization; `fold_buckets` at the MSM's real shapes, in
-   affine form: one main window (256, 4,624), all 31 main windows in one
-   launch (7,936, 4,624), and the top window (49, 25,846) both whole and
-   split into segments (`fold_buckets_split`);
+   after canonicalization (their launches here are reported as
+   `launches_kat`: no main path launches them any more); `fold_buckets` at
+   the MSM's real shapes, in affine form: one main window (256, 4,624), all
+   31 main windows in one launch (7,936, 4,624), and the top window (49,
+   25,846) both whole and split into segments (`fold_buckets_split`);
 4. the main path: `msm` at n = 2^20, c = 8 over [1..n]·G (built on the card
    with the add kernel) and bench.py's scalars (numpy seed 42), with every
    kernel's launch count read around that one call; gates: no overflow, the
    result equals k_total·G (python-int oracle), one incremented scalar
-   moves the result by exactly (i+1)·G, and at most 3 fold launches; then
-   best-of-3 points/s;
+   moves the result by exactly (i+1)·G, at most 3 fold launches, at most 2
+   `bucket_reduce` launches and none of `add` or `double`; then best-of-3
+   points/s; `bucket_reduce` against its plain version on that call's
+   (32, 256) bucket sums, in affine form;
 5. kernel timings with CUDA events at the main path's shapes, beside each
    kernel's bound and its plain twin's time;
 6. the dense bucket folds (fold_buckets_chunked K=8, fold_buckets_halving 4
@@ -37,8 +40,11 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 9. the verify path: `batch_succinct_verify` at batch 1,024 (the 16 committed
    vanilla-PLONK k=10 fixtures tiled) with every kernel's launch count read
    around one call; gates: every lane's accumulator equals the port's
-   python-int oracle for its fixture, and a tampered instance in lane 0
-   moves lane 0 alone; then best-of-3 succinct proofs/s and its phases.
+   python-int oracle for its fixture, a tampered instance in lane 0 moves
+   lane 0 alone, one `msm_windowed` launch and none of `add` or `double`;
+   then best-of-3 succinct proofs/s and its phases; `msm_windowed` against
+   its plain version on that call's (1,024, 26) bases and scalars, in
+   affine form.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -77,6 +83,9 @@ CHAIN_FLOOR_MS_PER_MUL = 136 * 2 / 1.98e9 * 1e3
 MULADDS_PER_ADD = 12 * MULADDS_PER_FQ_MUL
 MULADDS_PER_DOUBLE = 8 * MULADDS_PER_FQ_MUL
 POINT_BYTES = 96
+# svt_msm_windowed (csrc/msm_loops.cu): a warp per proof, a group of 32
+# bases (one a lane) at a time, 64 windows of 4 bits.
+MSMW_WINDOWS = 64
 # hadeshash poseidonperm_x5_254_3: the permutation of (0, 1, 2) (T = 3, R_F = 8,
 # R_P = 57), the reference's Poseidon test vector.
 PERM_X5_254_3 = [
@@ -99,6 +108,37 @@ def bound_ms(n_bytes, n_muladds):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_muladds / IMAD_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def msm_windowed_ops(n):
+    """(adds, doubles) of the windowed MSM of n bases as the reference runs
+    it: a table of 14 adds a base; per window a tree of n - 1 adds, one add
+    into the accumulator and 4 doublings."""
+    return 14 * n + MSMW_WINDOWS * n, 4 * MSMW_WINDOWS
+
+
+def msm_windowed_chain_muls(n):
+    """Fq multiplies on one lane's chain in svt_msm_windowed: per group of
+    32 bases its table (14 adds), its ladder (63 windows of 4 doublings and
+    an add) and the add into its sum; then the warp's 5-level shuffle tree."""
+    groups = -(-n // 32)
+    adds = groups * (14 + (MSMW_WINDOWS - 1) + 1) + 5
+    doubles = groups * 4 * (MSMW_WINDOWS - 1)
+    return 12 * adds + 8 * doubles
+
+
+def bucket_reduce_ops(W, nb, c):
+    """(adds, doubles) of the least reduction of (W, nb) bucket sums: running
+    sums (2 (nb - 1) adds a window) and Horner (c (W - 1) doublings, W - 1
+    adds)."""
+    return W * 2 * (nb - 1) + W - 1, c * (W - 1)
+
+
+# Fq multiplies on the top window's chain in svt_bucket_reduce: 29 adds
+# (its lane's running sums 13, the suffix scan 5, the lane weight 1, two
+# shuffle trees 10) and 251 doublings (the lane weight 3, the window's
+# 2^248 scale 248).
+BUCKET_REDUCE_CHAIN_MULS = 12 * 29 + 8 * 251
 
 
 def time_ms(fn, reps, warmup=2):
@@ -362,7 +402,7 @@ def verify_phase(dev, kernels, errs):
     from pathlib import Path
 
     from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
-    from snark_verifier_tpu_torch.ff import FQW, FRW
+    from snark_verifier_tpu_torch.ff import FRW, digits4
     from snark_verifier_tpu_torch.hash import absorb, absorb_plain, permute, permute_plain
     from snark_verifier_tpu_torch.loader.base import TorchLoader
     from snark_verifier_tpu_torch.msm import cuda_ops
@@ -386,11 +426,15 @@ def verify_phase(dev, kernels, errs):
     (lhs, rhs), = agg.batch_succinct_verify(snarks, srs)
     torch.cuda.synchronize()
     launches = dict(cuda_ops.LAUNCHES)
-    path = ("add", "double", "field_mul", "field_add", "field_sub", "field_neg", "field_inv",
+    path = ("msm_windowed", "field_mul", "field_add", "field_sub", "field_neg", "field_inv",
             "field_canon", "poseidon_absorb")
-    log(f"# verify path launches per batch of {B}: { {k: launches[k] for k in path} }")
+    log(f"# verify path launches per batch of {B}: "
+        f"{ {k: launches[k] for k in path + ('add', 'double')} }")
     for k in path:
         check(launches[k] > 0, f"kernel {k} was not launched on the verify path")
+    check(launches["msm_windowed"] == 1, "the verify batch launched msm_windowed more than once")
+    check(launches["add"] == 0 and launches["double"] == 0,
+          "the verify batch launched the add or double kernel")
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     bad = [b for b in range(B) if got[b] != oracle[b % 16]]
     check(not bad, f"{len(bad)} lanes differ from the native oracle, first {bad[:5]}")
@@ -537,6 +581,50 @@ def verify_phase(dev, kernels, errs):
     for row in kernels:
         if row["name"] in ("add", "double"):
             row["launches_verify"] = launches[row["name"]]
+            row["launches"] += launches[row["name"]]
+
+    # The verify MSM against its plain version on the batch's own bases and
+    # scalars, captured from one more call.
+    seen = []
+    kernel = cuda_ops.msm_windowed
+
+    def capture(pts, scalars, c=4):
+        seen.append((pts, scalars))
+        return kernel(pts, scalars, c)
+
+    cuda_ops.msm_windowed = capture
+    try:
+        agg.batch_succinct_verify(snarks, srs)
+    finally:
+        cuda_ops.msm_windowed = kernel
+    check(len(seen) == 1, f"the verify batch called msm_windowed {len(seen)} times")
+    pts, scs = seen[0]
+    n = pts.shape[1]
+    got = cuda_ops.msm_windowed(pts, scs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = cuda_ops.msm_windowed_plain(pts, digits4(scs))
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = affine_err(got, want)
+    check(err == 0, "msm_windowed differs from its plain version")
+    ms = time_ms(lambda: cuda_ops.msm_windowed(pts, scs), 20)
+    w_adds, w_dbls = msm_windowed_ops(n)
+    bms, by = bound_ms(pts.numel() * 4 + scs.numel() * 4 + B * POINT_BYTES,
+                       B * (w_adds * MULADDS_PER_ADD + w_dbls * MULADDS_PER_DOUBLE))
+    chain = msm_windowed_chain_muls(n)
+    floor = chain * CHAIN_FLOOR_MS_PER_MUL
+    ms_one = time_ms(lambda: cuda_ops.msm_windowed(pts[:1].contiguous(), scs[:1].contiguous()),
+                     20)
+    log(f"# msm_windowed at {tuple(pts.shape[:2])}: {ms:.4f} ms (bound {bms:.4f} ms, {by}; "
+        f"chain floor {floor:.4f} ms = {chain} multiplies on a lane); B=1 {ms_one:.4f} ms; "
+        f"plain {plain_ms:.1f} ms; affine-equal to the plain version")
+    kernels.append(dict(
+        name="msm_windowed", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_loops.cu",
+        replaces="snark_verifier_tpu/ec/curve.py:194",
+        also_replaces=["snark_verifier_tpu/ec/curve.py:245"], launches=launches["msm_windowed"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        shape=list(pts.shape), chain_floor_ms=floor, ms_b1=ms_one, tolerance="exact, affine"))
     return B / best
 
 
@@ -594,6 +682,9 @@ def main() -> int:
     b[: len(specials_b)] = specials_b
     aw, bw = limbs_to_words(a), limbs_to_words(b)
     errs = {}
+    # Every add/double launch from here to the main path is a check's or the
+    # point ladder's, none the main paths' (reported as launches_kat).
+    cuda_ops.reset_launches()
     out_k = cuda_ops.add(aw, bw)
     out_p = cuda_ops.add_plain(aw, bw)
     torch.cuda.synchronize()
@@ -611,6 +702,7 @@ def main() -> int:
     log(f"# double: lazy words bit-identical to the twin's: {torch.equal(out_k, out_p)}")
     check(to_affine_int(words_to_limbs(out_k[1:2])) == [py_ec.double(P5)], "double of P wrong")
     log(f"# add/double vs twin at B={CHECK_B}: canonical-equal")
+    kat = {k: cuda_ops.LAUNCHES[k] for k in ("add", "double")}
 
     # ------------------------------------------------- main path's inputs
     n = 1 << LOG2N
@@ -686,9 +778,12 @@ def main() -> int:
     first_s = time.time() - t0
     launches = dict(cuda_ops.LAUNCHES)
     log(f"# msm 2^{LOG2N} first call: {first_s:.3f}s, launches {launches}")
-    for k in ("add", "double", "fold_buckets", "fold_segments"):
+    for k in ("fold_buckets", "fold_segments", "bucket_reduce"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     check(launches["fold_buckets"] <= 3, "more than 3 fold_buckets launches per msm")
+    check(launches["bucket_reduce"] <= 2, "more than 2 bucket_reduce launches per msm")
+    check(launches["add"] == 0 and launches["double"] == 0,
+          "the msm launched the add or double kernel")
     check(not bool(ovf), "bucket overflow at 2^20")
     got = to_affine_int(out)
     check(got == want, "msm result != k_total·G")
@@ -731,10 +826,9 @@ def main() -> int:
         pip._slot_indices(d_all[:-1], 1 << C_BITS, cap)[0],
         pip._slot_indices(d_all[-1:], trange, tcap)[0]))
     stacked, t_fold = phase(lambda: pip.bucket_sums(pe, idx_all, idx_t[0]))
-    wsums, t_wsum = phase(lambda: pip._weighted_bucket_sum(stacked))
-    _, t_horner = phase(lambda: pip._horner(wsums, C_BITS))
+    _, t_reduce = phase(lambda: pip.bucket_reduce(stacked, C_BITS))
     log(f"# msm phases (ms): prep {t_prep:.2f}, slot indices {t_slots:.2f}, "
-        f"folds {t_fold:.2f}, weighted sums {t_wsum:.2f}, horner {t_horner:.2f}")
+        f"folds {t_fold:.2f}, reduce {t_reduce:.2f}")
 
     # ------------------------------------------------------ kernel timings
     W = pip.n_windows(C_BITS)
@@ -744,7 +838,10 @@ def main() -> int:
     sb = rand_coords(scan_pairs)
     saw, sbw = limbs_to_words(sa), limbs_to_words(sb)
     one = saw[:1].contiguous()
-    # The kernels against their twins at exactly these main-path shapes too.
+    # The kernels against their twins at the shapes the host loops ran them
+    # at before csrc/msm_loops.cu: the first suffix-scan step (8,128 pairs)
+    # and one Horner point.
+    cuda_ops.reset_launches()
     for label, out_k, out_p in (
         ("add", cuda_ops.add(saw, sbw), cuda_ops.add_plain(saw, sbw)),
         ("double", cuda_ops.double(one), cuda_ops.double_plain(one)),
@@ -752,7 +849,36 @@ def main() -> int:
         err = int((canon_words(out_k) - canon_words(out_p)).abs().max())
         check(err == 0, f"{label} kernel disagrees with its twin at {tuple(out_k.shape)}")
         errs[label] = max(errs[label], err)
+    for k in kat:
+        kat[k] += cuda_ops.LAUNCHES[k]
     kernels = []
+
+    # The bucket reduction against its plain version on the main path's own
+    # (32, 256) bucket sums; its bound is the least reduction's operations,
+    # its yardstick the top window's chain.
+    red_k = pip.bucket_reduce(stacked, C_BITS)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    red_p = pip.bucket_reduce_plain(stacked, C_BITS)
+    torch.cuda.synchronize()
+    red_plain_ms = (time.time() - t0) * 1e3
+    errs["bucket_reduce"] = affine_err(red_k, red_p)
+    check(errs["bucket_reduce"] == 0, "bucket_reduce differs from its plain version")
+    ms = time_ms(lambda: pip.bucket_reduce(stacked, C_BITS), 20)
+    r_adds, r_dbls = bucket_reduce_ops(*stacked.shape[:2], C_BITS)
+    bms, by = bound_ms(stacked.numel() * 4 + POINT_BYTES,
+                       r_adds * MULADDS_PER_ADD + r_dbls * MULADDS_PER_DOUBLE)
+    floor = BUCKET_REDUCE_CHAIN_MULS * CHAIN_FLOOR_MS_PER_MUL
+    log(f"# bucket_reduce at {tuple(stacked.shape[:2])}: {ms:.4f} ms (bound {bms:.6f} ms, "
+        f"{by}; chain floor {floor:.4f} ms = {BUCKET_REDUCE_CHAIN_MULS} multiplies); plain "
+        f"{red_plain_ms:.1f} ms; affine-equal to the plain version")
+    kernels.append(dict(
+        name="bucket_reduce", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_loops.cu",
+        replaces="snark_verifier_tpu/msm/pippenger.py:276",
+        also_replaces=["snark_verifier_tpu/msm/pippenger.py:284"],
+        launches=launches["bucket_reduce"], max_abs_err=errs["bucket_reduce"], ms=ms,
+        plain_ms=red_plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        shape=list(stacked.shape), chain_floor_ms=floor, tolerance="exact, affine"))
 
     ms = time_ms(lambda: cuda_ops.add(saw, sbw), 20)
     plain = time_ms(lambda: cuda_ops.add_plain(saw, sbw), 3, warmup=1)
@@ -760,6 +886,7 @@ def main() -> int:
     kernels.append(dict(
         name="add", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_kernels.cu",
         replaces="snark_verifier_tpu/msm/pallas_ops.py:178", launches=launches["add"],
+        launches_msm=launches["add"], launches_kat=kat["add"],
         max_abs_err=errs["add"], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=None, shape=[scan_pairs, 3, 8], tolerance="exact, canonical"))
 
@@ -769,6 +896,7 @@ def main() -> int:
     kernels.append(dict(
         name="double", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_kernels.cu",
         replaces="snark_verifier_tpu/msm/pallas_ops.py:657", launches=launches["double"],
+        launches_msm=launches["double"], launches_kat=kat["double"],
         max_abs_err=errs["double"], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=None, shape=[1, 3, 8], tolerance="exact, canonical"))
 

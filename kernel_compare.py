@@ -7,20 +7,30 @@ one card: the only fair comparison of two versions of a kernel.
 `DIR` is the csrc/ directory of the other checkout (for example one unpacked
 with `git archive <commit> snark_verifier_tpu_torch/csrc`).  Its
 `fold_kernels.cu`, `msm_kernels.cu` and `poseidon_kernels.cu` are built side
-by side with nvcc, each against the headers beside it, and three of its
-entry points are called as the first version of the port declared them:
+by side with nvcc, each against the headers beside it, and its entry points
+are called as the port has declared them since the fold took a team size
+(the other checkout must be one whose `svt_fold_buckets` takes it):
 
 * `svt_fq_mul_chain(a, b, out, n, ch, stream)`: chains of dependent Fq
   multiplies at B = 2^17, CH = 16 and 256;
-* `svt_fold_buckets(points, idx, nb, cap, sentinel, out, stream)`: one main
-  window (256, cap) and the whole top window of the 2^`log2n` MSM's slot
-  indices (points [1..n]·G, scalars from numpy seed 42);
-* `svt_poseidon_permute(in, out, n, stream)` at B = 1,024 and 65,536.
+* `svt_fold_buckets(points, idx, nb, cap, sentinel, out, team, stream)`: one
+  main window (256, cap) and the whole top window of the 2^`log2n` MSM's
+  slot indices (points [1..n]·G, scalars from numpy seed 42), each with the
+  team this checkout picks for its row count;
+* `svt_poseidon_permute(in, out, n, stream)` at B = 1,024 and 65,536;
+* `svt_g1_add(a, b, out, n, stream)` and `svt_g1_double(a, out, n, stream)`
+  driven by the loops that launched them one group operation at a time
+  before `svt_msm_windowed` and `svt_bucket_reduce` replaced them: the verify
+  MSM at (1,024, 26) (26 bases tiled, numpy-seeded scalars; `digits4` and a
+  table of 14 add launches, then per window 4 double launches, a gather, a
+  tree of add launches and one more add), and the weighted bucket sums plus
+  Horner over the MSM's own (32, 256) bucket sums (a suffix scan and a tree
+  of add launches, then 8 double launches and one add launch per window).
 
 This checkout's kernels run through their wrappers on the same tensors.
 Each pair is timed with CUDA events in the order parent, this, this, parent,
 and both outputs are held against the plain PyTorch version: multiplies and
-permutations bit for bit, folds as affine points.  Prints the card's name
+permutations bit for bit, folds, MSMs and reductions as affine points.  Prints the card's name
 and power limit and one JSON object per line (also written to `--out`);
 exits 1 if any output disagrees.  Needs a CUDA card and nvcc.
 """
@@ -40,7 +50,9 @@ import numpy as np
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARENT_UNITS = {
     "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P]},
-    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _P]},
+    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
+                    "svt_g1_add": [_P, _P, _P, _LL, _P],
+                    "svt_g1_double": [_P, _P, _LL, _P]},
     "poseidon_kernels": {"svt_poseidon_load_constants": [_P, _P],
                          "svt_poseidon_permute": [_P, _P, _LL, _P]},
 }
@@ -128,7 +140,7 @@ def main() -> int:
 
     from snark_verifier_tpu_torch import _build
     from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words, py_ec
-    from snark_verifier_tpu_torch.ff import FQ, FR, FRW
+    from snark_verifier_tpu_torch.ff import FQ, FR, FRW, digits4
     from snark_verifier_tpu_torch.hash import permute, permute_plain, poseidon
     from snark_verifier_tpu_torch.msm import cuda_ops, scalars_from_int
     from snark_verifier_tpu_torch.msm import pippenger as pip
@@ -193,19 +205,93 @@ def main() -> int:
     digits = pip.extract_digits(scalars_from_int(ks).to(dev), 8)
     cap = pip.default_capacity(n, 256)
     tcap = max(cap, pip.top_capacity(n, 8))
-    idx_main, _ = pip._slot_indices(digits[:1], 256, cap)
+    idx_all, _ = pip._slot_indices(digits[:-1], 256, cap)
     idx_top, _ = pip._slot_indices(digits[-1:], pip.top_range(8), tcap)
+    idx_main = idx_all[:1]
     for label, ix in (("one main window", idx_main[0].contiguous()),
                       ("top window, whole", idx_top[0].contiguous())):
         out = torch.empty((ix.shape[0], 3, 8), dtype=torch.int32, device=dev)
         compare("fold_buckets",
                 lambda: call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(),
-                             ix.shape[0], ix.shape[1], n, out.data_ptr()),
+                             ix.shape[0], ix.shape[1], n, out.data_ptr(),
+                             cuda_ops._fold_team(ix.shape[0], dev)),
                 lambda: cuda_ops.fold_buckets(points_ext, ix), out, affine_err,
                 cuda_ops.fold_buckets_plain(points_ext, ix), 5, shape=label,
                 rows=ix.shape[0], cap=ix.shape[1])
-    del points_ext, pts, digits
+    buckets = pip.bucket_sums(points_ext, idx_all, idx_top[0])  # the MSM's (32, 256)
+    del points_ext, pts, digits, idx_all
     torch.cuda.empty_cache()
+
+    # ------------------------------- the point loops against their kernels
+    def p_add(x, y):
+        shape = x.shape
+        x, y = x.reshape(-1, 3, 8).contiguous(), y.reshape(-1, 3, 8).contiguous()
+        out = torch.empty_like(x)
+        call(parent["svt_g1_add"], x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0])
+        return out.view(shape)
+
+    def p_double(x):
+        shape = x.shape
+        x = x.reshape(-1, 3, 8).contiguous()
+        out = torch.empty_like(x)
+        call(parent["svt_g1_double"], x.data_ptr(), out.data_ptr(), x.shape[0])
+        return out.view(shape)
+
+    def p_tree_sum(x):  # along axis 1
+        x = x.movedim(1, 0)
+        while x.shape[0] > 1:
+            half = x.shape[0] // 2
+            x = torch.cat([p_add(x[:half], x[half : 2 * half]), x[2 * half :]], 0)
+        return x[0]
+
+    def p_msm_windowed(bases, scalars):
+        """The parent's verify MSM: its loop over its add/double kernels."""
+        digs = digits4(scalars)
+        tab, acc = [cuda_ops.identity(bases.shape[:2], dev), bases], bases
+        for _ in range(14):
+            acc = p_add(acc, bases)
+            tab.append(acc)
+        tab = torch.stack(tab, dim=2)
+        acc = cuda_ops.identity(bases.shape[:1], dev)
+        for w in range(digs.shape[-1] - 1, -1, -1):
+            for _ in range(4):
+                acc = p_double(acc)
+            idx = digs[..., w][..., None, None, None]
+            sel = torch.take_along_dim(tab, idx, dim=2).squeeze(2)
+            acc = p_add(acc, p_tree_sum(sel))
+        return acc
+
+    def p_bucket_reduce(b):
+        """The parent's weighted bucket sums and Horner loop."""
+        s = b[:, 1:].flip(1)
+        width, d = s.shape[1], 1
+        while d < width:
+            s = torch.cat([s[:, :d], p_add(s[:, d:], s[:, : width - d])], dim=1)
+            d *= 2
+        while s.shape[1] > 1:
+            half = s.shape[1] // 2
+            s = torch.cat([p_add(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
+        acc = cuda_ops.identity((1,), dev)
+        for w in range(s.shape[0] - 1, -1, -1):
+            for _ in range(8):
+                acc = p_double(acc)
+            acc = p_add(acc, s[w : w + 1, 0])
+        return acc
+
+    rng = np.random.default_rng(6)
+    B, nb = 1024, 26
+    bases = limbs_to_words(from_affine_int(py_ec.rand_points(nb, seed=6), device=dev))
+    bases = bases.expand(B, nb, 3, 8).contiguous()
+    ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(B * nb)]
+    raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks), dtype="<i4")
+    scs = torch.from_numpy(raw.reshape(B, nb, 8).copy()).to(dev)
+    compare("msm_windowed", lambda: p_msm_windowed(bases, scs),
+            lambda: cuda_ops.msm_windowed(bases, scs), p_msm_windowed(bases, scs), affine_err,
+            cuda_ops.msm_windowed_plain(bases, digits4(scs)), 5, shape=[B, nb])
+    compare("bucket_reduce", lambda: p_bucket_reduce(buckets),
+            lambda: pip.bucket_reduce(buckets, 8), p_bucket_reduce(buckets), affine_err,
+            pip.bucket_reduce_plain(buckets, 8), 5, shape=list(buckets.shape[:2]))
+    del buckets, bases, scs
 
     # --------------------------------------------------------------- Poseidon
     rc, md = poseidon._host_constants()

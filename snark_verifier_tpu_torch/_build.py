@@ -34,6 +34,9 @@ _SIGNATURES = {
     "svt_g1_add": [_P, _P, _P, _LL, _P],
     "svt_g1_double": [_P, _P, _LL, _P],
     "svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
+    # msm_loops.cu
+    "svt_msm_windowed": [_P, _P, _LL, _I, _P, _P],
+    "svt_bucket_reduce": [_P, _P, _P, _P],
     # fold_kernels.cu
     "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],
     "svt_g1_add_chain": [_P, _P, _P, _LL, _I, _P],

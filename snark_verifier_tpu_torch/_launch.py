@@ -13,8 +13,10 @@ import torch
 
 LAUNCHES = {
     # msm/cuda_ops.py
-    "add": 0, "double": 0, "fold_buckets": 0,
+    "add": 0, "double": 0, "fold_buckets": 0, "msm_windowed": 0,
     "fold_segments": 0, "g1_add_chain": 0, "fq_mul_chain": 0,
+    # msm/pippenger.py
+    "bucket_reduce": 0,
     # ff/word_field.py
     "field_mul": 0, "field_add": 0, "field_sub": 0, "field_neg": 0,
     "field_inv": 0, "field_canon": 0,

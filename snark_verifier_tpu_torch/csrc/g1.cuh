@@ -5,7 +5,8 @@
 // bit for bit.  Complete: no branch for P == Q, P == -Q or the identity.
 //
 // Per add: 12 fq_mul = 12 * 136 = 1632 32x32->64 multiply-adds, plus 18
-// add/sub carry chains.  Per double: 8 fq_mul = 1088 multiply-adds.
+// add/sub carry chains.  Per double: 8 fq_mul = 1088 multiply-adds (two of
+// them squares, which issue 108 of their 136).
 #pragma once
 
 #include "fq.cuh"
@@ -50,6 +51,39 @@ __device__ __forceinline__ void g1_store(uint32_t* __restrict__ dst, const G1& p
   }
 }
 
+// One point through the read-only path (six 16-byte loads).
+__device__ __forceinline__ void g1_load_nc(G1& p, const uint32_t* __restrict__ src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint32_t* d[3] = {p.x, p.y, p.z};
+#pragma unroll
+  for (int k = 0; k < 6; k++) {
+    const uint4 v = __ldg(s + k);
+    uint32_t* c = d[k / 2] + 4 * (k % 2);
+    c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
+  }
+}
+
+// q = the point held by lane (lane ^ mask) of the warp (every lane calls it).
+__device__ __forceinline__ void g1_shfl_xor(G1& q, const G1& p, int mask) {
+#pragma unroll
+  for (int i = 0; i < FQ_WORDS; i++) {
+    q.x[i] = __shfl_xor_sync(0xffffffffu, p.x[i], mask);
+    q.y[i] = __shfl_xor_sync(0xffffffffu, p.y[i], mask);
+    q.z[i] = __shfl_xor_sync(0xffffffffu, p.z[i], mask);
+  }
+}
+
+// q = the point held by lane (lane + delta) of the warp; a lane past the
+// last gets its own point back (every lane calls it).
+__device__ __forceinline__ void g1_shfl_down(G1& q, const G1& p, int delta) {
+#pragma unroll
+  for (int i = 0; i < FQ_WORDS; i++) {
+    q.x[i] = __shfl_down_sync(0xffffffffu, p.x[i], delta);
+    q.y[i] = __shfl_down_sync(0xffffffffu, p.y[i], delta);
+    q.z[i] = __shfl_down_sync(0xffffffffu, p.z[i], delta);
+  }
+}
+
 // o = p + q.  o may alias p or q: both are read before o is written.
 __device__ __forceinline__ void g1_add(G1& o, const G1& p, const G1& q) {
   uint32_t t0[FQ_WORDS], t1[FQ_WORDS], t2[FQ_WORDS], t3[FQ_WORDS], t4[FQ_WORDS],
@@ -91,15 +125,17 @@ __device__ __forceinline__ void g1_add(G1& o, const G1& p, const G1& q) {
   fq_add(o.z, s2, t2);  // z3l t4 + t0_3 t3
 }
 
-// o = 2p.  o may alias p.  The two squares go through the multiply: fe_sqr
-// measured 2% slower here (94 registers against 80).
+// o = 2p.  o may alias p.  The two squares go through fe_sqr: the doubling
+// chains of msm_loops.cu, which wait on each multiply's latency, measured 3%
+// faster with it; a batch of independent doublings (svt_g1_double at 2^19
+// points, throughput-bound) 2% slower.
 __device__ __forceinline__ void g1_double(G1& o, const G1& p) {
   uint32_t t0[FQ_WORDS], t1[FQ_WORDS], zz[FQ_WORDS], xy[FQ_WORDS], z8[FQ_WORDS],
       t2[FQ_WORDS], y3l[FQ_WORDS], u[FQ_WORDS];
   // Layer 1: Y^2, YZ, Z^2, XY.
-  fq_mul(t0, p.y, p.y);
+  fe_sqr<FQ>(t0, p.y);
   fq_mul(t1, p.y, p.z);
-  fq_mul(zz, p.z, p.z);
+  fe_sqr<FQ>(zz, p.z);
   fq_mul(xy, p.x, p.y);
   fq_add(z8, t0, t0);
   fq_add(z8, z8, z8);

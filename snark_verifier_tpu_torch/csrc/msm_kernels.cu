@@ -50,8 +50,9 @@
 // about 80% of the rate the multiply itself reaches (NVIDIA H100 80GB HBM3,
 // 700 W; chip_smoke.py).  What is left on the table: points
 // in array-of-structures rows (96-byte stride, six 16-byte loads per lane);
-// one thread still carries a whole 256-bit product; the add and double
-// kernels are launch-bound at the shapes their callers use.
+// one thread still carries a whole 256-bit product.  The add and double
+// kernels stay as the counterparts of the two Pallas kernels; no main path
+// launches them since msm_loops.cu took over the loops that did.
 
 #include <cuda_runtime.h>
 
@@ -87,28 +88,6 @@ __global__ void __launch_bounds__(PT_THREADS)
   g1_load(p, a + i * G1_WORDS);
   g1_double(p, p);
   g1_store(out + i * G1_WORDS, p);
-}
-
-// One point through the read-only path (six 16-byte loads).
-__device__ __forceinline__ void g1_load_nc(G1& p, const uint32_t* __restrict__ src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint32_t* d[3] = {p.x, p.y, p.z};
-#pragma unroll
-  for (int k = 0; k < 6; k++) {
-    const uint4 v = __ldg(s + k);
-    uint32_t* c = d[k / 2] + 4 * (k % 2);
-    c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
-  }
-}
-
-// q = the point held by lane (lane ^ mask) of the warp.
-__device__ __forceinline__ void g1_shfl_xor(G1& q, const G1& p, int mask) {
-#pragma unroll
-  for (int i = 0; i < FQ_WORDS; i++) {
-    q.x[i] = __shfl_xor_sync(0xffffffffu, p.x[i], mask);
-    q.y[i] = __shfl_xor_sync(0xffffffffu, p.y[i], mask);
-    q.z[i] = __shfl_xor_sync(0xffffffffu, p.z[i], mask);
-  }
 }
 
 // Bucket sums of idx (nb, cap): a team of TEAM threads per row, FOLD_BLOCK /

@@ -5,10 +5,10 @@ Verifier layers build it with operator overloading; `evaluate` lowers it in
 one shot.  Scalars are (B, 8) or (8,) Fr Montgomery words (None for the
 coefficient 1), bases (B, 3, 8) or (3, 8) projective G1 words, all on one
 device.  `evaluate` is the JAX package's positional branch (:102-150):
-the canonical scalars' 4-bit digits drive `msm/cuda_ops.py::msm_windowed`,
-whose adds and doubles are the kernels `svt_g1_add` / `svt_g1_double` on
-the card.  (The JAX package's RNS branch is the TPU's own coordinate layout
-and has no counterpart here.)
+the bases with their canonical scalars go to `msm/cuda_ops.py::msm_windowed`
+(4-bit windows), one launch of the kernel `svt_msm_windowed` on the card.
+(The JAX package's RNS branch is the TPU's own coordinate layout and has no
+counterpart here.)
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..ff import FRW, digits4
+from ..ff import FRW
 from ..msm import cuda_ops
 
 
@@ -103,7 +103,7 @@ class MsmExpr:
         if scaled_pts:
             pts = torch.stack([p.expand(batch, 3, 8) for p in scaled_pts], 1)  # (B, n, 3, 8)
             scs = torch.stack([s.expand(batch, 8) for s in scaled_scalars], 1)  # (B, n, 8)
-            acc = cuda_ops.msm_windowed(pts, digits4(FRW.from_mont(scs)), c=4)
+            acc = cuda_ops.msm_windowed(pts, FRW.from_mont(scs), c=4)
         for p in plain_pts:
             p = p.expand(batch, 3, 8).contiguous()
             acc = p if acc is None else cuda_ops.add(acc, p)

@@ -11,6 +11,7 @@ Points are (..., 3, 8) int32 tensors in the kernels' word layout (ec/g1.py).
 | `fold_buckets`, `fold_buckets_split` | `svt_fold_buckets` (msm_kernels.cu) | `msm/pippenger.py::_fold_buckets_pallas` (gather + `fold_buckets_grid_pk` :490 / `fold_buckets_grid` :560) |
 | `fold_level`, `fold_halving`, `fold_grid` | `svt_fold_segments` (fold_kernels.cu) | `_pallas_fold_level` :246, `_pallas_fold_halving` :326, `_pallas_fold_grid` :589 |
 | `g1_add_chain`, `fq_mul_chain`, `fq_sqr_chain` | `svt_g1_add_chain`, `svt_fq_mul_chain` (fold_kernels.cu) | the probe `benchmarks/micro_packed_dissect.py` :48 |
+| `msm_windowed` | `svt_msm_windowed` (msm_loops.cu) | `ec/curve.py::CurveOps.msm_windowed` :194 with `tree_sum` :245 (XLA) |
 
 Each wrapper checks device, dtype, shape, contiguity and alignment.  For a
 CUDA tensor it launches its kernel on the current stream, into an output
@@ -22,9 +23,10 @@ does about it.
 
 Drivers over the wrappers: the dense bucket-fold level walks
 (`fold_buckets_chunked`, `fold_buckets_halving`, `fold_buckets_grid_dense`,
-as `pallas_ops.py:260-283, 602-648`) and the verify-path group ops of
-`ec/curve.py::CurveOps` (`tree_sum` :245, `msm_windowed` :194, `to_affine`
-:261), which launch `svt_g1_add` / `svt_g1_double` on the card.
+as `pallas_ops.py:260-283, 602-648`) and `to_affine` (`ec/curve.py:261`).
+The verify MSM's plain version, `msm_windowed_plain` with `tree_sum`, is the
+JAX package's loop of group operations; on the card no loop launches
+`svt_g1_add` or `svt_g1_double` any more.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from .._build import load_library
 from .._launch import LAUNCHES, check as _check, launch as _launch, reset_launches
 from .._launch import same_device as _same_device
 from ..ec.g1 import G1, limbs_to_words, words_to_limbs
-from ..ff import FQ_FIELD, FQW
+from ..ff import FQ_FIELD, FQW, digits4
 
 
 # ---------------------------------------------------------------- add / double
@@ -166,18 +168,6 @@ def fold_buckets_split(points_ext, idx):
         idx = torch.cat([idx, idx.new_full((nb, pad), sentinel)], dim=1)
     parts = fold_buckets(points_ext, idx.view(nb * segs, seg_len))
     return fold_level(parts.view(nb, segs, 3, 8), segs)[:, 0]
-
-
-def add_nd(a, b):
-    """`add` over any matching batch shape (..., 3, 8)."""
-    shape = a.shape
-    out = add(a.reshape(-1, 3, 8).contiguous(), b.reshape(-1, 3, 8).contiguous())
-    return out.view(shape)
-
-
-def double_nd(a):
-    """`double` over any batch shape (..., 3, 8)."""
-    return double(a.reshape(-1, 3, 8).contiguous()).view(a.shape)
 
 
 def identity(batch_shape, device):
@@ -393,41 +383,68 @@ def fq_sqr_chain(a, ch: int):
     return out
 
 
-# ------------------------------------------------------- verify-path group ops
+# ------------------------------------------------------------ verify-path MSM
 
 
 def tree_sum(pts, dim: int = 0):
     """Sum (..., 3, 8) points along batch axis `dim` by halving folds (an
-    odd width carries its last point up), one add launch per level."""
+    odd width carries its last point up), in plain PyTorch."""
     pts = pts.movedim(dim, 0)
     while pts.shape[0] > 1:
         half = pts.shape[0] // 2
-        summed = add_nd(pts[:half], pts[half : 2 * half])
+        summed = add_plain(pts[:half], pts[half : 2 * half])
         pts = torch.cat([summed, pts[2 * half :]], 0)
     return pts[0]
 
 
-def msm_windowed(pts, digits, c: int = 4):
-    """Σ_i digits-scalar_i · pts_i with shared doublings: pts (..., n, 3, 8),
-    digits (..., n, nw) c-bit windows LSB first -> (..., 3, 8).  The table
-    T[d] = d·P_i (d < 2^c) takes 2^c - 2 add launches; each window, MSB
-    first, c double launches, one gather and a tree sum over the n bases."""
+def msm_windowed_plain(pts, digits, c: int = 4):
+    """Σ_i digits-scalar_i · pts_i with shared doublings, in plain PyTorch:
+    pts (..., n, 3, 8), digits (..., n, nw) c-bit windows LSB first ->
+    (..., 3, 8).  The table T[d] = d·P_i (d < 2^c) takes 2^c - 2 adds; each
+    window, MSB first, c doublings, one gather and a tree sum over the n
+    bases (ec/curve.py::CurveOps.msm_windowed)."""
     n_axis = pts.dim() - 3
     batch = pts.shape[:n_axis]
     inf = identity(pts.shape[:-2], pts.device)
     tab, acc = [inf, pts], pts
     for _ in range(2**c - 2):
-        acc = add_nd(acc, pts)
+        acc = add_plain(acc, pts)
         tab.append(acc)
     tab = torch.stack(tab, dim=n_axis + 1)  # (..., n, 2^c, 3, 8)
     acc = identity(batch, pts.device)
     for w in range(digits.shape[-1] - 1, -1, -1):
         for _ in range(c):
-            acc = double_nd(acc)
+            acc = double_plain(acc)
         idx = digits[..., w].to(torch.int64)[..., None, None, None]
         sel = torch.take_along_dim(tab, idx, dim=n_axis + 1).squeeze(n_axis + 1)
-        acc = add_nd(acc, tree_sum(sel, dim=n_axis))
+        acc = add_plain(acc, tree_sum(sel, dim=n_axis))
     return acc
+
+
+def msm_windowed(pts, scalars, c: int = 4):
+    """Σ_i scalar_i · pts_i for each proof: pts (B, n, 3, 8) projective
+    words, scalars (B, n, 8) canonical Fr words -> (B, 3, 8), over the 64
+    windows of 4 bits of `ff.digits4`.  On the card one launch of
+    `svt_msm_windowed` (csrc/msm_loops.cu); on the CPU `msm_windowed_plain`.
+    Only c = 4, the verify path's window, is taken."""
+    if c != 4:
+        raise ValueError(f"msm_windowed: c={c}; the kernel reads 4-bit windows only")
+    _check("msm_windowed", pts, 4, (3, 8))
+    _check("msm_windowed", scalars, 3, (8,))
+    _same_device("msm_windowed", pts, scalars)
+    if pts.shape[:2] != scalars.shape[:2]:
+        raise ValueError(f"msm_windowed: {tuple(pts.shape[:2])} bases but "
+                         f"{tuple(scalars.shape[:2])} scalars")
+    if pts.device.type == "cpu":
+        return msm_windowed_plain(pts, digits4(scalars), c)
+    B, n = pts.shape[:2]
+    if n >= 1 << 31:
+        raise ValueError("msm_windowed: more bases than an int32 counts")
+    out = torch.empty((B, 3, 8), dtype=torch.int32, device=pts.device)
+    if B:
+        _launch("msm_windowed", load_library().svt_msm_windowed, pts.data_ptr(),
+                scalars.data_ptr(), B, n, out.data_ptr(), device=pts.device)
+    return out
 
 
 def to_affine(pt):

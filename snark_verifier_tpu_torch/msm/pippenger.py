@@ -11,10 +11,10 @@ Same window/bucket semantics and the same static shapes:
      the top window keeps its own (top_range, top_capacity) matrix, as in
      the JAX package (pippenger.py:307-311), whose few long rows are split
      into segments, folded, and their partial sums folded again;
-  3. Σ_b b·B_b per window: a log-step suffix scan plus a tree sum, each step
-     one add-kernel launch batched over all windows;
-  4. the Horner window combine: c double launches + one add launch per
-     window.
+  3. Σ_w 2^(c·w) Σ_b b·B_{w,b} (`bucket_reduce`): the weighted bucket sums
+     and the window combine in one launch of `svt_bucket_reduce`, a warp per
+     window (csrc/msm_loops.cu); its plain version is the JAX package's
+     suffix scan, tree sum and Horner loop.
 
 The JAX package's `msm_rns` (the RNS layout for the TPU's int8 matrix unit)
 has no separate counterpart: on the GPU `msm` does its job.  The port needs
@@ -28,6 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._build import load_library
+from .._launch import check as _check, launch as _launch
 from ..device import resolve_device
 from ..ec.g1 import G1, limbs_to_words, words_to_limbs
 from ..ff.spec import FR
@@ -118,29 +120,57 @@ def _identity(k: int, device):
 
 
 def _weighted_bucket_sum(buckets):
-    """Σ_{b>=1} b·B_b over axis 1 of (W, n_buckets, 3, 8), as the tree sum of
-    suffix sums: a Hillis-Steele scan (log2 steps) then a halving tree, each
-    step one add launch over every window."""
+    """Σ_{b>=1} b·B_b over axis 1 of (W, n_buckets, 3, 8) in plain PyTorch,
+    as the tree sum of suffix sums: a Hillis-Steele scan (log2 steps) then
+    a halving tree, each step batched over every window."""
+    add = cuda_ops.add_plain
     s = buckets[:, 1:].flip(1)  # B_max ... B_1
     width = s.shape[1]
     d = 1
     while d < width:
-        s = torch.cat([s[:, :d], cuda_ops.add_nd(s[:, d:], s[:, : width - d])], dim=1)
+        s = torch.cat([s[:, :d], add(s[:, d:], s[:, : width - d])], dim=1)
         d *= 2
     while s.shape[1] > 1:  # tree sum, odd widths carry their last column
         half = s.shape[1] // 2
-        s = torch.cat([cuda_ops.add_nd(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
+        s = torch.cat([add(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
     return s[:, 0]
 
 
 def _horner(wsums, c: int):
-    """Combine window sums MSB-first: acc = 2^c·acc + wsum.  (W,3,8) -> (1,3,8)."""
+    """Combine window sums MSB-first in plain PyTorch: acc = 2^c·acc + wsum.
+    (W,3,8) -> (1,3,8)."""
     acc = _identity(1, wsums.device)
     for w in range(wsums.shape[0] - 1, -1, -1):
         for _ in range(c):
-            acc = cuda_ops.double(acc)
-        acc = cuda_ops.add(acc, wsums[w : w + 1])
+            acc = cuda_ops.double_plain(acc)
+        acc = cuda_ops.add_plain(acc, wsums[w : w + 1])
     return acc
+
+
+def bucket_reduce_plain(buckets, c: int):
+    """Σ_w 2^(c·w) Σ_{b>=1} b·B_{w,b} in plain PyTorch: the weighted sums,
+    then Horner."""
+    return _horner(_weighted_bucket_sum(buckets), c)
+
+
+def bucket_reduce(buckets, c: int = C_BITS):
+    """Every window's bucket sums (W, 2^c, 3, 8) -> (1, 3, 8) =
+    Σ_w 2^(c·w) Σ_{b>=1} b·B_{w,b}.  On the card one launch of
+    `svt_bucket_reduce` (csrc/msm_loops.cu), which takes c = 8 only; on the
+    CPU `bucket_reduce_plain`."""
+    _check("bucket_reduce", buckets, 4, (3, 8))
+    if tuple(buckets.shape[:2]) != (n_windows(c), 1 << c):
+        raise ValueError(f"bucket_reduce: {tuple(buckets.shape[:2])} buckets for c={c}")
+    if buckets.device.type == "cpu":
+        return bucket_reduce_plain(buckets, c)
+    if c != 8:
+        raise ValueError(f"bucket_reduce: c={c}; the kernel reduces 8-bit windows only")
+    # the kernel's scratch: one point per window, then its ticket word
+    part = torch.empty(n_windows(c) * 24 + 1, dtype=torch.int32, device=buckets.device)
+    out = torch.empty((1, 3, 8), dtype=torch.int32, device=buckets.device)
+    _launch("bucket_reduce", load_library().svt_bucket_reduce, buckets.data_ptr(),
+            part.data_ptr(), out.data_ptr(), device=buckets.device)
+    return out
 
 
 def bucket_sums(points_ext, idx_all, top_idx):
@@ -198,8 +228,7 @@ def msm(points, scalars_u16, capacity: Optional[int] = None, c: int = C_BITS, de
     top_idx, top_o = _slot_indices(digits[-1:], trange, tcap)
 
     buckets = bucket_sums(points_ext, idx_all, top_idx[0])
-    wsums = _weighted_bucket_sum(buckets)  # (W, 3, 8)
-    acc = _horner(wsums, c)
+    acc = bucket_reduce(buckets, c)
     return words_to_limbs(acc[0]), overflow | top_o
 
 

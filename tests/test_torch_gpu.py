@@ -5,8 +5,9 @@ so it also runs on a machine without them:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: exact; add and double canonically (and limb for limb), the fold
-and the MSM in affine form (their summation orders differ from the twins')."""
+Tolerance: exact; add and double canonically (and limb for limb); the fold,
+the verify MSM (`msm_windowed`), the bucket reduction and the MSM in affine
+form (their summation orders differ from the twins')."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from snark_verifier_tpu_torch.ec import (
     to_affine_int,
     words_to_limbs,
 )
-from snark_verifier_tpu_torch.ff import FQ_FIELD, FR
+from snark_verifier_tpu_torch.ff import FQ_FIELD, FR, digits4
 from snark_verifier_tpu_torch.msm import cuda_ops, msm, msm_checked, scalars_from_int
 
 pytestmark = pytest.mark.gpu
@@ -131,7 +132,8 @@ def test_msm_on_card_matches_oracle(cuda):
     cuda_ops.reset_launches()
     out, ovf = msm(from_affine_int(pts), scalars_from_int(ks))
     assert out.device.type == "cuda" and not bool(ovf)
-    assert all(cuda_ops.LAUNCHES[k] > 0 for k in ("add", "double", "fold_buckets"))
+    assert cuda_ops.LAUNCHES["fold_buckets"] > 0 and cuda_ops.LAUNCHES["bucket_reduce"] == 1
+    assert cuda_ops.LAUNCHES["add"] == 0 and cuda_ops.LAUNCHES["double"] == 0
     assert to_affine_int(out) == py_ec.msm(pts, ks)
     cpu, _ = msm(from_affine_int(pts), scalars_from_int(ks), device="cpu")
     assert to_affine_int(cpu) == to_affine_int(out)
@@ -144,6 +146,78 @@ def test_msm_checked_retry_on_card(cuda):
     assert bool(ovf)
     out = msm_checked(from_affine_int(pts), scalars_from_int(ks), capacity=8)
     assert to_affine_int(out) == py_ec.msm(pts, ks)
+
+
+def _scalar_words(ints, device):
+    raw = np.frombuffer(b"".join(int(k).to_bytes(32, "little") for k in ints), dtype="<i4")
+    return torch.from_numpy(raw.reshape(-1, 8).copy()).to(device)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1), (1, 2), (33, 26), (3, 32), (2, 33), (2, 64)])
+def test_msm_windowed_kernel_matches_plain_and_oracle(cuda, B, n):
+    """Teams past the last proof (B odd), lanes past n, a second group of
+    bases (n > 32), identity and repeated bases, scalars 0, 1, r - 1 and
+    2^256 - 1 (all digits 15)."""
+    rng = np.random.default_rng(100 + n)
+    aff = []
+    for b in range(B):
+        pts = py_ec.rand_points(n, seed=200 + b)
+        if n >= 2:
+            pts[1] = None
+        if n >= 4:
+            pts[3] = pts[2]
+        aff.append(pts)
+    ks = [[int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)] for _ in range(B)]
+    for i, k in enumerate((0, 1, FR.p - 1, (1 << 256) - 1)):
+        if i < n:
+            ks[0][i] = k
+    pts = limbs_to_words(from_affine_int([p for row in aff for p in row], device=cuda))
+    pts = pts.view(B, n, 3, 8)
+    sc = _scalar_words([k for row in ks for k in row], cuda).view(B, n, 8)
+    cuda_ops.reset_launches()
+    got = cuda_ops.msm_windowed(pts, sc)
+    assert cuda_ops.LAUNCHES["msm_windowed"] == 1 and cuda_ops.LAUNCHES["add"] == 0
+    ga = to_affine_int(words_to_limbs(got))
+    assert ga == to_affine_int(words_to_limbs(cuda_ops.msm_windowed_plain(pts, digits4(sc))))
+    assert ga == [py_ec.msm(a, [k % FR.p for k in row]) for a, row in zip(aff, ks)]
+
+
+def test_msm_windowed_kernel_at_the_verify_shape(cuda):
+    """(1024, 26), the verify batch's MSM: 26 bases tiled over the batch
+    with each proof's own scalars, against the plain version on the card."""
+    B, n = 1024, 26
+    base = limbs_to_words(from_affine_int(py_ec.rand_points(n, seed=300), device=cuda))
+    pts = base.expand(B, n, 3, 8).contiguous()
+    rng = np.random.default_rng(301)
+    sc = _scalar_words([int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(B * n)],
+                       cuda).view(B, n, 8)
+    got = cuda_ops.msm_windowed(pts, sc)
+    want = cuda_ops.msm_windowed_plain(pts, digits4(sc))
+    assert to_affine_int(words_to_limbs(got)) == to_affine_int(words_to_limbs(want))
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "equal"])
+def test_bucket_reduce_kernel_matches_plain_and_oracle(cuda, kind):
+    """The MSM's (32, 256) bucket sums with its top window padded past
+    bucket 48: random multiples of G, all identities, all equal."""
+    from snark_verifier_tpu_torch.msm import pippenger as pip
+
+    k = np.random.default_rng(400).integers(0, 8, size=(32, 256))
+    if kind != "random":
+        k[:] = 0 if kind == "empty" else 3
+    k[-1, pip.top_range(8):] = 0
+    pool = limbs_to_words(from_affine_int(
+        [py_ec.scalar_mul(py_ec.G1_GEN, j) for j in range(8)], device=cuda))
+    buckets = pool[torch.as_tensor(k, device=cuda)].contiguous()
+    cuda_ops.reset_launches()
+    got = pip.bucket_reduce(buckets, 8)
+    assert cuda_ops.LAUNCHES["bucket_reduce"] == 1 and cuda_ops.LAUNCHES["double"] == 0
+    ga = to_affine_int(words_to_limbs(got))
+    assert ga == to_affine_int(words_to_limbs(pip.bucket_reduce_plain(buckets, 8)))
+    total = sum((b * int(k[w, b])) << (8 * w) for w in range(32) for b in range(256))
+    assert ga == [py_ec.scalar_mul(py_ec.G1_GEN, total % FR.p)]
+    with pytest.raises(ValueError):
+        pip.bucket_reduce(buckets[:, :16].contiguous(), 4)  # only c = 8 on the card
 
 
 def _dense(nb, w, seed, device):
@@ -274,9 +348,10 @@ def test_batch_succinct_verify_on_card_matches_oracle(cuda):
     snarks = [Snark.load(str(d / f"snark_{i:02d}.json")) for i in range(3)]
     reset_launches()
     (lhs, rhs), = batch_succinct_verify(snarks, srs)
-    for k in ("add", "double", "field_mul", "field_add", "field_sub", "field_inv",
-              "field_canon", "poseidon_absorb"):
+    for k in ("field_mul", "field_add", "field_sub", "field_inv", "field_canon",
+              "poseidon_absorb"):
         assert LAUNCHES[k] > 0, k
+    assert LAUNCHES["msm_windowed"] == 1 and LAUNCHES["add"] == 0 and LAUNCHES["double"] == 0
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     assert got == [succinct_verify_native(s, srs)[0] for s in snarks]
 
