@@ -37,14 +37,24 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    (B = 1,024, plus the hadeshash x5_254_3 vector) and the fused sponge
    squeeze `poseidon_absorb` (B = 1,024, buffers of 0 to 5 elements),
    bit-identical to their plain versions;
-9. the verify path: `batch_succinct_verify` at batch 1,024 (the 16 committed
-   vanilla-PLONK k=10 fixtures tiled) with every kernel's launch count read
-   around one call; gates: every lane's accumulator equals the port's
-   python-int oracle for its fixture, a tampered instance in lane 0 moves
-   lane 0 alone, one `msm_windowed` launch and none of `add` or `double`;
-   then best-of-3 succinct proofs/s and its phases; `msm_windowed` against
-   its plain version on that call's (1,024, 26) bases and scalars, in
-   affine form.
+9. the verify path: `parallel.batch_verify` (the succinct phase, then the
+   pairing decide) at batch 1,024 (the 16 committed vanilla-PLONK k=10
+   fixtures tiled) with every kernel's launch count read around one call;
+   gates: every lane accepts, every lane's accumulator equals the port's
+   python-int oracle for its fixture, a tampered instance in lane 0 rejects
+   lane 0 alone (and moves its accumulator alone), one `msm_windowed`, one
+   `miller_loop` and one `final_exp` launch and none of `add` or `double`;
+   then best-of-3 verify proofs/s with the succinct and decide phases on
+   their own lines, and the succinct phase's parts; `msm_windowed`,
+   `miller_loop` and `final_exp` against their plain versions on that
+   call's own inputs;
+10. the pairing phase (bench.py's bench_pairing): the decide of B = 256
+   valid accumulators lhs = τ·rhs on the port's toy_srs(8, seed=0xA11CE),
+   best-of-3 checks/s; gates: all accept, lhs + G in lane 0 rejects lane 0
+   alone, a lane whose lhs and rhs are both the identity accepts;
+11. the pairing kernels at B = 1,024 on random inputs against their plain
+   versions (`miller_loop` over the SRS's lines, `final_exp`, each
+   `fq12_op` code), with their times, bounds and chain floors.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -67,6 +77,8 @@ CHECK_B = 1 << 16
 DENSE_SHAPE = (256, 4624)  # the Pallas fold micro-benchmarks' window
 PROBE_BATCHES = (256, 1 << 17)
 VERIFY_BATCH = 1024
+PAIRING_BATCH = 256  # bench.py's BENCH_BATCH_PAIRING
+PAIR_CHECK_B = 1024  # the pairing kernels' checks against their plain versions
 # Peak rates of one H100 SXM (700 W): HBM3 bandwidth, and the 32-bit integer
 # multiply-add throughput (64 per SM per clock, 132 SMs, 1.98 GHz boost).
 HBM_BYTES_PER_S = 3.35e12
@@ -132,6 +144,63 @@ def bucket_reduce_ops(W, nb, c):
     sums (2 (nb - 1) adds a window) and Horner (c (W - 1) doublings, W - 1
     adds)."""
     return W * 2 * (nb - 1) + W - 1, c * (W - 1)
+
+
+# Fq multiplies of the tower's operations: as the pairing kernels run them
+# (every Fq12 product, squares and sparse line products included, the
+# generic 54) and the least the same function needs (an Fq12 square 36:
+# two Fq6 products; a sparse 034 line product 39: 13 Fq2 products; a
+# square in the cyclotomic subgroup 18: nine Fq2 squares of 2).  The bound
+# and the chain floor count the least; `muls_per_lane` the kernel's own.
+MULS_PER_FQ12_MUL = 54  # 3 Fq6 products of 6 Fq2 products of 3 (Karatsuba)
+MULS_FQ12_SQR_LEAST, MULS_LINE_034_LEAST, MULS_CYCLO_SQR_LEAST = 36, 39, 18
+MULS_LINE_COEFFS = 6  # c0·Y, c3·X, c4·Z: three Fq2-by-Fq products
+
+
+def miller_muls(npairs, has_add, least=False):
+    """Fq multiplies on one lane of the multi-Miller loop: the square of f
+    at every step but the first (f = 1 there) and each line, its
+    coefficients and its product with f; the kernel's count, or with
+    `least` the function's."""
+    steps = len(has_add)
+    lines = npairs * (steps + int(np.sum(has_add)) + 2)
+    sqr, line = ((MULS_FQ12_SQR_LEAST, MULS_LINE_034_LEAST) if least
+                 else (MULS_PER_FQ12_MUL, MULS_PER_FQ12_MUL))
+    return sqr * (steps - 1) + (MULS_LINE_COEFFS + line) * lines
+
+
+def _frob_least_muls(tid):
+    """Fq multiplies of one transform: an Fq2 coefficient of (±1, 0) costs
+    none, a real one 2, any other 3."""
+    from snark_verifier_tpu_torch.ff import FQ
+    from snark_verifier_tpu_torch.pairing import fq12_vm
+
+    return sum(0 if c in ((1, 0), (FQ.p - 1, 0)) else 2 if c[1] == 0 else 3
+               for c in fq12_vm.transform(tid)[1])
+
+
+def final_exp_muls(least=False):
+    """Fq multiplies on one lane of the final exponentiation.  The easy
+    part as the kernel runs it in both counts (the Fq12 inverse's 112 and
+    an Fq inverse of 254 squares and popcount(p - 2) multiplies, then one
+    Fq12 product; ~6% of the whole).  The tape: the kernel's count
+    (fq12_vm.tape_muls), or with `least` a cyclotomic square for each
+    square (the tape runs after the easy part, so every value it squares
+    is in the cyclotomic subgroup), 54 for each other product, and each
+    Frobenius map at its coefficients' cost."""
+    from snark_verifier_tpu_torch.ff import FQ
+    from snark_verifier_tpu_torch.pairing import fq12_vm
+
+    tape = fq12_vm.build_final_exp_tape()
+    easy = 112 + 254 + bin(FQ.p - 2).count("1") + MULS_PER_FQ12_MUL
+    if not least:
+        return easy + fq12_vm.tape_muls(tape)
+    src1, src2, tid = tape[:, 0], tape[:, 1], tape[:, 3]
+    square = (src1 == src2) & (tid == fq12_vm.T_IDENTITY)
+    product = (src2 != fq12_vm.R_ONE) & ~square
+    transforms = sum(_frob_least_muls(int(t)) for t in tid if t != fq12_vm.T_IDENTITY)
+    return (easy + MULS_CYCLO_SQR_LEAST * int(square.sum())
+            + MULS_PER_FQ12_MUL * int(product.sum()) + transforms)
 
 
 # Fq multiplies on the top window's chain in svt_bucket_reduce: 29 adds
@@ -396,8 +465,10 @@ def field_checks(dev):
 
 
 def verify_phase(dev, kernels, errs):
-    """The verify path: batch_succinct_verify at batch 1024 over the 16 committed
-    vanilla-PLONK k=10 fixtures, tiled."""
+    """The verify path: batch_verify at batch 1024 over the 16 committed
+    vanilla-PLONK k=10 fixtures, tiled.  Returns (verify proofs/s, the
+    decide's captured Miller-loop arguments and final-exponentiation input,
+    its launch counts)."""
     import torch
     from pathlib import Path
 
@@ -406,6 +477,8 @@ def verify_phase(dev, kernels, errs):
     from snark_verifier_tpu_torch.hash import absorb, absorb_plain, permute, permute_plain
     from snark_verifier_tpu_torch.loader.base import TorchLoader
     from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pairing import pairing
+    from snark_verifier_tpu_torch.parallel import batch_verify
     from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
     from snark_verifier_tpu_torch.sdk import aggregation as agg
     from snark_verifier_tpu_torch.sdk.snark import Snark
@@ -422,44 +495,82 @@ def verify_phase(dev, kernels, errs):
     oracle = [pv.succinct_verify_native(s, srs)[0] for s in base]
     log(f"# verify inputs: SRS + 16 fixtures + 16 oracle runs: {time.time() - t0:.2f}s")
 
-    cuda_ops.reset_launches()
-    (lhs, rhs), = agg.batch_succinct_verify(snarks, srs)
-    torch.cuda.synchronize()
-    launches = dict(cuda_ops.LAUNCHES)
+    # The decide's inputs, captured around the kernel wrappers (which count
+    # their own launches).
+    seen_ml, seen_fe = [], []
+    real_ml, real_fe = pairing.miller_loop, pairing.final_exponentiation
+
+    def capture_ml(*args):
+        seen_ml.append(args)
+        return real_ml(*args)
+
+    def capture_fe(f):
+        seen_fe.append(f)
+        return real_fe(f)
+
+    pairing.miller_loop, pairing.final_exponentiation = capture_ml, capture_fe
+    try:
+        cuda_ops.reset_launches()
+        oks = batch_verify(snarks, srs)
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+        tam = Snark(base[0].protocol, [list(c) for c in base[0].instances], base[0].scalars,
+                    base[0].points)
+        tam.instances[0][0] = (tam.instances[0][0] + 1) % FRW.spec.p
+        oks_t = batch_verify([tam] + snarks[1:], srs)
+    finally:
+        pairing.miller_loop, pairing.final_exponentiation = real_ml, real_fe
     path = ("msm_windowed", "field_mul", "field_add", "field_sub", "field_neg", "field_inv",
-            "field_canon", "poseidon_absorb")
+            "field_canon", "poseidon_absorb", "miller_loop", "final_exp")
     log(f"# verify path launches per batch of {B}: "
-        f"{ {k: launches[k] for k in path + ('add', 'double')} }")
+        f"{ {k: launches[k] for k in path + ('add', 'double', 'fq12_op')} }")
     for k in path:
         check(launches[k] > 0, f"kernel {k} was not launched on the verify path")
-    check(launches["msm_windowed"] == 1, "the verify batch launched msm_windowed more than once")
+    for k in ("msm_windowed", "miller_loop", "final_exp"):
+        check(launches[k] == 1, f"the verify batch launched {k} {launches[k]} times, not once")
     check(launches["add"] == 0 and launches["double"] == 0,
           "the verify batch launched the add or double kernel")
+    check(len(seen_ml) == 2 and len(seen_fe) == 2, "the decide did not run once per batch")
+    check(oks.dtype == torch.bool and tuple(oks.shape) == (B,), "batch_verify's result shape")
+    check(bool(oks.all()), f"{int((~oks).sum())} of {B} valid proofs rejected")
+    check(not bool(oks_t[0]) and bool(oks_t[1:].all()),
+          f"tampered lane 0: rejected lanes {torch.nonzero(~oks_t).flatten()[:5].tolist()}")
+
+    def accumulators(args):
+        """(lhs, rhs) (B, 3, 8) from the Miller loop's (xs, ys, zs)."""
+        xs, ys, zs = args[:3]
+        pts = torch.stack([xs, ys, zs], dim=-2)  # (B, pair, coord, 8)
+        return pts[:, 0].contiguous(), pts[:, 1].contiguous()
+
+    lhs, rhs = accumulators(seen_ml[0])
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     bad = [b for b in range(B) if got[b] != oracle[b % 16]]
     check(not bad, f"{len(bad)} lanes differ from the native oracle, first {bad[:5]}")
-    tam = Snark(base[0].protocol, [list(c) for c in base[0].instances], base[0].scalars,
-                base[0].points)
-    tam.instances[0][0] = (tam.instances[0][0] + 1) % FRW.spec.p
-    (tl, tr), = agg.batch_succinct_verify([tam] + snarks[1:], srs)
+    tl, tr = accumulators(seen_ml[1])
     moved = ~(proj_equal(tl, lhs) & proj_equal(tr, rhs))
     check(bool(moved[0]) and not bool(moved[1:].any()),
           f"tampered lane 0: moved lanes {torch.nonzero(moved).flatten()[:5].tolist()}")
     tgot = (to_affine_int(words_to_limbs(tl[0])), to_affine_int(words_to_limbs(tr[0])))
     check(tgot == pv.succinct_verify_native(tam, srs)[0], "tampered lane != its oracle")
-    log(f"# verify gates: all {B} lanes == the native oracle of their fixture; the tampered "
-        f"instance moved lane 0 alone")
+    log(f"# verify gates: all {B} lanes accept, their accumulators == the native oracle of their "
+        f"fixture; the tampered instance rejects lane 0 alone and moved its accumulator alone")
 
-    times = []
+    times, phases = [], []
     for _ in range(3):
+        tm = {}
         torch.cuda.synchronize()
         t0 = time.time()
-        agg.batch_succinct_verify(snarks, srs)
+        batch_verify(snarks, srs, timings=tm)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
+        phases.append(tm)
     best = min(times)
-    log(f"# succinct verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} "
-        f"succinct proofs/s (runs {[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
+    log(f"# verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} verify proofs/s "
+        f"(runs {[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
+    log(f"# verify succinct phase (ms, the three runs): "
+        f"{[round(t['succinct_s'] * 1e3, 2) for t in phases]}")
+    log(f"# verify decide phase (ms, the three runs): "
+        f"{[round(t['decide_s'] * 1e3, 2) for t in phases]}")
 
     # Phases of one batch, host clock around synchronized steps.
     msm_s = [0.0]
@@ -498,22 +609,26 @@ def verify_phase(dev, kernels, errs):
         f"Bdfg21 scalar work {t_bdfg - t_msm:.2f}, MSMs (msm_windowed) {t_msm:.2f}")
 
     # Device busy share of one batch: kernel time from a torch.profiler
-    # trace over the host-clock wall time of the same (traced) call.
+    # trace over the host-clock wall time of the same (traced) call; the
+    # decide's two kernels apart from the succinct phase's.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        agg.batch_succinct_verify(snarks, srs)
+        batch_verify(snarks, srs)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+    decide_ms = sum(e.self_device_time_total for e in on_card
+                    if "miller_loop" in e.key or "final_exp" in e.key) / 1e3
     if busy_ms > 0:
         log(f"# verify device time (torch.profiler, one traced batch): {busy_ms:.2f} ms busy of "
-            f"{wall_ms:.2f} ms wall = {busy_ms / wall_ms:.1%} busy; top: " + ", ".join(
+            f"{wall_ms:.2f} ms wall = {busy_ms / wall_ms:.1%} busy; decide kernels {decide_ms:.2f} "
+            f"ms, succinct {busy_ms - decide_ms:.2f} ms; top: " + ", ".join(
                 f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
     else:
         log("# verify device time: not measured (the profiler recorded no device events)")
@@ -625,7 +740,164 @@ def verify_phase(dev, kernels, errs):
         also_replaces=["snark_verifier_tpu/ec/curve.py:245"], launches=launches["msm_windowed"],
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
         shape=list(pts.shape), chain_floor_ms=floor, ms_b1=ms_one, tolerance="exact, affine"))
+    return B / best, (seen_ml[0], seen_fe[0]), launches
+
+
+def pairing_phase(dev):
+    """bench.py's bench_pairing on the port: the decide of B = 256 valid
+    accumulators lhs = τ·rhs on toy_srs(8, seed=0xA11CE).  Returns checks/s."""
+    import torch
+
+    from snark_verifier_tpu_torch.ec import from_affine_int_np, py_ec
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pcs.kzg.decider import decide
+    from snark_verifier_tpu_torch.sdk.srs import toy_srs
+
+    B = PAIRING_BATCH
+    t0 = time.time()
+    srs = toy_srs(8, seed=0xA11CE)
+    rng = np.random.default_rng(3)
+    ks = [int.from_bytes(rng.bytes(31), "big") for _ in range(B)]
+    rhs_pts = [py_ec.scalar_mul(py_ec.G1_GEN, k) for k in ks]
+    lhs_pts = [py_ec.scalar_mul(py_ec.G1_GEN, k * srs.tau % FR.p) for k in ks]
+    up = lambda pts: torch.from_numpy(from_affine_int_np(pts)).to(dev)
+    lhs, rhs = up(lhs_pts), up(rhs_pts)
+    # lane 0: lhs + G (rejects); lane 1: both sides the identity (accepts)
+    neg_lhs = up([py_ec.add(lhs_pts[0], py_ec.G1_GEN), None] + lhs_pts[2:])
+    neg_rhs = up([rhs_pts[0], None] + rhs_pts[2:])
+    log(f"# pairing inputs: toy_srs(8) and {B} accumulators on the host: {time.time() - t0:.2f}s")
+    cuda_ops.reset_launches()
+    ok = decide(srs, lhs, rhs)
+    torch.cuda.synchronize()
+    launches = {k: cuda_ops.LAUNCHES[k] for k in ("miller_loop", "final_exp")}
+    check(launches == {"miller_loop": 1, "final_exp": 1},
+          f"the pairing batch launched {launches}, not one of each")
+    check(bool(ok.all()), f"{int((~ok).sum())} of {B} valid accumulators rejected")
+    neg = decide(srs, neg_lhs, neg_rhs)
+    want = [False, True] + [True] * (B - 2)
+    check(neg.tolist() == want, f"negative control: rejected lanes "
+                                f"{torch.nonzero(~neg).flatten()[:5].tolist()}, want [0]")
+    log(f"# pairing gates: all {B} valid accept; lhs + G rejects lane 0 alone; the all-identity "
+        f"lane accepts")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        decide(srs, lhs, rhs)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    best = min(times)
+    log(f"# pairing at B={B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} checks/s (runs "
+        f"{[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
     return B / best
+
+
+def pairing_kernel_checks(dev, kernels, decide_inputs, launches):
+    """The pairing kernels against their plain versions: on the verify
+    batch's own decide inputs, and at B = 1,024 on random lazy words
+    (`miller_loop` over the fixture SRS's lines, `final_exp`, each
+    `fq12_op` code); their rows of the kernels line."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FQ, FQ_FIELD, words_to_limbs
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pairing import pairing
+
+    def canon_err(got, want):
+        return word_err(FQ_FIELD.canon(words_to_limbs(got)), FQ_FIELD.canon(words_to_limbs(want)))
+
+    def plain_timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    (ml_args, f_path) = decide_inputs
+    xs, ys, zs, dbl, addc, has_add, finals = ml_args
+    npairs = xs.shape[1]
+    errs = {"miller_loop": 0, "final_exp": 0, "fq12_op": 0}
+    # the verify batch's own inputs
+    cuda_ops.reset_launches()
+    e = canon_err(pairing.miller_loop(*ml_args), pairing.miller_loop_plain(*ml_args))
+    check(e == 0, "miller_loop differs from its plain version on the verify batch's inputs")
+    e = word_err(pairing.final_exponentiation(f_path), pairing.final_exponentiation_plain(f_path))
+    check(e == 0, "final_exp differs from its plain version on the verify batch's inputs")
+    # random lazy words at B = 1,024
+    rng = np.random.default_rng(8)
+    B = PAIR_CHECK_B
+    X, Y, Z = (rand_lazy_words(rng, (B, npairs), FQ.p, dev) for _ in range(3))
+    ml = lambda: pairing.miller_loop(X, Y, Z, dbl, addc, has_add, finals)
+    got = ml()
+    want, ml_plain_ms = plain_timed(pairing.miller_loop_plain, X, Y, Z, dbl, addc, has_add, finals)
+    errs["miller_loop"] = canon_err(got, want)
+    check(errs["miller_loop"] == 0, "miller_loop differs from its plain version at B=1024")
+    fr = rand_lazy_words(rng, (B, 2, 3, 2), FQ.p, dev)
+    got = pairing.final_exponentiation(fr)
+    want, fe_plain_ms = plain_timed(pairing.final_exponentiation_plain, fr)
+    errs["final_exp"] = word_err(got, want)
+    check(errs["final_exp"] == 0, "final_exp differs from its plain version at B=1024")
+    gb = rand_lazy_words(rng, (B, 2, 3, 2), FQ.p, dev)
+    g034 = rand_lazy_words(rng, (B, 3, 2), FQ.p, dev)
+    op_ms, op_plain_ms = {}, {}
+    for op in pairing.OPS:
+        b = gb if op == "mul" else g034 if op == "mul_by_034" else None
+        got = pairing.fq12_op(op, fr, b)
+        want, op_plain_ms[op] = plain_timed(pairing.fq12_op_plain, op, fr, b)
+        e = canon_err(got, want)
+        check(e == 0, f"fq12_op {op} differs from its plain version at B=1024")
+        errs["fq12_op"] = max(errs["fq12_op"], e)
+        op_ms[op] = time_ms(lambda: pairing.fq12_op(op, fr, b), 10)
+    check_launches = {k: cuda_ops.LAUNCHES[k] for k in errs}
+    log(f"# pairing kernels == their plain versions on the verify batch's decide inputs and at "
+        f"B={B} on random lazy words (every fq12_op code); launches by these checks "
+        f"{check_launches}")
+    ms_ml = time_ms(ml, 5, warmup=1)
+    ms_fe = time_ms(lambda: pairing.final_exponentiation(fr), 5, warmup=1)
+    X1, Y1, Z1 = (t[:1].contiguous() for t in (X, Y, Z))
+    ms_ml1 = time_ms(lambda: pairing.miller_loop(X1, Y1, Z1, dbl, addc, has_add, finals), 5,
+                     warmup=1)
+    ms_fe1 = time_ms(lambda: pairing.final_exponentiation(fr[:1].contiguous()), 5, warmup=1)
+    fq12_bytes = 96 * 4
+    line_bytes = (dbl.numel() + addc.numel() + finals.numel()) * 4
+    m_ml, m_fe = miller_muls(npairs, has_add), final_exp_muls()
+    least_ml, least_fe = miller_muls(npairs, has_add, least=True), final_exp_muls(least=True)
+    rows = (
+        ("miller_loop", ms_ml, ms_ml1, ml_plain_ms, m_ml, least_ml,
+         B * (3 * npairs * 32 + fq12_bytes) + line_bytes,
+         "snark_verifier_tpu/pairing/pairing.py:151",
+         ["snark_verifier_tpu/pairing/pairing.py:99"], [B, npairs, 8]),
+        ("final_exp", ms_fe, ms_fe1, fe_plain_ms, m_fe, least_fe, B * 2 * fq12_bytes,
+         "snark_verifier_tpu/pairing/pairing.py:257",
+         ["snark_verifier_tpu/pairing/fq12_vm.py:145"], [B, 2, 3, 2, 8]),
+    )
+    for name, ms, ms1, pms, muls, least, nbytes, where, also, shape in rows:
+        bms, by = bound_ms(nbytes, B * least * MULADDS_PER_FQ_MUL)
+        floor = least * CHAIN_FLOOR_MS_PER_MUL
+        clocks = ms1 / (muls * CHAIN_FLOOR_MS_PER_MUL) * 272
+        log(f"# {name} at B={B}: {ms:.4f} ms, B=1 {ms1:.4f} ms (bound {bms:.4f} ms, {by}; chain "
+            f"floor {floor:.4f} ms = the function's least {least} multiplies on a lane; the "
+            f"kernel runs {muls}, {clocks:.0f} clocks per multiply alone); plain {pms:.1f} ms; "
+            f"== plain version")
+        kernels.append(dict(
+            name=name, route="cuda", source="snark_verifier_tpu_torch/csrc/pairing_kernels.cu",
+            replaces=where, also_replaces=also, launches=launches[name], max_abs_err=errs[name],
+            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None, shape=shape,
+            chain_floor_ms=floor, least_muls_per_lane=least, muls_per_lane=muls, ms_b1=ms1,
+            launches_checks=check_launches[name], tolerance="exact, canonical"))
+    bms, by = bound_ms(B * 3 * fq12_bytes, B * MULS_PER_FQ12_MUL * MULADDS_PER_FQ_MUL)
+    floor = MULS_PER_FQ12_MUL * CHAIN_FLOOR_MS_PER_MUL
+    log(f"# fq12_op at B={B} (ms per op): {({k: round(v, 4) for k, v in op_ms.items()})}; plain "
+        f"{({k: round(v, 1) for k, v in op_plain_ms.items()})}")
+    kernels.append(dict(
+        name="fq12_op", route="cuda", source="snark_verifier_tpu_torch/csrc/pairing_kernels.cu",
+        replaces="snark_verifier_tpu/tower/tower.py:223",
+        also_replaces=["snark_verifier_tpu/pairing/pairing.py:213"], launches=launches["fq12_op"],
+        max_abs_err=errs["fq12_op"], ms=op_ms["mul"], plain_ms=op_plain_ms["mul"], bound_ms=bms,
+        bound_by=by, library_ms=None, shape=[B, 2, 3, 2, 8], timed="mul",
+        chain_floor_ms=floor, ops_ms=op_ms, ops_plain_ms=op_plain_ms,
+        launches_checks=check_launches["fq12_op"], tolerance="exact, canonical"))
 
 
 def main() -> int:
@@ -950,8 +1222,14 @@ def main() -> int:
     errs_field = field_checks(dev)
     log(f"# field checks: {time.time() - t0:.1f}s")
     t0 = time.time()
-    rate = verify_phase(dev, kernels, errs_field)
-    log(f"# verify phase: {time.time() - t0:.1f}s; {rate:.1f} succinct proofs/s")
+    rate, decide_inputs, verify_launches = verify_phase(dev, kernels, errs_field)
+    log(f"# verify phase: {time.time() - t0:.1f}s; {rate:.1f} verify proofs/s")
+    t0 = time.time()
+    checks = pairing_phase(dev)
+    log(f"# pairing phase: {time.time() - t0:.1f}s; {checks:.1f} checks/s")
+    t0 = time.time()
+    pairing_kernel_checks(dev, kernels, decide_inputs, verify_launches)
+    log(f"# pairing kernel checks: {time.time() - t0:.1f}s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

@@ -52,6 +52,11 @@ _SIGNATURES = {
     "svt_poseidon_load_constants": [_P, _P],
     "svt_poseidon_permute": [_P, _P, _LL, _P],
     "svt_poseidon_absorb": [_P, _P, _I, _P, _LL, _P],
+    # pairing_kernels.cu
+    "svt_pairing_load_constants": [_P],
+    "svt_miller_loop": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P],
+    "svt_final_exp": [_P, _P, _I, _LL, _P, _P],
+    "svt_fq12_op": [_I, _P, _P, _LL, _P, _P],
 }
 
 _lib = None

@@ -22,6 +22,8 @@ LAUNCHES = {
     "field_inv": 0, "field_canon": 0,
     # hash/poseidon.py
     "poseidon_permute": 0, "poseidon_absorb": 0,
+    # pairing/pairing.py
+    "miller_loop": 0, "final_exp": 0, "fq12_op": 0,
 }
 
 

@@ -19,6 +19,7 @@ Loader interface:
   msm_sum([Expr]) -> Expr
   msm_evaluate(Expr, g) -> P   lower the lazy MSM (g = generator handle)
   zero_scalar() -> S           the value of an empty Expr's constant
+  decide_all(srs, [(lhs, rhs)]) -> accept bit(s)  the pairing decide
 """
 
 from __future__ import annotations
@@ -101,6 +102,18 @@ class TorchLoader:
 
     def msm_evaluate(self, expr, g):
         return expr.evaluate(g, self.batch, self.device)
+
+    # -------------------------------------------------------------- decide
+
+    def decide_all(self, srs, accumulators: List):
+        """(B,) bool: every accumulator of a lane passes its pairing check.
+        Kept so that the loader offers the whole interface of the JAX
+        package's `DeviceLoader` to code written against it;
+        `parallel.batch_verify` calls the decider directly.  The import is
+        local, as there: the decider is a layer above the loader."""
+        from ..pcs.kzg.decider import decide_all
+
+        return decide_all(srs, accumulators).all(dim=0)
 
 
 # -------------------------------------------------------------- the oracle

@@ -1,9 +1,12 @@
 """The KZG structured reference string: the counterpart of the JAX
 package's `sdk/srs.py` (`Srs`, `load_params`, G2 decoding).
 
-The succinct verifier needs only the generator g = [τ⁰]G1 (the reference's
-KzgSuccinctVerifyingKey); g2 and s_g2 are decoded and kept for the pairing
-decide.  The file is halo2's `ParamsKZG` in the "Processed" layout:
+The succinct verifier needs the generator g = [τ⁰]G1 (the reference's
+KzgSuccinctVerifyingKey); the decide needs the Miller-loop lines of
+(g2, −s_g2) (the KzgDecidingKey), prepared once on the host and kept per
+device as words (`decider_coeffs`).  `toy_srs` makes the deterministic
+toy setup with a known trapdoor that tests and the pairing benchmark use.
+The file is halo2's `ParamsKZG` in the "Processed" layout:
     k: u32 LE
     g:          2^k G1 points, 32 B compressed each
     g_lagrange: 2^k G1 points, 32 B compressed each
@@ -13,15 +16,19 @@ decide.  The file is halo2's `ParamsKZG` in the "Processed" layout:
 
 from __future__ import annotations
 
+import functools
+import random
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .. import errors
+from ..ec import py_ec
 from ..ec.g1 import from_affine_int_np
 from ..ff.spec import FQ, FR
 from ..pairing import py_pairing as pp
+from ..pairing.pairing import coeffs_to_device, prepare_g2_coeffs
 from .proof_io import g1_from_bytes
 
 
@@ -33,7 +40,9 @@ class Srs:
     g2: Tuple  # G2 affine (Fq2 int pair tuple)
     s_g2: Tuple  # [τ]·G2
     g_lagrange: List = field(default_factory=list)
+    tau: Optional[int] = field(default=None, repr=False)  # toy_srs's trapdoor
     _g_words: Dict = field(default_factory=dict, repr=False, compare=False)
+    _decider: Dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def g(self):
@@ -45,6 +54,19 @@ class Srs:
         if key not in self._g_words:
             self._g_words[key] = torch.from_numpy(from_affine_int_np([self.g])[0]).to(device)
         return self._g_words[key]
+
+    @functools.cached_property
+    def decider_coeffs_host(self):
+        """The Miller-loop lines of (g2, −s_g2) as numpy words (dbl, addc,
+        has_add, finals): python-int G2 arithmetic, once per Srs."""
+        return prepare_g2_coeffs([self.g2, pp.g2_neg(self.s_g2)])
+
+    def decider_coeffs(self, device):
+        """`decider_coeffs_host` on `device`, uploaded once per device."""
+        key = str(device)
+        if key not in self._decider:
+            self._decider[key] = coeffs_to_device(self.decider_coeffs_host, device)
+        return self._decider[key]
 
 
 def g2_from_bytes(b: bytes):
@@ -90,3 +112,13 @@ def load_params(path: str) -> Srs:
         s_g2=g2_from_bytes(data[pos + 64 : pos + 128]),
         g_lagrange=pts[n:],
     )
+
+
+@functools.lru_cache(maxsize=None)
+def toy_srs(n: int, seed: int = 0xA11CE) -> Srs:
+    """Deterministic toy SRS with a known trapdoor τ (tests and benchmarks
+    only): [τ^i]G1 for i < n, G2's generator and [τ]G2; the JAX package's
+    `toy_srs`, in python ints."""
+    tau = random.Random(seed).randrange(1, FR.p)
+    g1_powers = [py_ec.scalar_mul(py_ec.G1_GEN, pow(tau, i, FR.p)) for i in range(n)]
+    return Srs(g1_powers=g1_powers, g2=pp.G2_GEN, s_g2=pp.g2_scalar_mul(pp.G2_GEN, tau), tau=tau)

@@ -7,12 +7,16 @@ so it also runs on a machine without them:
 
 Tolerance: exact; add and double canonically (and limb for limb); the fold,
 the verify MSM (`msm_windowed`), the bucket reduction and the MSM in affine
-form (their summation orders differ from the twins')."""
+form (their summation orders differ from the twins'); the pairing kernels
+canonically (they skip products by 1)."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from snark_verifier_tpu_torch._launch import LAUNCHES, reset_launches
 from snark_verifier_tpu_torch.ec import (
     from_affine_int,
     limbs_to_words,
@@ -21,7 +25,24 @@ from snark_verifier_tpu_torch.ec import (
     words_to_limbs,
 )
 from snark_verifier_tpu_torch.ff import FQ_FIELD, FR, digits4
+from snark_verifier_tpu_torch.ff import FQ, FQW
 from snark_verifier_tpu_torch.msm import cuda_ops, msm, msm_checked, scalars_from_int
+from snark_verifier_tpu_torch.pairing import py_pairing as pp
+from snark_verifier_tpu_torch.pairing.pairing import (
+    final_exponentiation,
+    final_exponentiation_plain,
+    fq12_op,
+    fq12_op_plain,
+    is_one,
+    miller_loop,
+    miller_loop_plain,
+    prepare_pairs,
+)
+from snark_verifier_tpu_torch.parallel import batch_verify
+from snark_verifier_tpu_torch.sdk.snark import Snark
+from snark_verifier_tpu_torch.sdk.srs import load_params
+from snark_verifier_tpu_torch.tower import fq12_from_int, fq12_to_int, tower_from_int
+from snark_verifier_tpu_torch.verifier.plonk.verifier import succinct_verify_native
 
 pytestmark = pytest.mark.gpu
 
@@ -363,3 +384,120 @@ def test_wrappers_reject_on_card(cuda):
     with pytest.raises(ValueError):  # a point buffer off 16-byte alignment
         flat = torch.empty(8 * 24 + 1, dtype=torch.int32, device=cuda)
         cuda_ops.double(flat[1:].view(8, 3, 8))
+
+
+# ------------------------------------------------------------------ pairing
+
+
+def _rand_f12s(n, seed):
+    rng = np.random.default_rng(seed)
+    v = [int.from_bytes(rng.bytes(32), "little") % FQ.p for _ in range(12 * n)]
+    return [tuple(tuple((v[12 * b + 6 * i + 2 * j], v[12 * b + 6 * i + 2 * j + 1])
+                        for j in range(3)) for i in range(2)) for b in range(n)]
+
+
+_OP_ORACLE = {
+    "mul": lambda a, b, l: pp.f12_mul(a, b),
+    "square": lambda a, b, l: pp.f12_sq(a),
+    "mul_by_034": lambda a, b, l: pp.f12_mul_by_034(a, *l),
+    "frob1": lambda a, b, l: pp.f12_frob(a, 1),
+    "frob2": lambda a, b, l: pp.f12_frob(a, 2),
+    "frob3": lambda a, b, l: pp.f12_frob(a, 3),
+    "conj": lambda a, b, l: pp.f12_conj(a),
+    "inv": lambda a, b, l: pp.f12_inv(a),
+}
+
+
+@pytest.mark.parametrize("op", list(_OP_ORACLE))
+def test_fq12_op_kernel_matches_plain_and_oracle(cuda, op):
+    n = 67
+    A, Bv = _rand_f12s(n, 1), _rand_f12s(n, 2)
+    lines = [f[0] for f in _rand_f12s(n, 3)]
+    a = fq12_from_int(A, cuda)
+    b = fq12_from_int(Bv, cuda) if op == "mul" else (
+        tower_from_int(lines, 6, cuda) if op == "mul_by_034" else None)
+    reset_launches()
+    got = fq12_op(op, a, b)
+    assert LAUNCHES["fq12_op"] == 1
+    plain = fq12_op_plain(op, a, b)
+    canon = lambda w: FQ_FIELD.canon(words_to_limbs(w))
+    assert torch.equal(canon(got), canon(plain))
+    ints = fq12_to_int(got)
+    assert all(ints[i] == _OP_ORACLE[op](A[i], Bv[i], lines[i]) for i in range(5))
+
+
+def test_miller_loop_kernel_matches_plain_and_oracle(cuda):
+    g1, g2 = py_ec.G1_GEN, pp.G2_GEN
+    pairs = [(py_ec.scalar_mul(g1, 777), g2), (g1, pp.g2_scalar_mul(g2, 31337))]
+    want = pp.miller_loop([(p, pp.prepare_g2(q)) for p, q in pairs])
+    xs, ys, dbl, addc, has_add, finals = prepare_pairs(pairs)
+    up = lambda t: torch.from_numpy(t).to(cuda)
+    lines = (up(dbl), up(addc), has_add, up(finals))
+    ones = FQW.from_int([1, 1], cuda)[None]  # affine: Z = 1
+    f = miller_loop(up(xs)[None], up(ys)[None], ones, *lines)
+    assert fq12_to_int(f[0]) == want
+    # projective lanes: random coordinates against the plain version
+    X = _rand_words(5, 7, cuda)[:, :2].contiguous()
+    Y = _rand_words(5, 8, cuda)[:, :2].contiguous()
+    Z = FQW.from_int([3, 0, 5, 7, 11, 13, 17, 19, 23, 29], cuda).view(5, 2, 8)
+    got = miller_loop(X, Y, Z, *lines)
+    plain = miller_loop_plain(X, Y, Z, *lines)
+    assert torch.equal(FQ_FIELD.canon(words_to_limbs(got)), FQ_FIELD.canon(words_to_limbs(plain)))
+
+
+def test_final_exp_kernel_matches_plain_and_oracle(cuda):
+    fs = _rand_f12s(3, 9)
+    fs[2] = tuple(tuple((0, 0) for _ in range(3)) for _ in range(2))  # f = 0 decides false
+    f = fq12_from_int(fs, cuda)
+    got = final_exponentiation(f)
+    assert torch.equal(got, final_exponentiation_plain(f))  # both canonical
+    ints = fq12_to_int(got)
+    assert ints[:2] == [pp.final_exponentiation(x) for x in fs[:2]]
+    assert is_one(got).tolist() == [False, False, False]
+    assert not bool(got[2].any())
+
+
+def test_batch_verify_on_card_matches_oracle(cuda):
+    d = Path(__file__).resolve().parent.parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    srs = load_params(str(d / "srs.bin"))
+    snarks = [Snark.load(str(d / f"snark_{i:02d}.json")) for i in range(3)]
+    s0 = snarks[0]
+    snarks[0] = Snark(s0.protocol, [list(c) for c in s0.instances], s0.scalars, s0.points)
+    snarks[0].instances[0][0] = (snarks[0].instances[0][0] + 1) % FR.p
+    reset_launches()
+    oks = batch_verify(snarks, srs)
+    assert LAUNCHES["miller_loop"] == 1 and LAUNCHES["final_exp"] == 1
+    assert LAUNCHES["msm_windowed"] == 1
+    want = [pp.pairing_check([(lhs, srs.g2), (rhs, pp.g2_neg(srs.s_g2))])
+            for (lhs, rhs), in (succinct_verify_native(s, srs) for s in snarks)]
+    assert want == [False, True, True]
+    assert oks.tolist() == want
+
+
+def test_pairing_wrappers_reject_on_card(cuda):
+    f = torch.zeros((4, 2, 3, 2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        final_exponentiation(f.to(torch.int64))
+    with pytest.raises(ValueError):
+        final_exponentiation(f[:, 0])
+    with pytest.raises(ValueError):
+        fq12_op("mul", f, f.cpu())
+    with pytest.raises(ValueError):
+        fq12_op("mul_by_034", f, f)
+    with pytest.raises(ValueError):
+        fq12_op("pow", f)
+    xs = torch.zeros((4, 2, 8), dtype=torch.int32, device=cuda)
+    lines = torch.zeros((65, 2, 3, 2, 8), dtype=torch.int32, device=cuda)
+    fin = torch.zeros((2, 2, 3, 2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # 64 steps of lines
+        miller_loop(xs, xs, xs, lines[:64], lines, np.zeros(65, bool), fin)
+    with pytest.raises(ValueError):  # lines for three pairs
+        three = torch.zeros((65, 3, 3, 2, 8), dtype=torch.int32, device=cuda)
+        miller_loop(xs, xs, xs, three, lines, np.zeros(65, bool), fin)
+    with pytest.raises(ValueError):
+        miller_loop(xs, xs, xs, lines, lines, np.zeros(64, bool), fin)
+    with pytest.raises(ValueError):  # points for three pairs
+        xs3 = torch.zeros((4, 3, 8), dtype=torch.int32, device=cuda)
+        miller_loop(xs3, xs3, xs3, lines, lines, np.zeros(65, bool), fin)
+    with pytest.raises(ValueError):  # zs of another batch
+        miller_loop(xs, xs, xs[:2], lines, lines, np.zeros(65, bool), fin)

@@ -52,6 +52,11 @@ import snark_verifier_tpu_torch.sdk.aggregation
 import snark_verifier_tpu_torch.sdk.proof_io
 import snark_verifier_tpu_torch.sdk.snark
 import snark_verifier_tpu_torch.sdk.srs
+import snark_verifier_tpu_torch.tower
+import snark_verifier_tpu_torch.pairing.pairing
+import snark_verifier_tpu_torch.pairing.fq12_vm
+import snark_verifier_tpu_torch.pcs.kzg.decider
+import snark_verifier_tpu_torch.parallel.batch_verify
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "snark_verifier_tpu")]
 assert not bad, bad
 print("OK")
