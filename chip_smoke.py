@@ -42,12 +42,16 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    fixtures tiled) with every kernel's launch count read around one call;
    gates: every lane accepts, every lane's accumulator equals the port's
    python-int oracle for its fixture, a tampered instance in lane 0 rejects
-   lane 0 alone (and moves its accumulator alone), one `msm_windowed`, one
-   `miller_loop` and one `final_exp` launch and none of `add` or `double`;
-   then best-of-3 verify proofs/s with the succinct and decide phases on
-   their own lines, and the succinct phase's parts; `msm_windowed`,
-   `miller_loop` and `final_exp` against their plain versions on that
-   call's own inputs;
+   lane 0 alone (and moves its accumulator alone), one launch each of
+   `fr_tape` (the recorded Fr program of `verifier/plonk/plan.py`),
+   `msm_windowed`, `miller_loop` and `final_exp`, at most 3 single-op field
+   launches (the transcript's batched Fq -> Fr map) and none of `add` or
+   `double`; then best-of-3 verify proofs/s, and from three more runs the
+   succinct and decide phases and the succinct phase's steps as
+   `batch_verify` records them in its `timings`; `fr_tape`
+   (on the batch's own gathered inputs and on the tampered batch's, exact
+   canonical words), `msm_windowed`, `miller_loop` and `final_exp` against
+   their plain versions on that call's own inputs;
 10. the pairing phase (bench.py's bench_pairing): the decide of B = 256
    valid accumulators lhs = τ·rhs on the port's toy_srs(8, seed=0xA11CE),
    best-of-3 checks/s; gates: all accept, lhs + G in lane 0 rejects lane 0
@@ -65,6 +69,7 @@ Exits 2 without a result when no CUDA card is present.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -208,6 +213,27 @@ def final_exp_muls(least=False):
 # shuffle trees 10) and 251 doublings (the lane weight 3, the window's
 # 2^248 scale 248).
 BUCKET_REDUCE_CHAIN_MULS = 12 * 29 + 8 * 251
+
+
+def ptxas_usage(fragment):
+    """(registers, stack frame bytes) that ptxas reported in this process's
+    build for the kernel whose mangled name holds `fragment` (None, None
+    when this process did not build the library)."""
+    from snark_verifier_tpu_torch import _build
+
+    lines = _build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "entry function" in line and fragment in line:
+            regs = stack = None
+            for nxt in lines[i + 1 : i + 6]:
+                m = re.search(r"(\d+) bytes stack frame", nxt)
+                stack = int(m.group(1)) if m else stack
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    regs = int(m.group(1))
+                    break
+            return regs, stack
+    return None, None
 
 
 def time_ms(fn, reps, warmup=2):
@@ -473,9 +499,8 @@ def verify_phase(dev, kernels, errs):
     from pathlib import Path
 
     from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
-    from snark_verifier_tpu_torch.ff import FRW, digits4
+    from snark_verifier_tpu_torch.ff import FRW, digits4, fr_tape
     from snark_verifier_tpu_torch.hash import absorb, absorb_plain, permute, permute_plain
-    from snark_verifier_tpu_torch.loader.base import TorchLoader
     from snark_verifier_tpu_torch.msm import cuda_ops
     from snark_verifier_tpu_torch.pairing import pairing
     from snark_verifier_tpu_torch.parallel import batch_verify
@@ -483,8 +508,8 @@ def verify_phase(dev, kernels, errs):
     from snark_verifier_tpu_torch.sdk import aggregation as agg
     from snark_verifier_tpu_torch.sdk.snark import Snark
     from snark_verifier_tpu_torch.sdk.srs import load_params
-    from snark_verifier_tpu_torch.transcript import PoseidonTranscript
     from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
+    from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
 
     B = VERIFY_BATCH
     d = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
@@ -495,10 +520,15 @@ def verify_phase(dev, kernels, errs):
     oracle = [pv.succinct_verify_native(s, srs)[0] for s in base]
     log(f"# verify inputs: SRS + 16 fixtures + 16 oracle runs: {time.time() - t0:.2f}s")
 
-    # The decide's inputs, captured around the kernel wrappers (which count
-    # their own launches).
-    seen_ml, seen_fe = [], []
+    # The Fr program's and the decide's inputs, captured around the kernel
+    # wrappers (which count their own launches).
+    seen_tape, seen_ml, seen_fe = [], [], []
+    real_tape = fr_tape.run
     real_ml, real_fe = pairing.miller_loop, pairing.final_exponentiation
+
+    def capture_tape(tape, inputs):
+        seen_tape.append((tape, inputs))
+        return real_tape(tape, inputs)
 
     def capture_ml(*args):
         seen_ml.append(args)
@@ -508,7 +538,8 @@ def verify_phase(dev, kernels, errs):
         seen_fe.append(f)
         return real_fe(f)
 
-    pairing.miller_loop, pairing.final_exponentiation = capture_ml, capture_fe
+    fr_tape.run, pairing.miller_loop, pairing.final_exponentiation = (
+        capture_tape, capture_ml, capture_fe)
     try:
         cuda_ops.reset_launches()
         oks = batch_verify(snarks, srs)
@@ -519,17 +550,21 @@ def verify_phase(dev, kernels, errs):
         tam.instances[0][0] = (tam.instances[0][0] + 1) % FRW.spec.p
         oks_t = batch_verify([tam] + snarks[1:], srs)
     finally:
-        pairing.miller_loop, pairing.final_exponentiation = real_ml, real_fe
-    path = ("msm_windowed", "field_mul", "field_add", "field_sub", "field_neg", "field_inv",
-            "field_canon", "poseidon_absorb", "miller_loop", "final_exp")
+        fr_tape.run, pairing.miller_loop, pairing.final_exponentiation = real_tape, real_ml, real_fe
+    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "miller_loop", "final_exp")
+    field = {k: v for k, v in launches.items() if k.startswith("field_")}
     log(f"# verify path launches per batch of {B}: "
-        f"{ {k: launches[k] for k in path + ('add', 'double', 'fq12_op')} }")
+        f"{ {k: launches[k] for k in path + ('add', 'double', 'fq12_op')} }; single-op field "
+        f"kernels {field}")
     for k in path:
         check(launches[k] > 0, f"kernel {k} was not launched on the verify path")
-    for k in ("msm_windowed", "miller_loop", "final_exp"):
+    for k in ("fr_tape", "msm_windowed", "miller_loop", "final_exp"):
         check(launches[k] == 1, f"the verify batch launched {k} {launches[k]} times, not once")
+    check(sum(field.values()) <= 3,
+          f"the verify batch launched {sum(field.values())} single-op field kernels, not at most 3")
     check(launches["add"] == 0 and launches["double"] == 0,
           "the verify batch launched the add or double kernel")
+    check(len(seen_tape) == 2, "the Fr program did not run once per batch")
     check(len(seen_ml) == 2 and len(seen_fe) == 2, "the decide did not run once per batch")
     check(oks.dtype == torch.bool and tuple(oks.shape) == (B,), "batch_verify's result shape")
     check(bool(oks.all()), f"{int((~oks).sum())} of {B} valid proofs rejected")
@@ -555,58 +590,41 @@ def verify_phase(dev, kernels, errs):
     log(f"# verify gates: all {B} lanes accept, their accumulators == the native oracle of their "
         f"fixture; the tampered instance rejects lane 0 alone and moved its accumulator alone")
 
-    times, phases = [], []
+    times = []
     for _ in range(3):
-        tm = {}
         torch.cuda.synchronize()
         t0 = time.time()
-        batch_verify(snarks, srs, timings=tm)
+        batch_verify(snarks, srs)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-        phases.append(tm)
     best = min(times)
     log(f"# verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} verify proofs/s "
         f"(runs {[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
-    log(f"# verify succinct phase (ms, the three runs): "
-        f"{[round(t['succinct_s'] * 1e3, 2) for t in phases]}")
-    log(f"# verify decide phase (ms, the three runs): "
-        f"{[round(t['decide_s'] * 1e3, 2) for t in phases]}")
 
-    # Phases of one batch, host clock around synchronized steps.
-    msm_s = [0.0]
+    # Phases and the succinct phase's steps, as batch_verify records them in
+    # `timings` (host clock, each step between two synchronizes), three runs.
+    steps = ("stack_s", "plan_s", "read_s", "gather_s", "fr_tape_s", "msm_s")
+    phases = []
+    for _ in range(3):
+        tm = {}
+        batch_verify(snarks, srs, timings=tm)
+        phases.append(tm)
+    check(all(set(steps) <= set(tm) for tm in phases), "batch_verify recorded no succinct steps")
 
-    class TimedLoader(TorchLoader):
-        def msm_evaluate(self, expr, g):
-            torch.cuda.synchronize()
-            t = time.time()
-            out = super().msm_evaluate(expr, g)
-            torch.cuda.synchronize()
-            msm_s[0] += time.time() - t
-            return out
+    def ms_list(key):
+        return [round(tm[key] * 1e3, 3) for tm in phases]
 
-    def phase(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, (time.time() - t) * 1e3
-
-    protocol = base[0].protocol
-    (sc, pts, inst), t_stack = phase(lambda: agg._stack_streams(snarks, dev)
-                                     + (agg._stack_instances(snarks, dev),))
-    L = TimedLoader(B, dev)
-    proof, t_read = phase(lambda: pv.PlonkSuccinctVerifier.read_proof(
-        protocol, inst, PoseidonTranscript(sc, pts, dev), Bdfg21, L))
-    (cpe, evals), t_cpe = phase(lambda: (lambda c: (c, proof.instance_evals_and_map(
-        protocol, inst, c, L)))(pv.CommonPolynomialEvaluation(
-            protocol.domain, protocol.langranges(), proof.z, L)))
-    comms, t_comm = phase(lambda: proof.commitments(protocol, cpe, evals, L))
-    _, t_bdfg = phase(lambda: Bdfg21.verify(srs.g_dev(dev), comms, proof.z,
-                                            proof.queries(protocol, evals), proof.pcs, L))
-    t_msm = msm_s[0] * 1e3
-    log(f"# verify phases (ms): stacking and upload {t_stack:.2f}, transcript and read_proof "
-        f"{t_read:.2f}, CPE and evaluations {t_cpe:.2f}, commitments {t_comm:.2f}, "
-        f"Bdfg21 scalar work {t_bdfg - t_msm:.2f}, MSMs (msm_windowed) {t_msm:.2f}")
+    log(f"# verify succinct phase (ms, the three runs): {ms_list('succinct_s')}")
+    log(f"# verify decide phase (ms, the three runs): {ms_list('decide_s')}")
+    log("# verify succinct steps (ms, the three runs): stacking and upload "
+        f"{ms_list('stack_s')}, transcript and read_proof {ms_list('read_s')}, plan lookup "
+        f"{ms_list('plan_s')}, gather {ms_list('gather_s')}, fr_tape {ms_list('fr_tape_s')}, "
+        f"bases and MSM {ms_list('msm_s')}")
+    plan = succinct_plan(base[0].protocol, Bdfg21, "shplonk", "poseidon")
+    log(f"# verify plan: recorded once per protocol, on this process's first batch, in "
+        f"{plan.record_s * 1e3:.2f} ms; {len(plan.tape.rows)} rows {plan.tape.op_counts()}, "
+        f"{plan.tape.n_slots} slots, {len(plan.tape.inputs)} inputs, "
+        f"{len(plan.tape.outputs)} outputs")
 
     # Device busy share of one batch: kernel time from a torch.profiler
     # trace over the host-clock wall time of the same (traced) call; the
@@ -697,6 +715,70 @@ def verify_phase(dev, kernels, errs):
         if row["name"] in ("add", "double"):
             row["launches_verify"] = launches[row["name"]]
             row["launches"] += launches[row["name"]]
+
+    # The Fr program against its plain version on the batch's own gathered
+    # inputs and on the tampered batch's, exact canonical words.
+    tape = plan.tape
+    err, plain_ms = 0, None
+    for label, (tp, ins) in zip(("batch", "tampered batch"), seen_tape):
+        got = fr_tape.run(tp, ins)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = fr_tape.run_plain(tp, ins)
+        torch.cuda.synchronize()
+        plain_ms = plain_ms or (time.time() - t0) * 1e3
+        e = word_err(got, want)
+        check(e == 0, f"fr_tape differs from run_plain on the {label}'s inputs")
+        err = max(err, e)
+    ins = seen_tape[0][1]
+    check(not torch.equal(ins, seen_tape[1][1]), "the tampered batch's Fr inputs did not move")
+    ins1 = ins[:, :1].contiguous()
+    ms = time_ms(lambda: fr_tape.run(tape, ins), 50)
+    ms1 = time_ms(lambda: fr_tape.run(tape, ins1), 50)
+    # The plan's three inversions alone (chained, then one output): their
+    # share of the kernel's time.
+    slot0, in0 = fr_tape.SLOT << fr_tape.KIND_SHIFT, fr_tape.INPUT << fr_tape.KIND_SHIFT
+    inv_rows = [(fr_tape.INV, 0, in0, 0), (fr_tape.INV, 0, slot0, 0), (fr_tape.INV, 0, slot0, 0),
+                (fr_tape.OUT, 0, slot0, 0)]
+    inv_tape = fr_tape.FrTape(rows=np.array(inv_rows, np.int32), consts=np.zeros((1, 8), np.int32),
+                              inputs=["x"], outputs=["x^-3"], n_slots=1)
+    check(tape.op_counts()["inv"] == 3, "the plan's inversion count changed")
+    ins_inv = ins[:1].contiguous()
+    ms_inv = time_ms(lambda: fr_tape.run(inv_tape, ins_inv), 50)
+    # The bound and the chain floor count the least work the function needs
+    # (squares at fe_sqr's cost, OUT a reduction, INV an addition chain);
+    # `muls_per_lane` is the kernel's own count of multiplies.
+    muls, chain = tape.muls(), tape.chain_muls()
+    least = tape.row_muladds(least=True)
+    least_work, least_chain = int(least.sum()), tape.chain(least)
+    least_muls = least_work / MULADDS_PER_FQ_MUL
+    nbytes = (ins.shape[0] + len(tape.outputs)) * B * 32 + tape.rows.nbytes + tape.consts.nbytes
+    bms, by = bound_ms(nbytes, B * least_work)
+    floor = least_chain * CHAIN_FLOOR_MS_PER_MUL / MULADDS_PER_FQ_MUL
+    clocks = ms1 / (muls * CHAIN_FLOOR_MS_PER_MUL) * 272
+    regs, stack = ptxas_usage("fr_tape_kernel")
+    smem = tape.n_slots * 8 * 32 * 4
+    log(f"# fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8): {ms:.4f} ms, "
+        f"B=1 {ms1:.4f} ms (bound {bms:.6f} ms, {by}, from the least {least_muls:.1f} multiplies "
+        f"a lane; chain floor {floor:.4f} ms = the least longest chain, {least_chain} "
+        f"multiply-adds; the kernel runs {muls} multiplies a lane, {chain} of them chained, "
+        f"{clocks:.0f} clocks per multiply alone; the three inversions alone {ms_inv:.4f} ms = "
+        f"{ms_inv / ms:.1%}); plain {plain_ms:.1f} ms; slots "
+        f"{tape.n_slots} in shared memory ({smem} B a block), ptxas {regs} registers, "
+        f"{stack} B stack; == run_plain on the batch's and the tampered batch's inputs")
+    kernels.append(dict(
+        name="fr_tape", route="cuda", source="snark_verifier_tpu_torch/csrc/fr_tape.cu",
+        replaces="snark_verifier_tpu/ff/jnp_field.py:145",
+        also_replaces=["snark_verifier_tpu/ff/jnp_field.py:236",
+                       "snark_verifier_tpu/ff/jnp_field.py:200",
+                       "snark_verifier_tpu/parallel/batch_verify.py:86"],
+        launches=launches["fr_tape"], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, shape=list(ins.shape), ms_b1=ms1, chain_floor_ms=floor,
+        chain_muls=chain, muls_per_lane=muls, least_muls_per_lane=least_muls,
+        least_chain_muladds=least_chain, inversions_ms=ms_inv, rows=len(tape.rows),
+        slots=tape.n_slots,
+        slot_layout="shared memory [slot][word][lane]", shared_bytes=smem,
+        ptxas_registers=regs, ptxas_stack_bytes=stack, tolerance="exact, canonical"))
 
     # The verify MSM against its plain version on the batch's own bases and
     # scalars, captured from one more call.

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "svt_field_neg": [_I, _P, _P, _LL, _P],
     "svt_field_inv": [_I, _P, _P, _LL, _P],
     "svt_field_canon": [_I, _P, _P, _LL, _P],
+    # fr_tape.cu
+    "svt_fr_tape": [_P, _I, _P, _P, _P, _LL, _I, _P],
     # poseidon_kernels.cu
     "svt_poseidon_load_constants": [_P, _P],
     "svt_poseidon_permute": [_P, _P, _LL, _P],

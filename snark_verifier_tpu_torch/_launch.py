@@ -20,6 +20,8 @@ LAUNCHES = {
     # ff/word_field.py
     "field_mul": 0, "field_add": 0, "field_sub": 0, "field_neg": 0,
     "field_inv": 0, "field_canon": 0,
+    # ff/fr_tape.py
+    "fr_tape": 0,
     # hash/poseidon.py
     "poseidon_permute": 0, "poseidon_absorb": 0,
     # pairing/pairing.py

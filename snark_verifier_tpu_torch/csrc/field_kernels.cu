@@ -4,11 +4,14 @@
 //
 // These replace work the JAX package leaves to XLA
 // (ff/jnp_field.py::LimbField.mul :145, add :127, sub :132, neg :141,
-// inv :211, canon :121): the succinct verifier's scalar algebra, the
-// transcript's Fq -> Fr map and the verify MSM's digit extraction.  Torch
-// has no 256-bit modular arithmetic, and the plain limb twin
-// (ff/limb_field.py) synchronizes the host once per carry pass, so on the
-// card every one of these ops is one launch of a kernel here.
+// inv :211, canon :121): on the verify path the transcript's Fq -> Fr map
+// (three launches a batch); the succinct verifier's scalar algebra runs
+// here only under the eager TorchLoader, the witness of the recorded Fr
+// program that the verify path runs as one svt_fr_tape launch
+// (csrc/fr_tape.cu).  Torch has no 256-bit modular arithmetic, and the
+// plain limb twin (ff/limb_field.py) synchronizes the host once per carry
+// pass, so on the card every one of these ops is one launch of a kernel
+// here.
 //
 // Each launch applies one op to n elements, one thread per element; either
 // operand may be a single element broadcast over all n (stride 0), which is

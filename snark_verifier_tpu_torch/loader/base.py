@@ -4,8 +4,10 @@ package's `loader/base.py`, the reference's loader design).
 
   * TorchLoader  — scalars are Fr Montgomery words ((B, 8) per lane, or one
     (8,) constant shared by the batch), points G1 words, all on one device.
-    On the card every field op is a launch of csrc/field_kernels.cu, every
-    group op one of msm_kernels.cu; on the CPU the plain twins run.
+    Eager: on the card every field op is a launch of csrc/field_kernels.cu
+    and the MSM one of `svt_msm_windowed`; on the CPU the plain twins run.
+    The verify path records its Fr work instead (`loader/tape_loader.py`,
+    `verifier/plonk/plan.py`); this loader is the witness it is held to.
   * NativeLoader — scalars are python ints, points affine int tuples, ops go
     through the py_ec oracle: the port's own independent witness.
 
@@ -32,7 +34,7 @@ from ..ec import py_ec
 from ..ec.g1 import from_affine_int_np
 from ..ff import FQW, FRW
 from ..ff.spec import FR
-from .msm_expr import MsmExpr
+from .msm_expr import MsmExpr, lower
 
 
 class TorchLoader:
@@ -79,12 +81,12 @@ class TorchLoader:
     # ----------------------------------------------------------------- msm
 
     def msm_zero(self):
-        return MsmExpr()
+        return MsmExpr(self)
 
     def msm_base(self, xy):
         """xy: (B, 2, 8) affine Fq words (a transcript handle)."""
         z = FQW.const("ONE", self.device).expand(*xy.shape[:-2], 1, 8)
-        return MsmExpr.base(torch.cat([xy, z], -2))
+        return MsmExpr.base(self, torch.cat([xy, z], -2))
 
     def msm_base_int(self, xy):
         """A host point (a protocol constant), uploaded once per device."""
@@ -92,16 +94,24 @@ class TorchLoader:
         if pt is None:
             pt = torch.from_numpy(from_affine_int_np([xy])[0]).to(self.device)
             self._bases[xy] = pt
-        return MsmExpr.base(pt)
+        return MsmExpr.base(self, pt)
 
     def msm_constant(self, s):
-        return MsmExpr.constant(s)
+        return MsmExpr.constant(self, s)
 
     def msm_sum(self, exprs: List):
-        return MsmExpr.sum(exprs)
+        return MsmExpr.sum(self, exprs)
 
     def msm_evaluate(self, expr, g):
-        return expr.evaluate(g, self.batch, self.device)
+        """-> (B, 3, 8): the scaled terms' scalars out of Montgomery form in
+        one batched `from_mont`, then `msm_expr.lower`."""
+        scaled, plain = expr.terms(g)
+        B = self.batch
+        pts = scs = None
+        if scaled:
+            pts = torch.stack([p.expand(B, 3, 8) for _, p in scaled], 1)  # (B, n, 3, 8)
+            scs = FRW.from_mont(torch.stack([s.expand(B, 8) for s, _ in scaled], 1))
+        return lower(pts, scs, plain, B, self.device)
 
     # -------------------------------------------------------------- decide
 

@@ -1,63 +1,67 @@
 """The lazy MSM expression `constant·g + Σ scalarᵢ·baseᵢ`: the counterpart
 of the JAX package's `loader/msm_expr.py` (the reference's symbolic `Msm`).
 
-Verifier layers build it with operator overloading; `evaluate` lowers it in
-one shot.  Scalars are (B, 8) or (8,) Fr Montgomery words (None for the
-coefficient 1), bases (B, 3, 8) or (3, 8) projective G1 words, all on one
-device.  `evaluate` is the JAX package's positional branch (:102-150):
-the bases with their canonical scalars go to `msm/cuda_ops.py::msm_windowed`
-(4-bit windows), one launch of the kernel `svt_msm_windowed` on the card.
-(The JAX package's RNS branch is the TPU's own coordinate layout and has no
-counterpart here.)
+Verifier layers build it with operator overloading; the loader that made it
+lowers it (`msm_evaluate`).  An expression keeps that loader and takes
+every field op of its algebra from it, so an eager loader launches them and
+a recording one (`loader/tape_loader.py`) records them.  Scalars and bases
+are the loader's handles: for `TorchLoader` (B, 8) or (8,) Fr Montgomery
+words (None for the coefficient 1) and (B, 3, 8) or (3, 8) projective G1
+words.
+
+`terms` lists what `msm_evaluate` lowers, in the JAX package's positional
+order (:102-150): the scaled pairs, then the constant with the generator,
+then the coefficient-1 bases.  `lower` is that branch's device side: the
+scaled bases with their canonical scalars go to
+`msm/cuda_ops.py::msm_windowed` (4-bit windows, one launch of
+`svt_msm_windowed` on the card), and each coefficient-1 base is added to the
+sum.  (The JAX package's RNS branch is the TPU's own coordinate layout and
+has no counterpart here.)
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-import torch
-
-from ..ff import FRW
 from ..msm import cuda_ops
 
 
 class MsmExpr:
-    def __init__(self, constant=None, pairs: Optional[List[Tuple]] = None):
+    def __init__(self, L, constant=None, pairs: Optional[List[Tuple]] = None):
+        self.L = L  # the loader whose field ops the algebra uses
         self.const = constant  # Fr scalar (coefficient of the generator g)
         self.pairs = list(pairs or [])  # [(scalar | None, point)]
 
     @staticmethod
-    def base(point) -> "MsmExpr":
-        return MsmExpr(pairs=[(None, point)])
+    def base(L, point) -> "MsmExpr":
+        return MsmExpr(L, pairs=[(None, point)])
 
     @staticmethod
-    def constant(scalar) -> "MsmExpr":
-        return MsmExpr(constant=scalar)
+    def constant(L, scalar) -> "MsmExpr":
+        return MsmExpr(L, constant=scalar)
 
     # ------------------------------------------------------------- algebra
 
     def __add__(self, other: "MsmExpr") -> "MsmExpr":
         c = self.const
         if other.const is not None:
-            c = other.const if c is None else FRW.add(c, other.const)
-        return MsmExpr(c, self.pairs + other.pairs)
+            c = other.const if c is None else self.L.add(c, other.const)
+        return MsmExpr(self.L, c, self.pairs + other.pairs)
 
     def __sub__(self, other: "MsmExpr") -> "MsmExpr":
         return self + (-other)
 
     def __neg__(self) -> "MsmExpr":
-        c = None if self.const is None else FRW.neg(self.const)
-        pairs = []
-        for s, p in self.pairs:
-            if s is None:
-                s = FRW.const("ONE", p.device)
-            pairs.append((FRW.neg(s), p))
-        return MsmExpr(c, pairs)
+        L = self.L
+        c = None if self.const is None else L.neg(self.const)
+        pairs = [(L.neg(L.scalar(1) if s is None else s), p) for s, p in self.pairs]
+        return MsmExpr(L, c, pairs)
 
     def __mul__(self, scalar) -> "MsmExpr":
-        c = None if self.const is None else FRW.mul(self.const, scalar)
-        pairs = [(scalar if s is None else FRW.mul(s, scalar), p) for s, p in self.pairs]
-        return MsmExpr(c, pairs)
+        L = self.L
+        c = None if self.const is None else L.mul(self.const, scalar)
+        pairs = [(scalar if s is None else L.mul(s, scalar), p) for s, p in self.pairs]
+        return MsmExpr(L, c, pairs)
 
     def __rmul__(self, scalar) -> "MsmExpr":
         return self * scalar
@@ -74,39 +78,34 @@ class MsmExpr:
 
     def split(self):
         """(the bases-only MsmExpr, the constant scalar or None)."""
-        return MsmExpr(None, self.pairs), self.const
+        return MsmExpr(self.L, None, self.pairs), self.const
 
     @staticmethod
-    def sum(exprs: List["MsmExpr"]) -> "MsmExpr":
-        out = MsmExpr()
+    def sum(L, exprs: List["MsmExpr"]) -> "MsmExpr":
+        out = MsmExpr(L)
         for e in exprs:
             out = out + e
         return out
 
     # ------------------------------------------------------------ evaluate
 
-    def evaluate(self, g, batch: int, device):
-        """-> (batch, 3, 8) projective words.  `g` (3, 8) is the generator
-        the constant term multiplies."""
-        scaled_pts, scaled_scalars, plain_pts = [], [], []
-        for s, p in self.pairs:
-            if s is None:
-                plain_pts.append(p)
-            else:
-                scaled_pts.append(p)
-                scaled_scalars.append(s)
+    def terms(self, g):
+        """-> (scaled [(scalar, base)], plain [base]): the pairs with a
+        scalar, then the constant times `g`, then the coefficient-1 bases."""
+        scaled = [(s, p) for s, p in self.pairs if s is not None]
         if self.const is not None:
-            scaled_pts.append(g)
-            scaled_scalars.append(self.const)
+            scaled.append((self.const, g))
+        return scaled, [p for s, p in self.pairs if s is None]
 
-        acc = None
-        if scaled_pts:
-            pts = torch.stack([p.expand(batch, 3, 8) for p in scaled_pts], 1)  # (B, n, 3, 8)
-            scs = torch.stack([s.expand(batch, 8) for s in scaled_scalars], 1)  # (B, n, 8)
-            acc = cuda_ops.msm_windowed(pts, FRW.from_mont(scs), c=4)
-        for p in plain_pts:
-            p = p.expand(batch, 3, 8).contiguous()
-            acc = p if acc is None else cuda_ops.add(acc, p)
-        if acc is None:
-            acc = cuda_ops.identity((batch,), device).contiguous()
-        return acc
+
+def lower(pts, canon_scalars, plain_pts, batch: int, device):
+    """Σ canon_scalars·pts + Σ plain_pts -> (batch, 3, 8) projective words.
+    pts (batch, n, 3, 8) with canonical scalars (batch, n, 8), both None when
+    n = 0; plain_pts a list of (batch, 3, 8) or (3, 8) bases."""
+    acc = None if pts is None else cuda_ops.msm_windowed(pts, canon_scalars, c=4)
+    for p in plain_pts:
+        p = p.expand(batch, 3, 8).contiguous()
+        acc = p if acc is None else cuda_ops.add(acc, p)
+    if acc is None:
+        acc = cuda_ops.identity((batch,), device).contiguous()
+    return acc

@@ -25,11 +25,13 @@ def batch_verify(snarks: Sequence, srs, scheme_name: str = "shplonk",
                  transcript: str = "poseidon", device=None, timings: dict = None):
     """Verify B same-protocol snarks on `device` (None: the CUDA card) ->
     (B,) bool on that device.  `timings`, when given, gets `succinct_s` and
-    `decide_s`: host seconds of each phase, each ended by a synchronize.
+    `decide_s`: host seconds of each phase, each ended by a synchronize,
+    and the succinct phase's steps (`sdk.aggregation.batch_succinct_verify`).
     An unsupported scheme/transcript pair raises ValueError."""
     dev = resolve_device(device)
     t0 = time.time()
-    accs = batch_succinct_verify(snarks, srs, scheme_name, transcript, device=dev)
+    accs = batch_succinct_verify(snarks, srs, scheme_name, transcript, device=dev,
+                                 timings=timings)
     _sync(dev)
     t1 = time.time()
     oks = decide_all(srs, accs).all(dim=0)

@@ -3,14 +3,17 @@
 `batch_succinct_verify` :80).
 
 B snarks of one protocol verify as one batch on one device: their streams
-are stacked on the host and uploaded once per stream, and every field,
-Poseidon and group op of the verifier then works on all B lanes at once
-(one kernel launch per op on the card).  The result is each proof's KZG
-accumulator, to be decided by pairings.
+are stacked on the host and uploaded once per stream, the Poseidon
+transcript reads the proofs (one `svt_poseidon_absorb` launch per
+challenge), the protocol's recorded Fr program (`verifier/plonk/plan.py`)
+runs as one `svt_fr_tape` launch, and the MSM as one `svt_msm_windowed`
+launch.  The result is each proof's KZG accumulator, to be decided by
+pairings.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -22,7 +25,7 @@ from ..ff.spec import FR, int_to_limbs
 from ..loader.base import TorchLoader
 from ..pcs.kzg.multiopen import Bdfg21
 from ..transcript.poseidon_transcript import PoseidonTranscript
-from ..verifier.plonk.verifier import PlonkSuccinctVerifier
+from ..verifier.plonk.plan import succinct_plan
 from .snark import Snark
 
 SCHEMES = {"shplonk": Bdfg21}
@@ -55,11 +58,34 @@ def _stack_instances(snarks: Sequence[Snark], device):
     return out
 
 
+def _step(timings, key: str, device, fn):
+    """fn(); with `timings`, its host seconds under `key`, between two
+    synchronizes of `device`."""
+    if timings is None:
+        return fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    r = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timings[key] = time.perf_counter() - t
+    return r
+
+
 def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",
-                          transcript: str = "poseidon", device=None):
+                          transcript: str = "poseidon", device=None, timings: dict = None):
     """One batched succinct verification of B same-protocol snarks on
     `device` (None: the CUDA card).  Returns the list of (lhs, rhs)
-    accumulators, each (B, 3, 8) projective G1 words.
+    accumulators, each (B, 3, 8) projective G1 words.  The protocol's Fr
+    program is recorded on its first batch in this process and replayed
+    (`verifier/plonk/plan.py`).
+
+    `timings`, when given, gets each step's host seconds, each step between
+    two synchronizes: `stack_s` (stack and upload), `plan_s` (the protocol
+    check and the plan lookup, the recording on a first batch), `read_s`
+    (the transcript and read_proof), `gather_s`, `fr_tape_s`, `msm_s` (the
+    bases and the MSM).
 
     Supported: scheme "shplonk" with transcript "poseidon"; any other pair
     raises ValueError."""
@@ -69,14 +95,21 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     if not snarks:
         raise ValueError("batch_succinct_verify: empty batch")
     dev = resolve_device(device)
-    protocol = snarks[0].protocol
-    digests = {id(s.protocol): s.protocol for s in snarks}  # tiled batches share objects
-    if len({p.content_hash() for p in digests.values()}) != 1:
-        raise ValueError("a batch verifies one shared protocol")
-    scheme = SCHEMES[scheme_name]
-    sc, pts = _stack_streams(snarks, dev)
-    instances = _stack_instances(snarks, dev)
-    L = TorchLoader(len(snarks), dev)
-    td = TRANSCRIPTS[transcript](sc, pts, dev)
-    proof = PlonkSuccinctVerifier.read_proof(protocol, instances, td, scheme, L)
-    return PlonkSuccinctVerifier.verify(srs.g_dev(dev), protocol, instances, proof, scheme, L)
+    B = len(snarks)
+
+    def lookup():
+        protocols = {id(s.protocol): s.protocol for s in snarks}  # tiled batches share objects
+        digests = {p.content_hash() for p in protocols.values()}
+        if len(digests) != 1:
+            raise ValueError("a batch verifies one shared protocol")
+        return succinct_plan(snarks[0].protocol, SCHEMES[scheme_name], scheme_name, transcript,
+                             digest=digests.pop())
+
+    plan = _step(timings, "plan_s", dev, lookup)
+    sc, pts, instances = _step(timings, "stack_s", dev, lambda: _stack_streams(snarks, dev)
+                               + (_stack_instances(snarks, dev),))
+    reads = _step(timings, "read_s", dev, lambda: plan.read(
+        instances, TRANSCRIPTS[transcript](sc, pts, dev), TorchLoader(B, dev)))
+    inputs = _step(timings, "gather_s", dev, lambda: plan.gather(instances, reads, B))
+    outs = _step(timings, "fr_tape_s", dev, lambda: plan.scalars(inputs))
+    return _step(timings, "msm_s", dev, lambda: plan.accumulators(outs, pts, srs.g_dev(dev)))

@@ -11,8 +11,10 @@
 `PoseidonTranscript` walks a batch's pre-parsed streams on one device:
 scalars (B, n, 8) Fr words, points (B, m, 2, 8) affine Fq words, both
 Montgomery form.  Stream points were checked on the host
-(`Snark.validate`), so none is the identity.  `PoseidonTranscriptPy` is
-the python-int oracle.
+(`Snark.validate`), so none is the identity.  Their coordinates are mapped
+Fq -> Fr once for the whole stream (three field launches per batch on the
+card), and each read absorbs its slice.  `PoseidonTranscriptPy` is the
+python-int oracle.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class PoseidonTranscript:
         self.h = PoseidonSponge(scalars.shape[0], device)
         self._scalars = scalars
         self._points = points
+        self._points_fr = fq_to_fr(points)  # (B, m, 2, 8): what the sponge absorbs
         self._si = 0
         self._pi = 0
 
@@ -49,7 +52,9 @@ class PoseidonTranscript:
 
     def common_ec_point(self, xy):
         """xy: (B, 2, 8) affine point, Fq Montgomery words."""
-        fr = fq_to_fr(xy)
+        self._absorb_fr(fq_to_fr(xy))
+
+    def _absorb_fr(self, fr):
         self.h.update([fr[:, 0], fr[:, 1]])
 
     def squeeze_challenge(self):
@@ -66,8 +71,8 @@ class PoseidonTranscript:
 
     def read_ec_point(self):
         pt = self._points[:, self._pi]
+        self._absorb_fr(self._points_fr[:, self._pi])
         self._pi += 1
-        self.common_ec_point(pt)
         return pt
 
     def read_n_ec_points(self, n: int) -> List:

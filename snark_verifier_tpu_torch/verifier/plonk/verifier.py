@@ -8,8 +8,10 @@ counterpart of the JAX package's `verifier/plonk/verifier.py`.
   * PlonkSuccinctVerifier.verify -> [accumulator] (verifier/plonk.rs:58-92).
 
 The protocol is host data; scalars and points are loader handles.  Under
-`TorchLoader` one call verifies a batch of proofs of one protocol on one
-device; under `NATIVE` it is the python-int oracle
+`TapeLoader` one call records the protocol's Fr program
+(`verifier/plonk/plan.py`, the verify path); under `TorchLoader` one call
+verifies a batch of proofs of one protocol on one device, op by op (the
+plan's witness); under `NATIVE` it is the python-int oracle
 (`succinct_verify_native`).  Supported: SHPLONK (`Bdfg21`) with the
 Poseidon transcript, protocols whose instances are absorbed as scalars
 (no instance committing key) and carry no old accumulators.

@@ -1,8 +1,10 @@
 """The port's single-card batch verify (parallel/batch_verify.py on
-device="cpu": the succinct phase, then the pairing decide, every kernel's
-plain version) against the JAX package's python-int verify_snark_native,
-lane by lane, on the committed vanilla-PLONK k=10 fixtures with a tampered
-lane.
+device="cpu": the succinct phase through the recorded Fr plan, then the
+pairing decide, every kernel's plain version) against the JAX package's
+python-int verify_snark_native, lane by lane, on the committed
+vanilla-PLONK k=10 fixtures: a batch with a tampered instance, and one
+with a proof scalar moved by one and a valid on-curve proof point taken
+from another proof.
 
 Tolerance: exact (accept bits)."""
 
@@ -57,7 +59,27 @@ def test_batch_verify_cpu_matches_jax_native(run):
     want = [verify_snark_native(s, j_srs) for s in snarks]
     assert want == [False, True, True]
     assert oks.tolist() == want
-    assert set(timings) == {"succinct_s", "decide_s"} and min(timings.values()) > 0
+    assert set(timings) == {"succinct_s", "decide_s", "stack_s", "plan_s", "read_s", "gather_s",
+                            "fr_tape_s", "msm_s"} and min(timings.values()) > 0
+
+
+def _tampered_proofs(snark_cls):
+    """[a proof scalar + 1, the first proof point swapped for another
+    proof's (valid, on the curve), two valid proofs]."""
+    s0, s1, s2, s3 = (snark_cls.load(str(FIXTURES / f"snark_{i:02d}.json")) for i in (4, 5, 6, 7))
+    bumped = snark_cls(s0.protocol, s0.instances, [(s0.scalars[0] + 1) % JFR.p] + s0.scalars[1:],
+                       s0.points)
+    swapped = snark_cls(s1.protocol, s1.instances, s1.scalars, [s2.points[0]] + s1.points[1:])
+    return [bumped, swapped, s2, s3]
+
+
+def test_tampered_scalar_and_swapped_point_match_jax_native():
+    srs = load_params(str(FIXTURES / "srs.bin"))
+    oks = batch_verify(_tampered_proofs(Snark), srs, device="cpu")
+    j_srs = j_load_params(str(FIXTURES / "srs.bin"))
+    want = [verify_snark_native(s, j_srs) for s in _tampered_proofs(JSnark)]
+    assert want == [False, False, True, True]
+    assert oks.tolist() == want
 
 
 def test_batch_verify_rejects_unsupported_pairs():
