@@ -56,9 +56,16 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    valid accumulators lhs = τ·rhs on the port's toy_srs(8, seed=0xA11CE),
    best-of-3 checks/s; gates: all accept, lhs + G in lane 0 rejects lane 0
    alone, a lane whose lhs and rhs are both the identity accepts;
-11. the pairing kernels at B = 1,024 on random inputs against their plain
-   versions (`miller_loop` over the SRS's lines, `final_exp`, each
-   `fq12_op` code), with their times, bounds and chain floors.
+11. the pairing kernels (a warp per proof, csrc/tower_team.cuh) against
+   their plain versions on the verify batch's decide inputs and at
+   B = 1,024 on random lazy words (`miller_loop` over the SRS's lines,
+   `final_exp`, each `fq12_op` code, `cyclo_square` on cyclotomic-subgroup
+   elements and against the plain square), with their times at B = 1, 256
+   and 1,024, the Fq12 inverse alone (`inversion_ms`), their bounds (the
+   least multiplies), chain floors (the least critical path: dependent
+   multiplies when each Fq12 operation's products run at once), their own
+   counts (`muls_per_proof`, `depth_muls`), clocks per level and ptxas
+   usage.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -151,27 +158,76 @@ def bucket_reduce_ops(W, nb, c):
     return W * 2 * (nb - 1) + W - 1, c * (W - 1)
 
 
-# Fq multiplies of the tower's operations: as the pairing kernels run them
-# (every Fq12 product, squares and sparse line products included, the
-# generic 54) and the least the same function needs (an Fq12 square 36:
-# two Fq6 products; a sparse 034 line product 39: 13 Fq2 products; a
-# square in the cyclotomic subgroup 18: nine Fq2 squares of 2).  The bound
-# and the chain floor count the least; `muls_per_lane` the kernel's own.
-MULS_PER_FQ12_MUL = 54  # 3 Fq6 products of 6 Fq2 products of 3 (Karatsuba)
-MULS_FQ12_SQR_LEAST, MULS_LINE_034_LEAST, MULS_CYCLO_SQR_LEAST = 36, 39, 18
-MULS_LINE_COEFFS = 6  # c0·Y, c3·X, c4·Z: three Fq2-by-Fq products
+# Fq multiplies of the pairing kernels' tower operations (csrc/
+# tower_team.cuh), each the least formula for its function: an Fq12
+# product 54 (3 Fq6 products of 6 Fq2 products of 3, Karatsuba), a square
+# 36 (the complex form: two Fq6 products), a sparse 034 line product 39
+# (13 Fq2 products), a square in the cyclotomic subgroup 18 (nine Fq2
+# squares of 2), a line's coefficients 6 (three Fq2-by-Fq products).  The
+# least critical path counts one dependent multiply per operation (every
+# independent product at once); the kernels' own counts what a lane runs in
+# sequence: an Fq2 product on one lane (`team_mul`, a Frobenius map) 3, on
+# two lanes (the Miller square and line product) 2, the cyclotomic square's
+# one multiply a lane 1.  The Fq12 inverse (team_inv) around its Fq
+# inversion: 12 Fq2 squares, 6 + 3 Fq2 products, the Fq2 inverse's two
+# squares and two products, 3 + 12 Fq2 products: 7 operations, 18 dependent
+# multiplies on its lanes.
+MULS_PER_FQ12_MUL = 54
+MULS_FQ12_SQR, MULS_LINE_034, MULS_CYCLO_SQR = 36, 39, 18
+MULS_LINE_COEFFS = 6
+MULS_FQ12_INV_OUTER = 24 + 18 + 9 + 4 + 9 + 36
+DEPTH_FQ12_INV_OUTER = {True: 7, False: 2 + 3 + 3 + 2 + 2 + 3 + 3}
 
 
-def miller_muls(npairs, has_add, least=False):
-    """Fq multiplies on one lane of the multi-Miller loop: the square of f
-    at every step but the first (f = 1 there) and each line, its
-    coefficients and its product with f; the kernel's count, or with
-    `least` the function's."""
-    steps = len(has_add)
-    lines = npairs * (steps + int(np.sum(has_add)) + 2)
-    sqr, line = ((MULS_FQ12_SQR_LEAST, MULS_LINE_034_LEAST) if least
-                 else (MULS_PER_FQ12_MUL, MULS_PER_FQ12_MUL))
-    return sqr * (steps - 1) + (MULS_LINE_COEFFS + line) * lines
+def _lines(npairs, has_add):
+    return npairs * (len(has_add) + int(np.sum(has_add)) + 2)
+
+
+def miller_muls(npairs, has_add):
+    """Fq multiplies of one proof's multi-Miller loop, the kernel's and the
+    function's least alike: the square of f at every step but the first
+    (f = 1 there), and each line's coefficients and its product with f."""
+    sqr = MULS_FQ12_SQR * (len(has_add) - 1)
+    return sqr + (MULS_LINE_COEFFS + MULS_LINE_034) * _lines(npairs, has_add)
+
+
+def miller_ops(npairs, has_add):
+    """Fq12 operations on one proof's Miller chain: the square at every
+    step but the first, and one sparse product per line."""
+    return len(has_add) - 1 + _lines(npairs, has_add)
+
+
+def miller_depth(npairs, has_add, least=False):
+    """Dependent Fq multiplies on one proof's Miller loop: with `least` one
+    per operation (the line coefficients do not depend on f); the kernel's
+    two per operation (its Fq2 products run two lanes each) and one before
+    them for the first line's coefficients (later lines' are made by idle
+    lanes during the line product before)."""
+    ops = miller_ops(npairs, has_add)
+    return ops if least else 1 + 2 * ops
+
+
+def fq_inv_chain(least=False):
+    """(multiplies, dependent multiplies) of the Fq inversion x^(p - 2):
+    the kernel's square-and-multiply (fq.cuh::fe_inv: 254 squares and one
+    multiply per set bit), or the fewest over sliding-window addition chains
+    (ff/fr_tape.py::window_chain, windows of 1 to 8 bits)."""
+    from snark_verifier_tpu_torch.ff import FQ
+    from snark_verifier_tpu_torch.ff.fr_tape import window_chain
+
+    e = FQ.p - 2
+    if not least:
+        n = e.bit_length() + bin(e).count("1")
+        return n, n
+    muls, depths = [], []
+    for w in range(1, 9):
+        steps, _ = window_chain(e, w)
+        depth = [0]
+        for a, b in steps:
+            depth.append(1 + max(depth[a], depth[b]))
+        muls.append(len(steps))
+        depths.append(depth[-1])
+    return min(muls), min(depths)
 
 
 def _frob_least_muls(tid):
@@ -184,28 +240,53 @@ def _frob_least_muls(tid):
                for c in fq12_vm.transform(tid)[1])
 
 
-def final_exp_muls(least=False):
-    """Fq multiplies on one lane of the final exponentiation.  The easy
-    part as the kernel runs it in both counts (the Fq12 inverse's 112 and
-    an Fq inverse of 254 squares and popcount(p - 2) multiplies, then one
-    Fq12 product; ~6% of the whole).  The tape: the kernel's count
-    (fq12_vm.tape_muls), or with `least` a cyclotomic square for each
-    square (the tape runs after the easy part, so every value it squares
-    is in the cyclotomic subgroup), 54 for each other product, and each
-    Frobenius map at its coefficients' cost."""
-    from snark_verifier_tpu_torch.ff import FQ
+def _tape_rows():
+    """Masks of the final-exponentiation tape's rows: cyclotomic squares
+    (src1 == src2, the identity transform), other products, and the
+    transform id of each row."""
     from snark_verifier_tpu_torch.pairing import fq12_vm
 
     tape = fq12_vm.build_final_exp_tape()
-    easy = 112 + 254 + bin(FQ.p - 2).count("1") + MULS_PER_FQ12_MUL
-    if not least:
-        return easy + fq12_vm.tape_muls(tape)
     src1, src2, tid = tape[:, 0], tape[:, 1], tape[:, 3]
-    square = (src1 == src2) & (tid == fq12_vm.T_IDENTITY)
-    product = (src2 != fq12_vm.R_ONE) & ~square
-    transforms = sum(_frob_least_muls(int(t)) for t in tid if t != fq12_vm.T_IDENTITY)
-    return (easy + MULS_CYCLO_SQR_LEAST * int(square.sum())
+    product = src2 != fq12_vm.R_ONE
+    square = product & (src1 == src2) & (tid == fq12_vm.T_IDENTITY)
+    return square, product & ~square, tid
+
+
+def final_exp_muls(least=False):
+    """Fq multiplies of one proof's final exponentiation: the easy part (the
+    Fq12 inverse with its Fq inversion, then conj(f)·f^-1) and the tape
+    (a cyclotomic square for each square row: the tape runs after the easy
+    part, so every value it squares is in the cyclotomic subgroup; 54 for
+    each other product).  The kernel's count (Fermat's inversion, 15 per
+    Frobenius map: five full Fq2 coefficient products), or with `least` the
+    least inversion chain and each Frobenius map at its coefficients' cost."""
+    from snark_verifier_tpu_torch.pairing import fq12_vm
+
+    square, product, tid = _tape_rows()
+    inv, _ = fq_inv_chain(least)
+    frob = [t for t in tid if t >= fq12_vm.T_FROB1]
+    transforms = (sum(_frob_least_muls(int(t)) for t in frob) if least else 15 * len(frob))
+    return (MULS_FQ12_INV_OUTER + inv + MULS_PER_FQ12_MUL + MULS_CYCLO_SQR * int(square.sum())
             + MULS_PER_FQ12_MUL * int(product.sum()) + transforms)
+
+
+def final_exp_depth(least=False):
+    """Dependent Fq multiplies on one proof's final exponentiation: the Fq12
+    inverse's operations and its Fq inversion chain (the kernel's
+    square-and-multiply, or with `least` the shallowest window chain), the
+    easy part's product, then each tape row that squares, multiplies or
+    maps by Frobenius (conj12 and copies cost none): one multiply per
+    operation with `least`; the kernel's 3 for a product or a Frobenius map
+    (one lane's Fq2 product), 1 for a cyclotomic square."""
+    from snark_verifier_tpu_torch.pairing import fq12_vm
+
+    square, product, tid = _tape_rows()
+    _, inv = fq_inv_chain(least)
+    frob = int((tid >= fq12_vm.T_FROB1).sum())
+    per = 1 if least else 3
+    return (DEPTH_FQ12_INV_OUTER[least] + inv + per + int(square.sum())
+            + per * (int(product.sum()) + frob))
 
 
 # Fq multiplies on the top window's chain in svt_bucket_reduce: 29 adds
@@ -216,24 +297,27 @@ BUCKET_REDUCE_CHAIN_MULS = 12 * 29 + 8 * 251
 
 
 def ptxas_usage(fragment):
-    """(registers, stack frame bytes) that ptxas reported in this process's
-    build for the kernel whose mangled name holds `fragment` (None, None
-    when this process did not build the library)."""
+    """What ptxas reported in this process's build for the kernel whose
+    mangled name holds `fragment`: {registers, stack_bytes, spill_bytes
+    (stores), smem_bytes} (every value None when this process did not
+    build the library)."""
     from snark_verifier_tpu_torch import _build
 
+    keys = {"registers": r"Used (\d+) registers", "stack_bytes": r"(\d+) bytes stack frame",
+            "spill_bytes": r"(\d+) bytes spill stores", "smem_bytes": r"(\d+) bytes smem"}
+    out = dict.fromkeys(keys)
     lines = _build.build_log.splitlines()
     for i, line in enumerate(lines):
         if "entry function" in line and fragment in line:
-            regs = stack = None
             for nxt in lines[i + 1 : i + 6]:
-                m = re.search(r"(\d+) bytes stack frame", nxt)
-                stack = int(m.group(1)) if m else stack
-                m = re.search(r"Used (\d+) registers", nxt)
-                if m:
-                    regs = int(m.group(1))
+                for k, pat in keys.items():
+                    m = re.search(pat, nxt)
+                    if m:
+                        out[k] = int(m.group(1))
+                if "Used" in nxt:
                     break
-            return regs, stack
-    return None, None
+            break
+    return out
 
 
 def time_ms(fn, reps, warmup=2):
@@ -756,7 +840,8 @@ def verify_phase(dev, kernels, errs):
     bms, by = bound_ms(nbytes, B * least_work)
     floor = least_chain * CHAIN_FLOOR_MS_PER_MUL / MULADDS_PER_FQ_MUL
     clocks = ms1 / (muls * CHAIN_FLOOR_MS_PER_MUL) * 272
-    regs, stack = ptxas_usage("fr_tape_kernel")
+    use = ptxas_usage("fr_tape_kernel")
+    regs, stack = use["registers"], use["stack_bytes"]
     smem = tape.n_slots * 8 * 32 * 4
     log(f"# fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8): {ms:.4f} ms, "
         f"B=1 {ms1:.4f} ms (bound {bms:.6f} ms, {by}, from the least {least_muls:.1f} multiplies "
@@ -879,7 +964,10 @@ def pairing_kernel_checks(dev, kernels, decide_inputs, launches):
     """The pairing kernels against their plain versions: on the verify
     batch's own decide inputs, and at B = 1,024 on random lazy words
     (`miller_loop` over the fixture SRS's lines, `final_exp`, each
-    `fq12_op` code); their rows of the kernels line."""
+    `fq12_op` code; `cyclo_square` on cyclotomic-subgroup elements, also
+    against the plain square); their times at B = 1, 256 and 1,024, the
+    Fq12 inverse alone (`inversion_ms`), and their rows of the kernels
+    line."""
     import torch
 
     from snark_verifier_tpu_torch.ff import FQ, FQ_FIELD, words_to_limbs
@@ -910,8 +998,7 @@ def pairing_kernel_checks(dev, kernels, decide_inputs, launches):
     rng = np.random.default_rng(8)
     B = PAIR_CHECK_B
     X, Y, Z = (rand_lazy_words(rng, (B, npairs), FQ.p, dev) for _ in range(3))
-    ml = lambda: pairing.miller_loop(X, Y, Z, dbl, addc, has_add, finals)
-    got = ml()
+    got = pairing.miller_loop(X, Y, Z, dbl, addc, has_add, finals)
     want, ml_plain_ms = plain_timed(pairing.miller_loop_plain, X, Y, Z, dbl, addc, has_add, finals)
     errs["miller_loop"] = canon_err(got, want)
     check(errs["miller_loop"] == 0, "miller_loop differs from its plain version at B=1024")
@@ -922,63 +1009,87 @@ def pairing_kernel_checks(dev, kernels, decide_inputs, launches):
     check(errs["final_exp"] == 0, "final_exp differs from its plain version at B=1024")
     gb = rand_lazy_words(rng, (B, 2, 3, 2), FQ.p, dev)
     g034 = rand_lazy_words(rng, (B, 3, 2), FQ.p, dev)
+    # f^((p^6 - 1)(p^2 + 1)) of the random f: the cyclotomic square's inputs
+    m = pairing.fq12_op_plain("mul", pairing.fq12_op_plain("conj", fr),
+                              pairing.fq12_op_plain("inv", fr))
+    cyc = pairing.fq12_op_plain("mul", pairing.fq12_op_plain("frob2", m), m)
     op_ms, op_plain_ms = {}, {}
     for op in pairing.OPS:
+        a = cyc if op == "cyclo_square" else fr
         b = gb if op == "mul" else g034 if op == "mul_by_034" else None
-        got = pairing.fq12_op(op, fr, b)
-        want, op_plain_ms[op] = plain_timed(pairing.fq12_op_plain, op, fr, b)
+        got = pairing.fq12_op(op, a, b)
+        want, op_plain_ms[op] = plain_timed(pairing.fq12_op_plain, op, a, b)
         e = canon_err(got, want)
         check(e == 0, f"fq12_op {op} differs from its plain version at B=1024")
+        if op == "cyclo_square":
+            e = max(e, canon_err(got, pairing.fq12_op_plain("square", a)))
+            check(e == 0, "fq12_op cyclo_square is not the square on the cyclotomic subgroup")
         errs["fq12_op"] = max(errs["fq12_op"], e)
-        op_ms[op] = time_ms(lambda: pairing.fq12_op(op, fr, b), 10)
+        op_ms[op] = time_ms(lambda: pairing.fq12_op(op, a, b), 10)
     check_launches = {k: cuda_ops.LAUNCHES[k] for k in errs}
     log(f"# pairing kernels == their plain versions on the verify batch's decide inputs and at "
-        f"B={B} on random lazy words (every fq12_op code); launches by these checks "
-        f"{check_launches}")
-    ms_ml = time_ms(ml, 5, warmup=1)
-    ms_fe = time_ms(lambda: pairing.final_exponentiation(fr), 5, warmup=1)
-    X1, Y1, Z1 = (t[:1].contiguous() for t in (X, Y, Z))
-    ms_ml1 = time_ms(lambda: pairing.miller_loop(X1, Y1, Z1, dbl, addc, has_add, finals), 5,
-                     warmup=1)
-    ms_fe1 = time_ms(lambda: pairing.final_exponentiation(fr[:1].contiguous()), 5, warmup=1)
+        f"B={B} on random lazy words (every fq12_op code; cyclo_square on cyclotomic-subgroup "
+        f"elements, == the square); launches by these checks {check_launches}")
+    runs = {
+        "miller_loop": lambda n: (lambda a=tuple(t[:n].contiguous() for t in (X, Y, Z)):
+                                  pairing.miller_loop(*a, dbl, addc, has_add, finals)),
+        "final_exp": lambda n: (lambda a=fr[:n].contiguous(): pairing.final_exponentiation(a)),
+    }
+    ms = {name: {n: time_ms(fn(n), 5, warmup=1) for n in (B, PAIRING_BATCH, 1)}
+          for name, fn in runs.items()}
+    inv_ms = {n: time_ms(lambda a=fr[:n].contiguous(): pairing.fq12_op("inv", a), 5, warmup=1)
+              for n in (B, 1)}
     fq12_bytes = 96 * 4
     line_bytes = (dbl.numel() + addc.numel() + finals.numel()) * 4
-    m_ml, m_fe = miller_muls(npairs, has_add), final_exp_muls()
-    least_ml, least_fe = miller_muls(npairs, has_add, least=True), final_exp_muls(least=True)
     rows = (
-        ("miller_loop", ms_ml, ms_ml1, ml_plain_ms, m_ml, least_ml,
+        ("miller_loop", ml_plain_ms, miller_muls(npairs, has_add), miller_muls(npairs, has_add),
+         miller_depth(npairs, has_add), miller_depth(npairs, has_add, least=True),
          B * (3 * npairs * 32 + fq12_bytes) + line_bytes,
          "snark_verifier_tpu/pairing/pairing.py:151",
          ["snark_verifier_tpu/pairing/pairing.py:99"], [B, npairs, 8]),
-        ("final_exp", ms_fe, ms_fe1, fe_plain_ms, m_fe, least_fe, B * 2 * fq12_bytes,
+        ("final_exp", fe_plain_ms, final_exp_muls(), final_exp_muls(least=True),
+         final_exp_depth(), final_exp_depth(least=True), B * 2 * fq12_bytes,
          "snark_verifier_tpu/pairing/pairing.py:257",
          ["snark_verifier_tpu/pairing/fq12_vm.py:145"], [B, 2, 3, 2, 8]),
     )
-    for name, ms, ms1, pms, muls, least, nbytes, where, also, shape in rows:
+    for name, pms, muls, least, depth, least_depth, nbytes, where, also, shape in rows:
+        t = ms[name]
+        ops = miller_ops(npairs, has_add) if name == "miller_loop" else 0
         bms, by = bound_ms(nbytes, B * least * MULADDS_PER_FQ_MUL)
-        floor = least * CHAIN_FLOOR_MS_PER_MUL
-        clocks = ms1 / (muls * CHAIN_FLOOR_MS_PER_MUL) * 272
-        log(f"# {name} at B={B}: {ms:.4f} ms, B=1 {ms1:.4f} ms (bound {bms:.4f} ms, {by}; chain "
-            f"floor {floor:.4f} ms = the function's least {least} multiplies on a lane; the "
-            f"kernel runs {muls}, {clocks:.0f} clocks per multiply alone); plain {pms:.1f} ms; "
-            f"== plain version")
+        floor = least_depth * CHAIN_FLOOR_MS_PER_MUL
+        clocks = t[1] * 1.98e6 / depth  # per dependent multiply of the kernel's own chain
+        use = ptxas_usage(name + "_kernel")
+        extra = dict(inversion_ms=inv_ms[B], inversion_ms_b1=inv_ms[1]) if name == "final_exp" else {}
+        log(f"# {name}: B={B} {t[B]:.4f} ms, B={PAIRING_BATCH} {t[PAIRING_BATCH]:.4f} ms, B=1 "
+            f"{t[1]:.4f} ms (bound {bms:.4f} ms, {by}, the least {least} multiplies a proof; chain "
+            f"floor {floor:.4f} ms = the least critical path, {least_depth} dependent multiplies "
+            f"at 272 clocks); the kernel runs {muls} multiplies a proof, {depth} of them dependent, "
+            f"{clocks:.0f} clocks per level (a dependent multiply of its chain) at B=1"
+            + (f", {t[1] * 1.98e6 / ops:.0f} per Fq12 operation ({ops})" if ops else "")
+            + f"; plain {pms:.1f} ms; ptxas {use}"
+            + (f"; the Fq12 inverse alone (fq12_op inv) {inv_ms[B]:.4f} ms at B={B}, "
+               f"{inv_ms[1]:.4f} at B=1" if extra else "") + "; == plain version")
         kernels.append(dict(
             name=name, route="cuda", source="snark_verifier_tpu_torch/csrc/pairing_kernels.cu",
             replaces=where, also_replaces=also, launches=launches[name], max_abs_err=errs[name],
-            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None, shape=shape,
-            chain_floor_ms=floor, least_muls_per_lane=least, muls_per_lane=muls, ms_b1=ms1,
-            launches_checks=check_launches[name], tolerance="exact, canonical"))
+            ms=t[B], plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None, shape=shape,
+            ms_b1=t[1], ms_b256=t[PAIRING_BATCH], chain_floor_ms=floor,
+            least_depth_muls=least_depth, depth_muls=depth, least_muls_per_proof=least,
+            muls_per_proof=muls, clocks_per_level_b1=clocks, **extra,
+            **({"clocks_per_fq12_op_b1": t[1] * 1.98e6 / ops, "fq12_ops": ops} if ops else {}),
+            ptxas=use, launches_checks=check_launches[name], tolerance="exact, canonical"))
     bms, by = bound_ms(B * 3 * fq12_bytes, B * MULS_PER_FQ12_MUL * MULADDS_PER_FQ_MUL)
-    floor = MULS_PER_FQ12_MUL * CHAIN_FLOOR_MS_PER_MUL
+    floor = CHAIN_FLOOR_MS_PER_MUL  # one level: 18 independent Fq2 products
+    use = ptxas_usage("fq12_op_kernel")
     log(f"# fq12_op at B={B} (ms per op): {({k: round(v, 4) for k, v in op_ms.items()})}; plain "
-        f"{({k: round(v, 1) for k, v in op_plain_ms.items()})}")
+        f"{({k: round(v, 1) for k, v in op_plain_ms.items()})}; ptxas {use}")
     kernels.append(dict(
         name="fq12_op", route="cuda", source="snark_verifier_tpu_torch/csrc/pairing_kernels.cu",
         replaces="snark_verifier_tpu/tower/tower.py:223",
         also_replaces=["snark_verifier_tpu/pairing/pairing.py:213"], launches=launches["fq12_op"],
         max_abs_err=errs["fq12_op"], ms=op_ms["mul"], plain_ms=op_plain_ms["mul"], bound_ms=bms,
         bound_by=by, library_ms=None, shape=[B, 2, 3, 2, 8], timed="mul",
-        chain_floor_ms=floor, ops_ms=op_ms, ops_plain_ms=op_plain_ms,
+        chain_floor_ms=floor, ops_ms=op_ms, ops_plain_ms=op_plain_ms, ptxas=use,
         launches_checks=check_launches["fq12_op"], tolerance="exact, canonical"))
 
 

@@ -179,15 +179,6 @@ def expand_tape(tape):
     return (tape[:, 0].copy(), tape[:, 1].copy(), tape[:, 2].copy(), conj, coeffs)
 
 
-def tape_muls(tape) -> int:
-    """Fq multiplies the kernel runs for the tape: 54 per Fq12 product
-    (none by R_ONE), 15 per frobenius transform (coordinate 0's coefficient
-    is 1), none for the identity or conj12."""
-    tape = np.asarray(tape)
-    frob = int(np.isin(tape[:, 3], (T_FROB1, T_FROB2, T_FROB3)).sum())
-    return 54 * int((tape[:, 1] != R_ONE).sum()) + 15 * frob
-
-
 def run_tape_plain(regs: list, tape) -> list:
     """The JAX scan body in plain PyTorch: regs is a list of NREG Fq12 limb
     tensors (..., 2, 3, 2, 16); each step transforms R[src1] (optional Fq2

@@ -41,7 +41,7 @@ F = FQ_FIELD
 NSTEPS = len(pp.NAF_DIGITS) - 1  # 65 Miller steps
 NPAIRS = 2  # the KZG decide's pairs (lhs, g2) and (rhs, -s g2): the Miller kernel's
 OPS = {"mul": 0, "square": 1, "mul_by_034": 2, "frob1": 3, "frob2": 4, "frob3": 5,
-       "conj": 6, "inv": 7}
+       "conj": 6, "inv": 7, "cyclo_square": 8}
 
 
 # ------------------------------------------------------- host preparation
@@ -118,7 +118,7 @@ def _mul_lines(f, coeffs, xs, ys, zs):
         c0 = FQ2.smul(c[0], ys[..., k, :])
         c3 = FQ2.smul(c[1], xs[..., k, :])
         c4 = FQ2.smul(c[2], zs[..., k, :])
-        f = FQ12.mul_by_034(f, c0, c3, c4)
+        f = FQ12.mul_by_034_sparse(f, c0, c3, c4)
     return f
 
 
@@ -127,12 +127,14 @@ def miller_loop_plain(xs, ys, zs, dbl, addc, has_add, finals):
     words: xs, ys, zs (B, npairs, 8) projective (Z = 1: affine), coefficient
     words as `prepare_g2_coeffs` gives them -> f (B, 2, 3, 2, 8) words.  Every
     step squares f (the first squares 1) and multiplies the dbl lines, then
-    the add lines where has_add is set; the two Frobenius end steps last."""
+    the add lines where has_add is set; the two Frobenius end steps last.
+    The kernel's formulas: the complex Fq12 square and the sparse line
+    product (the same field elements as the JAX package's generic ones)."""
     xs, ys, zs = (words_to_limbs(t) for t in (xs, ys, zs))
     dbl, addc, finals = (words_to_limbs(t) for t in (dbl, addc, finals))
     f = FQ12.one(xs.device).expand(*xs.shape[:-2], 2, 3, 2, 16)
     for i in range(dbl.shape[0]):
-        f = FQ12.square(f)
+        f = FQ12.square_complex(f)
         f = _mul_lines(f, dbl[i], xs, ys, zs)
         if bool(has_add[i]):
             f = _mul_lines(f, addc[i], xs, ys, zs)
@@ -173,17 +175,20 @@ def final_exponentiation_plain(f):
 
 
 def fq12_op_plain(op: str, a, b=None):
-    """The tower operation `op` (an OPS key) in plain PyTorch on words:
-    a (B, 2, 3, 2, 8); b (B, 2, 3, 2, 8) for mul, (B, 3, 2, 8) = (c0, c3,
-    c4) for mul_by_034."""
+    """The tower operation `op` (an OPS key) in plain PyTorch on words, by
+    the kernel's formulas: a (B, 2, 3, 2, 8); b (B, 2, 3, 2, 8) for mul,
+    (B, 3, 2, 8) = (c0, c3, c4) for mul_by_034.  `cyclo_square` is the
+    square only for a in the cyclotomic subgroup."""
     al = words_to_limbs(a)
     if op == "mul":
         r = FQ12.mul(al, words_to_limbs(b))
     elif op == "square":
-        r = FQ12.square(al)
+        r = FQ12.square_complex(al)
+    elif op == "cyclo_square":
+        r = FQ12.cyclotomic_square(al)
     elif op == "mul_by_034":
         bl = words_to_limbs(b)
-        r = FQ12.mul_by_034(al, bl[..., 0, :, :], bl[..., 1, :, :], bl[..., 2, :, :])
+        r = FQ12.mul_by_034_sparse(al, bl[..., 0, :, :], bl[..., 1, :, :], bl[..., 2, :, :])
     elif op in ("frob1", "frob2", "frob3"):
         r = f12_frobenius(al, int(op[-1]))
     elif op == "conj":

@@ -198,6 +198,74 @@ class Fq12Field:
         b = self.f6.make(c3, c4, torch.zeros_like(c3))
         return self.mul(f, self.make(a, b))
 
+    # The least formulas of the pairing kernels (csrc/tower_team.cuh), each
+    # the same field element as the JAX-mirroring function above it; every
+    # level's independent Fq2 products are stacked into one call.
+
+    def square_complex(self, a):
+        """a² in the complex form over Fq6 (w² = v): t = a0·a1 and
+        u = (a0 + a1)(a0 + v·a1), then a² = (u − t − v·t) + 2t·w.  Two Fq6
+        products: 12 Fq2 products, 36 Fq multiplies (`square` takes 54)."""
+        f6 = self.f6
+        a0, a1 = self._c(a)
+        m = f6.mul(_stk(a0, f6.add(a0, a1)), _stk(a1, f6.add(a0, f6.mul_by_v(a1))))
+        t, u = m[0], m[1]
+        return self.make(f6.sub(f6.sub(u, t), f6.mul_by_v(t)), f6.add(t, t))
+
+    def mul_by_034_sparse(self, f, c0, c3, c4):
+        """f · (c0 + c3·w + c4·v·w) in 13 Fq2 products, 39 Fq multiplies
+        (`mul_by_034` takes 54): Karatsuba over Fq6 with the line's halves
+        l0 = c0 and l1 = c3 + c4·v, so t0 = f0·c0 takes 3 products and
+        t1 = f1·l1, t2 = (f0 + f1)(l0 + l1) take 5 each (Fq6 times
+        b0 + b1·v); then c0 = t0 + v·t1, c1 = t2 − t0 − t1."""
+        f2, f6 = self.f2, self.f6
+        c0, c3, c4 = torch.broadcast_tensors(c0, c3, c4)
+        f0, f1 = self._c(f)
+        s = f6.add(f0, f1)
+        x = lambda a, i: a[..., i, :, :]
+        lefts = [x(f0, 0), x(f0, 1), x(f0, 2)]
+        rights = [c0, c0, c0]
+        for a, b0, b1 in ((f1, c3, c4), (s, f2.add(c0, c3), c4)):
+            lefts += [x(a, 0), x(a, 1), f2.add(x(a, 1), x(a, 2)), f2.add(x(a, 0), x(a, 2)),
+                      f2.add(x(a, 0), x(a, 1))]
+            rights += [b0, b1, b1, b0, f2.add(b0, b1)]
+        m = f2.mul(_stk(*lefts), _stk(*rights))
+
+        def by01(k):  # a·(b0 + b1 v) = (a0b0 + ξ a2b1, a0b1 + a1b0, a1b1 + a2b0)
+            aa, bb, s12, s02, s01 = (m[k + i] for i in range(5))
+            return f6.make(f2.add(aa, f2.mul_xi(f2.sub(s12, bb))),
+                           f2.sub(s01, f2.add(aa, bb)), f2.add(f2.sub(s02, aa), bb))
+
+        t0, t1, t2 = f6.make(m[0], m[1], m[2]), by01(3), by01(8)
+        return self.make(f6.add(t0, f6.mul_by_v(t1)), f6.sub(t2, f6.add(t0, t1)))
+
+    def cyclotomic_square(self, a):
+        """a² for a in the cyclotomic subgroup (a^(p⁴ − p² + 1) = 1), by
+        Granger–Scott: Fq12 = Fq4³ with Fq4 = Fq2[w³]/(w⁶ − ξ), whose pairs
+        are the coordinates (c0.c0, c1.c1), (c1.c0, c0.c2) and (c0.c1,
+        c1.c2).  Each pair (x, y) squares to (x² + ξy², (x + y)² − x² − y²):
+        nine Fq2 squares, 18 Fq multiplies; then each coordinate is 3t − 2r
+        or 3t + 2r of its t and its own input r.  Outside the subgroup it is
+        not the square; it maps 0 to 0."""
+        f2 = self.f2
+        g = [a[..., i, j, :, :] for i in range(2) for j in range(3)]
+        pairs = ((g[0], g[4]), (g[3], g[2]), (g[1], g[5]))
+        sq = f2.square(_stk(*(v for x, y in pairs for v in (x, y, f2.add(x, y)))))
+        even = [f2.add(sq[3 * k], f2.mul_xi(sq[3 * k + 1])) for k in range(3)]
+        odd = [f2.sub(sq[3 * k + 2], f2.add(sq[3 * k], sq[3 * k + 1])) for k in range(3)]
+
+        def minus(t, r):  # 3t − 2r
+            d = f2.sub(t, r)
+            return f2.add(f2.add(d, d), t)
+
+        def plus(t, r):  # 3t + 2r
+            d = f2.add(t, r)
+            return f2.add(f2.add(d, d), t)
+
+        z = [minus(even[0], g[0]), minus(even[1], g[1]), minus(even[2], g[2]),
+             plus(f2.mul_xi(odd[2]), g[3]), plus(odd[0], g[4]), plus(odd[1], g[5])]
+        return self.make(self.f6.make(*z[:3]), self.f6.make(*z[3:]))
+
     def is_one(self, a):
         one = self.one(a.device).expand(a.shape)
         return (F.canon(a) == one).flatten(-4).all(-1)

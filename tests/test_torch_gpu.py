@@ -431,6 +431,14 @@ def _rand_f12s(n, seed):
                         for j in range(3)) for i in range(2)) for b in range(n)]
 
 
+def _cyclotomic(f):
+    """f^((p^6 - 1)(p^2 + 1)): an element of the cyclotomic subgroup."""
+    m = pp.f12_mul(pp.f12_conj(f), pp.f12_inv(f))
+    return pp.f12_mul(pp.f12_frob(m, 2), m)
+
+
+F12_ZERO = tuple(tuple((0, 0) for _ in range(3)) for _ in range(2))
+
 _OP_ORACLE = {
     "mul": lambda a, b, l: pp.f12_mul(a, b),
     "square": lambda a, b, l: pp.f12_sq(a),
@@ -440,13 +448,18 @@ _OP_ORACLE = {
     "frob3": lambda a, b, l: pp.f12_frob(a, 3),
     "conj": lambda a, b, l: pp.f12_conj(a),
     "inv": lambda a, b, l: pp.f12_inv(a),
+    "cyclo_square": lambda a, b, l: pp.f12_sq(a),
 }
 
 
 @pytest.mark.parametrize("op", list(_OP_ORACLE))
 def test_fq12_op_kernel_matches_plain_and_oracle(cuda, op):
+    """67 elements (17 blocks of 4 teams, the last ragged); cyclo_square on
+    cyclotomic-subgroup elements and 0."""
     n = 67
     A, Bv = _rand_f12s(n, 1), _rand_f12s(n, 2)
+    if op == "cyclo_square":
+        A = [_cyclotomic(x) for x in A[:-1]] + [F12_ZERO]
     lines = [f[0] for f in _rand_f12s(n, 3)]
     a = fq12_from_int(A, cuda)
     b = fq12_from_int(Bv, cuda) if op == "mul" else (
@@ -458,38 +471,54 @@ def test_fq12_op_kernel_matches_plain_and_oracle(cuda, op):
     canon = lambda w: FQ_FIELD.canon(words_to_limbs(w))
     assert torch.equal(canon(got), canon(plain))
     ints = fq12_to_int(got)
-    assert all(ints[i] == _OP_ORACLE[op](A[i], Bv[i], lines[i]) for i in range(5))
+    check = list(range(5)) + ([n - 1] if op == "cyclo_square" else [])
+    assert all(ints[i] == _OP_ORACLE[op](A[i], Bv[i], lines[i]) for i in check)
 
 
-def test_miller_loop_kernel_matches_plain_and_oracle(cuda):
+@pytest.mark.parametrize("B", [1, 33, 1024])
+def test_miller_loop_kernel_matches_plain_and_oracle(cuda, B):
+    """Lane 0 affine against the oracle; the other lanes projective random
+    coordinates (lane 1 with Z = 0) against the plain version."""
     g1, g2 = py_ec.G1_GEN, pp.G2_GEN
     pairs = [(py_ec.scalar_mul(g1, 777), g2), (g1, pp.g2_scalar_mul(g2, 31337))]
     want = pp.miller_loop([(p, pp.prepare_g2(q)) for p, q in pairs])
     xs, ys, dbl, addc, has_add, finals = prepare_pairs(pairs)
     up = lambda t: torch.from_numpy(t).to(cuda)
     lines = (up(dbl), up(addc), has_add, up(finals))
-    ones = FQW.from_int([1, 1], cuda)[None]  # affine: Z = 1
-    f = miller_loop(up(xs)[None], up(ys)[None], ones, *lines)
-    assert fq12_to_int(f[0]) == want
-    # projective lanes: random coordinates against the plain version
-    X = _rand_words(5, 7, cuda)[:, :2].contiguous()
-    Y = _rand_words(5, 8, cuda)[:, :2].contiguous()
-    Z = FQW.from_int([3, 0, 5, 7, 11, 13, 17, 19, 23, 29], cuda).view(5, 2, 8)
+    X = _rand_words(B, 7, cuda)[:, :2].contiguous()
+    Y = _rand_words(B, 8, cuda)[:, :2].contiguous()
+    Z = _rand_words(B, 9, cuda)[:, :2].contiguous()
+    X[0], Y[0], Z[0] = up(xs), up(ys), FQW.from_int([1, 1], cuda)  # affine: Z = 1
+    if B > 1:
+        Z[1] = 0
+    reset_launches()
     got = miller_loop(X, Y, Z, *lines)
+    assert LAUNCHES["miller_loop"] == 1
+    assert fq12_to_int(got[0]) == want
     plain = miller_loop_plain(X, Y, Z, *lines)
     assert torch.equal(FQ_FIELD.canon(words_to_limbs(got)), FQ_FIELD.canon(words_to_limbs(plain)))
 
 
-def test_final_exp_kernel_matches_plain_and_oracle(cuda):
-    fs = _rand_f12s(3, 9)
-    fs[2] = tuple(tuple((0, 0) for _ in range(3)) for _ in range(2))  # f = 0 decides false
+@pytest.mark.parametrize("B", [1, 33, 1024])
+def test_final_exp_kernel_matches_plain_and_oracle(cuda, B):
+    """Random lanes, and (B > 1) an f = 0 lane (decides false: 0 maps to 0)
+    and an f = 1 lane (maps to 1)."""
+    fs = _rand_f12s(B, 9)
+    if B > 1:
+        fs[1] = F12_ZERO
+        fs[-1] = pp.F12_ONE
     f = fq12_from_int(fs, cuda)
+    reset_launches()
     got = final_exponentiation(f)
+    assert LAUNCHES["final_exp"] == 1
     assert torch.equal(got, final_exponentiation_plain(f))  # both canonical
     ints = fq12_to_int(got)
-    assert ints[:2] == [pp.final_exponentiation(x) for x in fs[:2]]
-    assert is_one(got).tolist() == [False, False, False]
-    assert not bool(got[2].any())
+    assert ints[0] == pp.final_exponentiation(fs[0])
+    ones = is_one(got).tolist()
+    assert ones[0] is False
+    if B > 1:
+        assert not bool(got[1].any()) and ones[1] is False
+        assert ones[-1] is True and ints[-1] == pp.F12_ONE
 
 
 def test_batch_verify_on_card_matches_oracle(cuda):
