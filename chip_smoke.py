@@ -18,21 +18,28 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    with the add kernel) and bench.py's scalars (numpy seed 42), with every
    kernel's launch count read around that one call; gates: no overflow, the
    result equals k_total·G (python-int oracle), one incremented scalar
-   moves the result by exactly (i+1)·G, at most 3 fold launches, at most 2
-   `bucket_reduce` launches and none of `add` or `double`; then best-of-3
+   moves the result by exactly (i+1)·G, at most 3 fold launches, exactly
+   one `fold_segments` launch, at most 2 `bucket_reduce` launches and none
+   of `add` or `double`; then best-of-3
    points/s; `bucket_reduce` against its plain version on that call's
    (32, 256) bucket sums, in affine form;
 5. kernel timings with CUDA events at the main path's shapes, beside each
    kernel's bound and its plain twin's time;
-6. the dense bucket folds (fold_buckets_chunked K=8, fold_buckets_halving 4
+6. the add-chain probe: CH = 16 chained RC15 adds, Fq multiplies and Fq
+   squares at B = 256 and 2^17, bit-identical to 16 steps of their plain
+   versions (the lone add's µs at B = 256 is each fold level's chain floor
+   per dependent add);
+7. the dense bucket folds (fold_buckets_chunked K=8, fold_buckets_halving 4
    layers per call, fold_buckets_grid_dense wb=512 4 layers) over the
    micro-benchmarks' (256, 4,624) matrix of G or the identity (numpy seed
    1), each run with its launch count read around it; gates: every bucket
-   sum equals count·G (python-int oracle), each driver's first level equals
-   its plain version slot for slot in affine form; ms per driver and level;
-7. the add-chain probe: CH = 16 chained RC15 adds, Fq multiplies and Fq
-   squares at B = 256 and 2^17, bit-identical to 16 steps of their plain
-   versions;
+   sum equals count·G (python-int oracle), one `fold_segments` launch per
+   level (no padding copy, no other launch), every level equals its plain
+   version slot for slot in affine form; ms per walk; per level its
+   shape, team, the kernel's own time (calls queued behind a spin of the
+   card), the `on_level` wall, chain floor and bound; every level's time at
+   each team size; in step 5, `fold_buckets_split` at the top window for
+   several SPLIT_ROWS;
 8. the field kernels (Fq and Fr, B = 65,536), the Poseidon permutation
    (B = 1,024, plus the hadeshash x5_254_3 vector) and the fused sponge
    squeeze `poseidon_absorb` (B = 1,024, buffers of 0 to 5 elements),
@@ -91,6 +98,7 @@ PROBE_BATCHES = (256, 1 << 17)
 VERIFY_BATCH = 1024
 PAIRING_BATCH = 256  # bench.py's BENCH_BATCH_PAIRING
 PAIR_CHECK_B = 1024  # the pairing kernels' checks against their plain versions
+SPLIT_SEGMENTS = (4, 7, 8, 12, 16, 24, 32, 48)  # fold_buckets_split's segments a top row, timed
 # Peak rates of one H100 SXM (700 W): HBM3 bandwidth, and the 32-bit integer
 # multiply-add throughput (64 per SM per clock, 132 SMs, 1.98 GHz boost).
 HBM_BYTES_PER_S = 3.35e12
@@ -337,6 +345,26 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps, warmup=2):
+    """Mean ms per call over `reps` calls queued behind a spin of the card
+    (~2 ms), so that the host has launched them all before the first one
+    runs: the kernels' own time, without the host's time per call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -390,16 +418,30 @@ def rand_lazy_words(rng, shape, p, device):
     return limbs_to_words(limbs).to(device)
 
 
-def dense_fold_phase(dev, kernels):
+def level_work(nb, w, grp):
+    """(adds, bytes) a `fold_segments` launch of grouping `grp` over an (nb,
+    w) matrix needs: each slot's real members less one, and the matrix read
+    once and the output written once."""
+    G, CW, S, count, width = grp
+    wout = width // count
+    j = np.arange(wout)
+    first = (j // G) * CW + j % G
+    real = np.where(first < w, np.minimum(count, -(-(w - first) // S)), 0)
+    return nb * int(np.maximum(real - 1, 0).sum()), (nb * w + nb * wout) * POINT_BYTES
+
+
+def dense_fold_phase(dev, kernels, us_per_add):
     """The dense bucket-fold path: the three drivers over the
-    micro-benchmarks' (256, 4,624) matrix of G or the identity."""
+    micro-benchmarks' (256, 4,624) matrix of G or the identity.
+    `us_per_add` is the lone add chain's µs per add (the probe at B = 256),
+    each level's chain floor per dependent add."""
     import torch
     from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words, py_ec, to_affine_int
     from snark_verifier_tpu_torch.ec import words_to_limbs
     from snark_verifier_tpu_torch.msm import cuda_ops
 
     NB, cap = DENSE_SHAPE
-    pad = (-cap) % 512
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(1)  # micro_pallas_fold20.py's matrix
     fill = rng.integers(0, 2, size=(NB, cap)).astype(bool)
     counts = fill.sum(1)
@@ -409,72 +451,97 @@ def dense_fold_phase(dev, kernels):
     want = [py_ec.scalar_mul(py_ec.G1_GEN, int(c)) for c in counts]
     drivers = {
         "fold_buckets_chunked": (lambda m, **k: cuda_ops.fold_buckets_chunked(m, K=8, **k),
-                                 lambda m: cuda_ops.fold_level(m, 8),
-                                 lambda m: cuda_ops.fold_segments_plain(m, 1, 8, 1, 8)),
+                                 cuda_ops.chunked_levels(cap, 8)),
         "fold_buckets_halving": (lambda m, **k: cuda_ops.fold_buckets_halving(m, 4, **k),
-                                 lambda m: cuda_ops.fold_halving(m, 4),
-                                 lambda m: cuda_ops.fold_segments_plain(m, cap >> 4, cap,
-                                                                        cap >> 4, 16)),
+                                 cuda_ops.halving_levels(cap, 4)),
         "fold_buckets_grid_dense": (
             lambda m, **k: cuda_ops.fold_buckets_grid_dense(m, wb=512, layers=4, **k),
-            lambda m: cuda_ops.fold_grid(cuda_ops._pad_identity(m, pad), 512, 4),
-            lambda m: cuda_ops.fold_segments_plain(cuda_ops._pad_identity(m, pad), 32, 512, 32, 16)),
+            cuda_ops.grid_levels(cap, 512, 4)),
     }
     full_adds = NB * (cap - 1)
     full_bound = bound_ms(mat.numel() * 4 + NB * POINT_BYTES, full_adds * MULADDS_PER_ADD)
-    launches, err, drv_ms, level_ms = 0, 0, {}, {}
-    for name, (drive, first, first_plain) in drivers.items():
+    launches, err, drv_ms, level_rows, sweep = 0, 0, {}, {}, {}
+    for name, (drive, levels) in drivers.items():
         cuda_ops.reset_launches()
         out = drive(mat)
         torch.cuda.synchronize()
         n_launch = cuda_ops.LAUNCHES["fold_segments"]
-        check(n_launch > 0, f"{name} launched no fold_segments kernel")
+        check(n_launch == len(levels), f"{name} launched fold_segments {n_launch} times for "
+                                       f"{len(levels)} levels")
         launches += n_launch
         got = to_affine_int(words_to_limbs(out))
         bad = sum(x != y for x, y in zip(got, want))
         check(bad == 0, f"{name}: {bad} of {NB} bucket sums differ from count·G")
-        lk, lp = first(mat), first_plain(mat)
-        torch.cuda.synchronize()
-        eq = proj_equal(lk, lp)
-        check(bool(eq.all()), f"{name}: first level differs from its plain version in "
-                              f"{int((~eq).sum())} slots")
-        err = max(err, affine_err(lk, lp))
-        check(err == 0, f"{name}: first level's affine words differ from its plain version")
         drv_ms[name] = time_ms(lambda: drive(mat), 3, warmup=1)
         marks = []
 
         def on_level(m):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            marks.append((tuple(m.shape[:2]), ev))
+            marks.append(ev)
 
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         drive(mat, on_level=on_level)
         torch.cuda.synchronize()
-        prev, levels = start, []
-        for shape, ev in marks:
-            levels.append((shape, round(prev.elapsed_time(ev), 4)))
-            prev = ev
-        level_ms[name] = levels
-        log(f"# {name} at ({NB}, {cap}): {drv_ms[name]:.3f} ms, {n_launch} launches, "
-            f"== count·G in all {NB} buckets, first level == plain version slot for slot; "
-            f"levels (out shape, ms): {levels}")
+        walls = [start.elapsed_time(marks[0])] + [a.elapsed_time(b) for a, b in
+                                                  zip(marks, marks[1:])]
+        # Every level against its plain version, slot for slot in affine
+        # form, on the kernel's own input; then the launch alone, timed.
+        prev, rows = mat, []
+        for i, grp in enumerate(levels):
+            w = prev.shape[1]
+            team = cuda_ops.grouping_team(NB, w, grp, sms)
+            lk = cuda_ops.fold_segments(prev, *grp)
+            lp = cuda_ops.fold_segments_plain(prev, *grp)
+            torch.cuda.synchronize()
+            eq = proj_equal(lk, lp)
+            check(bool(eq.all()), f"{name}: level {i} differs from its plain version in "
+                                  f"{int((~eq).sum())} slots")
+            err = max(err, affine_err(lk, lp))
+            check(err == 0, f"{name}: level {i}'s affine words differ from its plain version")
+            ms = kernel_ms(lambda: cuda_ops.fold_segments(prev, *grp), 10)
+            members = min(grp[3], -(-w // grp[2]))
+            adds, n_bytes = level_work(NB, w, grp)
+            rows.append(dict(
+                shape=[NB, w], out=list(lk.shape[:2]), grouping=list(grp), team=team, ms=ms,
+                wall_ms=walls[i], chain_floor_ms=cuda_ops.chain_adds(members, team) * us_per_add
+                / 1e3, bound_ms=bound_ms(n_bytes, adds * MULADDS_PER_ADD)[0]))
+            # every team the kernel takes, for the record of the wrapper's choice
+            for t in cuda_ops.TEAMS:
+                if t <= 2 * members:
+                    key = f"{name} level {i} ({NB}, {w}) count {grp[3]}"
+                    sweep.setdefault(key, {})[t] = kernel_ms(
+                        lambda: cuda_ops.fold_segments(prev, *grp, team=t), 10)
+            prev = lk
+        level_rows[name] = rows
+        log(f"# {name} at ({NB}, {cap}): {drv_ms[name]:.4f} ms, {n_launch} launches "
+            f"(one per level), == count·G in all {NB} buckets, every level == plain version "
+            f"slot for slot")
+        for r in rows:
+            log(f"#   level {tuple(r['shape'])} -> {tuple(r['out'])} count {r['grouping'][3]}: "
+                f"team {r['team']}, kernel {r['ms']:.4f} ms (on_level wall {r['wall_ms']:.4f}), "
+                f"chain floor {r['chain_floor_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     log(f"# dense fold bound (full fold, {full_adds} adds): {full_bound[0]:.4f} ms "
         f"({full_bound[1]})")
-    lvl_mat = mat
-    ms = time_ms(lambda: cuda_ops.fold_level(lvl_mat, 8), 5)
-    plain = time_ms(lambda: cuda_ops.fold_segments_plain(lvl_mat, 1, 8, 1, 8), 1, warmup=1)
-    lvl_adds = NB * (cap // 8) * 7
-    bms, by = bound_ms(mat.numel() * 4 + NB * (cap // 8) * POINT_BYTES, lvl_adds * MULADDS_PER_ADD)
+    for key, by_team in sweep.items():
+        log(f"# fold_segments team sweep {key}: " +
+            ", ".join(f"T={t} {ms:.4f}" for t, ms in by_team.items()) + " ms")
+    first = cuda_ops.level_grouping(cap, 8)
+    ms = kernel_ms(lambda: cuda_ops.fold_segments(mat, *first), 10)
+    plain = time_ms(lambda: cuda_ops.fold_segments_plain(mat, *first), 1, warmup=1)
+    lvl_adds, lvl_bytes = level_work(NB, cap, first)
+    bms, by = bound_ms(lvl_bytes, lvl_adds * MULADDS_PER_ADD)
     kernels.append(dict(
         name="fold_segments", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
         replaces="snark_verifier_tpu/msm/pallas_ops.py:246", launches=launches, max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        shape=[NB, cap, 3, 8], timed="first K=8 level (one launch)",
+        shape=[NB, cap, 3, 8], timed="first K=8 level (one launch, queued behind a spin)",
         also_replaces=["snark_verifier_tpu/msm/pallas_ops.py:326",
                        "snark_verifier_tpu/msm/pallas_ops.py:589"],
-        drivers_ms=drv_ms, full_fold_bound_ms=full_bound[0], tolerance="exact, affine"))
+        drivers_ms=drv_ms, levels=level_rows, team_sweep=sweep,
+        full_fold_bound_ms=full_bound[0], us_per_add_b256=us_per_add,
+        tolerance="exact, affine"))
 
 
 def probe_phase(dev, kernels):
@@ -530,6 +597,7 @@ def probe_phase(dev, kernels):
         max_abs_err=errs[1], ms=ms_m, plain_ms=pm, bound_ms=bm[0], bound_by=bm[1], library_ms=None,
         shape=[big, 8], ch=CH, ms_b256=rows[small][3], sqr_ms=sqr_ms[big],
         sqr_ms_b256=sqr_ms[small], tolerance="exact, lazy words"))
+    return rows[small][0] / CH * 1e3
 
 
 def field_checks(dev):
@@ -1247,6 +1315,8 @@ def main() -> int:
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     check(launches["fold_buckets"] <= 3, "more than 3 fold_buckets launches per msm")
     check(launches["bucket_reduce"] <= 2, "more than 2 bucket_reduce launches per msm")
+    check(launches["fold_segments"] == 1, "the msm did not launch fold_segments exactly once "
+                                          "(the top window's second pass)")
     check(launches["add"] == 0 and launches["double"] == 0,
           "the msm launched the add or double kernel")
     check(not bool(ovf), "bucket overflow at 2^20")
@@ -1375,13 +1445,31 @@ def main() -> int:
     ms_all = time_ms(lambda: cuda_ops.fold_buckets(points_ext, idx_rows), 3, warmup=1)
     ms_top = time_ms(lambda: cuda_ops.fold_buckets(points_ext, idx_top), 5)
     ms_split = time_ms(lambda: cuda_ops.fold_buckets_split(points_ext, idx_top), 5)
+    # The split at other segment counts: SPLIT_ROWS is the most rows the
+    # first pass may have, so the top window's 49 rows get SPLIT_ROWS // 49
+    # segments each.  Each result against the whole window's fold.
+    whole_top = cuda_ops.fold_buckets(points_ext, idx_top)
+    split_in_use, split_sweep = cuda_ops.SPLIT_ROWS, {}
+    try:
+        for segs in SPLIT_SEGMENTS:
+            cuda_ops.SPLIT_ROWS = segs * idx_top.shape[0]
+            eq = proj_equal(cuda_ops.fold_buckets_split(points_ext, idx_top), whole_top)
+            check(bool(eq.all()), f"fold_buckets_split at {segs} segments a row differs from "
+                                  f"the whole fold in {int((~eq).sum())} buckets")
+            split_sweep[cuda_ops.SPLIT_ROWS] = time_ms(
+                lambda: cuda_ops.fold_buckets_split(points_ext, idx_top), 10)
+    finally:
+        cuda_ops.SPLIT_ROWS = split_in_use
+    del whole_top
     plain = time_ms(lambda: cuda_ops.fold_buckets_plain(points_ext, idx_main), 1, warmup=1)
     bms, by = fold_bounds["main"]
     log(f"# fold_buckets: one main window {tuple(idx_main.shape)} {ms:.4f} ms (bound {bms:.4f}); "
         f"all main windows {tuple(idx_rows.shape)} in one launch {ms_all:.4f} ms (bound "
         f"{fold_bounds['all'][0]:.4f}); top window {tuple(idx_top.shape)} whole {ms_top:.4f} ms, "
-        f"split (fold_buckets_split, with its fold_segments pass) {ms_split:.4f} ms (bound "
-        f"{fold_bounds['top'][0]:.4f})")
+        f"split (fold_buckets_split, with its fold_segments pass) {ms_split:.4f} ms at "
+        f"SPLIT_ROWS {split_in_use} (bound {fold_bounds['top'][0]:.4f})")
+    log("# fold_buckets_split at the top window, by SPLIT_ROWS (segments a row = SPLIT_ROWS // "
+        f"{idx_top.shape[0]}): " + ", ".join(f"{r}: {t:.4f} ms" for r, t in split_sweep.items()))
     kernels.append(dict(
         name="fold_buckets", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_kernels.cu",
         replaces="snark_verifier_tpu/msm/pallas_ops.py:490", launches=launches["fold_buckets"],
@@ -1389,7 +1477,8 @@ def main() -> int:
         library_ms=None, shape=list(idx_main.shape), tolerance="exact, affine",
         all_shape=list(idx_rows.shape), all_ms=ms_all, all_bound_ms=fold_bounds["all"][0],
         top_shape=list(idx_top.shape), top_ms=ms_top, top_split_ms=ms_split,
-        top_bound_ms=fold_bounds["top"][0], launches_fold_segments_msm=launches["fold_segments"]))
+        top_bound_ms=fold_bounds["top"][0], launches_fold_segments_msm=launches["fold_segments"],
+        split_rows=split_in_use, top_split_sweep_ms=split_sweep))
 
     # add throughput at a large batch (the ladder's last step), for PERF.md
     big = 1 << 19
@@ -1406,11 +1495,11 @@ def main() -> int:
 
     # ------------------------- the dense folds, the probe, the succinct verify
     t0 = time.time()
-    dense_fold_phase(dev, kernels)
-    log(f"# dense fold phase: {time.time() - t0:.1f}s")
-    t0 = time.time()
-    probe_phase(dev, kernels)
+    us_per_add = probe_phase(dev, kernels)
     log(f"# probe phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    dense_fold_phase(dev, kernels, us_per_add)
+    log(f"# dense fold phase: {time.time() - t0:.1f}s")
     t0 = time.time()
     errs_field = field_checks(dev)
     log(f"# field checks: {time.time() - t0:.1f}s")

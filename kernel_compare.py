@@ -17,6 +17,17 @@ are called as the port has declared them since the fold took a team size
   main window (256, cap) and the whole top window of the 2^`log2n` MSM's
   slot indices (points [1..n]·G, scalars from numpy seed 42), each with the
   team this checkout picks for its row count;
+* `svt_fold_segments`: the three dense walks (`fold_buckets_chunked` K = 8,
+  `fold_buckets_halving` 4 layers, `fold_buckets_grid_dense` 512 / 4) over
+  the micro-benchmarks' (256, 4,624) matrix of G or the identity, each level
+  alone (timed queued behind a spin of the card, so the host's time per call
+  is not counted), and the MSM's top window split into segments
+  (`fold_buckets_split` at the parent's 384 rows against this checkout's
+  SPLIT_ROWS).  A parent whose entry point takes no team, `(mat, nb, w,
+  wout, G, CW, S, count, out, stream)`, gets each level's matrix padded
+  with identity rows to the grouping's width, as its walks padded it; one
+  that takes `(..., count, team, out, stream)` reads the matrix in place
+  with this checkout's team;
 * `svt_poseidon_permute(in, out, n, stream)` at B = 1,024 and 65,536;
 * `svt_g1_add(a, b, out, n, stream)` and `svt_g1_double(a, out, n, stream)`
   driven by the loops that launched them one group operation at a time
@@ -40,6 +51,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,7 +61,8 @@ import numpy as np
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARENT_UNITS = {
-    "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P]},
+    "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
+                     "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P]},
     "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
                     "svt_g1_add": [_P, _P, _P, _LL, _P],
                     "svt_g1_double": [_P, _P, _LL, _P]},
@@ -92,6 +105,24 @@ def time_ms(fn, reps, warmup=2):
         fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps, warmup=2):
+    """`time_ms` with the calls queued behind a ~2 ms spin of the card, so
+    that the host has launched them all before the first one runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(4_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -162,11 +193,12 @@ def main() -> int:
         if err:
             raise RuntimeError(f"launch refused: cudaError {err}")
 
-    def compare(kind, run_parent, run_this, out_parent, err_fn, want, reps, **row):
+    def compare(kind, run_parent, run_this, out_parent, err_fn, want, reps, timer=time_ms,
+                **row):
         """One row: times in the order parent, this, this, parent, and each
         version's distance from the plain version's `want`."""
-        ms = [time_ms(run_parent, reps), time_ms(run_this, reps), time_ms(run_this, reps),
-              time_ms(run_parent, reps)]
+        ms = [timer(run_parent, reps), timer(run_this, reps), timer(run_this, reps),
+              timer(run_parent, reps)]
         row.update(kind=kind, parent_ms=[ms[0], ms[3]], this_ms=[ms[1], ms[2]],
                    speedup=(ms[0] + ms[3]) / (ms[1] + ms[2]),
                    parent_err=err_fn(out_parent, want), this_err=err_fn(run_this(), want),
@@ -218,6 +250,78 @@ def main() -> int:
                 lambda: cuda_ops.fold_buckets(points_ext, ix), out, affine_err,
                 cuda_ops.fold_buckets_plain(points_ext, ix), 5, shape=label,
                 rows=ix.shape[0], cap=ix.shape[1])
+    # ------------------------------------------------------------ dense folds
+    fold_src = (args.parent / "fold_kernels.cu").read_text()
+    parent_teams = "int team" in re.search(r"int svt_fold_segments\((.*?)\)", fold_src,
+                                           re.S).group(1)
+    if parent_teams:
+        parent["svt_fold_segments"].argtypes = [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P, _P]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def p_fold(mat, grp):
+        """The parent's kernel on one level of grouping `grp`."""
+        G, CW, S, count, width = grp
+        nb, w = mat.shape[:2]
+        team = ()
+        if parent_teams:
+            team = (cuda_ops.grouping_team(nb, w, grp, sms),)
+        elif width > w:
+            mat = torch.cat([mat, cuda_ops.identity((nb, width - w), dev)], 1)
+            w = width
+        out = torch.empty((nb, width // count, 3, 8), dtype=torch.int32, device=dev)
+        call(parent["svt_fold_segments"], mat.data_ptr(), nb, w, width // count, G, CW, S,
+             count, *team, out.data_ptr())
+        return out
+
+    def p_walk(mat, levels):
+        for grp in levels:
+            mat = p_fold(mat, grp)
+        return mat[:, 0]
+
+    def p_split(ix, split_rows=384):
+        """The parent's fold_buckets_split: its fold over the rows cut into
+        segments, then its fold_segments over each row's partial sums."""
+        nb, cap_x = ix.shape
+        segs = max(1, min(split_rows // nb, cap_x))
+        seg_len = -(-cap_x // segs)
+        ix = torch.cat([ix, ix.new_full((nb, segs * seg_len - cap_x), n)], 1)
+        ix = ix.view(nb * segs, seg_len)
+        parts = torch.empty((nb * segs, 3, 8), dtype=torch.int32, device=dev)
+        call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(), nb * segs,
+             seg_len, n, parts.data_ptr(), cuda_ops._fold_team(nb * segs, dev))
+        return p_fold(parts.view(nb, segs, 3, 8), cuda_ops.level_grouping(segs, segs))[:, 0]
+
+    top = idx_top[0].contiguous()
+    compare("fold_buckets_split", lambda: p_split(top),
+            lambda: cuda_ops.fold_buckets_split(points_ext, top), p_split(top), affine_err,
+            cuda_ops.fold_buckets_plain(points_ext, top), 10, shape=list(top.shape),
+            parent_split_rows=384, this_split_rows=cuda_ops.SPLIT_ROWS)
+    NB, wd = 256, 4624
+    fill = np.random.default_rng(1).integers(0, 2, size=(NB, wd)).astype(bool)
+    g = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))[0]
+    mat = torch.where(torch.from_numpy(fill).to(dev)[..., None, None], g,
+                      cuda_ops.identity((), dev)).contiguous()
+    sums = limbs_to_words(from_affine_int(
+        [py_ec.scalar_mul(py_ec.G1_GEN, int(c)) for c in fill.sum(1)], device=dev))
+    for name, drive, levels in (
+            ("fold_buckets_chunked", lambda m: cuda_ops.fold_buckets_chunked(m, K=8),
+             cuda_ops.chunked_levels(wd, 8)),
+            ("fold_buckets_halving", lambda m: cuda_ops.fold_buckets_halving(m, 4),
+             cuda_ops.halving_levels(wd, 4)),
+            ("fold_buckets_grid_dense", lambda m: cuda_ops.fold_buckets_grid_dense(m, 512, 4),
+             cuda_ops.grid_levels(wd, 512, 4))):
+        compare(name, lambda: p_walk(mat, levels), lambda: drive(mat), p_walk(mat, levels),
+                affine_err, sums, 5, shape=[NB, wd], levels=len(levels))
+        prev = mat
+        for i, grp in enumerate(levels):
+            compare("fold_segments", lambda: p_fold(prev, grp),
+                    lambda: cuda_ops.fold_segments(prev, *grp), p_fold(prev, grp), affine_err,
+                    cuda_ops.fold_segments_plain(prev, *grp), 10, timer=kernel_ms, walk=name,
+                    level=i, shape=list(prev.shape[:2]), grouping=list(grp),
+                    this_team=cuda_ops.grouping_team(NB, prev.shape[1], grp, sms))
+            prev = cuda_ops.fold_segments(prev, *grp)
+    del mat
+
     buckets = pip.bucket_sums(points_ext, idx_all, idx_top[0])  # the MSM's (32, 256)
     del points_ext, pts, digits, idx_all
     torch.cuda.empty_cache()

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "svt_msm_windowed": [_P, _P, _LL, _I, _P, _P],
     "svt_bucket_reduce": [_P, _P, _P, _P],
     # fold_kernels.cu
-    "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],
+    "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P, _P],
     "svt_g1_add_chain": [_P, _P, _P, _LL, _I, _P],
     "svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
     # field_kernels.cu

@@ -13,8 +13,9 @@
 //   with (G, CW, S, count) = (1, K, 1, K) for a level, (g, w, g, 2^layers)
 //   for halving (g = w >> layers) and (g', wb, g', 2^layers) for the grid
 //   (g' = wb >> layers).  Each output slot sums exactly the slot subset of
-//   its Pallas kernel; the adds inside a slot run in another order (a
-//   chain instead of a tree), so outputs agree in affine form.
+//   its Pallas kernel.  The Pallas walks pad each width with identity
+//   rows; here a member at or past the matrix's real width w is that
+//   identity: it is skipped (no load, no add), and nothing is padded.
 // * svt_g1_add_chain and svt_fq_mul_chain replace the probe
 //   benchmarks/micro_packed_dissect.py (:48): a chain of CH dependent RC15
 //   adds a <- a + b (or Fq multiplies a <- a*b, or squares a <- a^2 when no
@@ -26,18 +27,37 @@
 // Bounds on an H100 SXM (16.7e12 32-bit multiply-adds/s, 3.35 TB/s): a fold
 // add is 1632 multiply-adds against one 96-byte point read, so the fold is
 // multiply-bound (a full fold of (256, 4624) points: 0.116 ms of multiplies
-// against 0.034 ms of reads).  The chains read and write 2 * 96 bytes per
-// lane once and do CH * 1632 (or CH * 136) multiply-adds: bound by
-// operations at any CH > 1.
+// against 0.034 ms of reads).  The 64-bit products of fq.cuh run at half
+// that rate (msm_kernels.cu), so half the bound is the most a fold reaches.
+// The chains read and write 2 * 96 bytes per lane once and do CH * 1632 (or
+// CH * 136) multiply-adds: bound by operations at any CH > 1.
 //
-// What bounds them: the multiply of fq.cuh (carry-flag rows; 58 G muls/s on a
-// full card), which is what the multiply chain measures, and for the folds
-// the latency of each thread's chain of dependent adds.  What this simple
-// design still leaves on the table: one thread per output slot (a level of
-// the K = 8 fold launches NB * w / 8 threads, each with a dependent chain of
-// 7 adds; the last levels of a fold have too few slots to fill 132 SMs);
-// point rows of 96 bytes strided by S slots, so neighbouring threads read
-// neighbouring rows only when G > 1.
+// What the fold's design does about it.  A lone warp waits ~950 clocks on
+// each multiply; the multiply pipes are busy only with about seven warps of
+// independent chains on every SM.  The first level of a dense fold has
+// slots enough for that; the levels after it do not (a K = 8 walk's later
+// levels have 18,688, 2,560, 512 and 256 slots for ~50,000 resident
+// threads), and there one thread per slot costs its chain's latency,
+// count - 1 dependent adds.  So a slot gets a team of T lanes (1 to 32,
+// inside one warp): lane t sums the slot's members t, t + T, ... in
+// registers, asking for its next member before it adds the current one,
+// and the team combines its partial sums in log2 T rounds of
+// __shfl_xor_sync and g1_add -- no shared memory, no barrier -- so a slot
+// costs ceil(count / T) - 1 + log2 T dependent adds.  The wrapper picks T
+// from the slots, the real members and the SM count
+// (cuda_ops.segment_team): T = 1 where the slots fill the card.  A lane
+// with no real member holds nothing; a combine round adds only where both
+// partners hold a sum.  With S = 1 a team's lanes read adjacent 96-byte
+// rows, six 16-byte loads each.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (kernel_compare.py against the one-thread-a-slot kernel whose walks
+// padded): the three dense walks of a (256, 4624) matrix take 0.35-0.39 ms
+// (0.55-0.90 before), their later levels 2-7x less, the grid walk's first
+// level, no longer padded, 0.29 ms (0.49); 32-thread blocks measured the
+// same as 128.  What is left: a walk's first level, 70-76% of its time,
+// runs at about 80% of the multiply's half rate, and its count-16 form ends
+// on a partial round of 15-add chains; each later level is one launch at
+// its chain's latency plus a few us of launch and first loads (a walk's
+// levels are not fused); one thread carries a whole 256-bit product.
 
 #include <cuda_runtime.h>
 
@@ -47,27 +67,56 @@
 
 namespace svt {
 
-constexpr int SEG_THREADS = 128;
+constexpr int SEG_BLOCK = 128;
+// Resident blocks per SM the register bound allows for (<= 168 registers).
+constexpr int SEG_BLOCKS_PER_SM = 3;
 constexpr int CHAIN_THREADS = 128;
 
-__global__ void __launch_bounds__(SEG_THREADS)
+// One output slot per team of `team` lanes (a power of two <= 32, so a team
+// lies inside one warp).  A slot's members are first + k * S, k < count;
+// those at or past w are identities and are skipped.  A thread past the
+// last slot has no member but still takes part in the team's shuffles.
+__global__ void __launch_bounds__(SEG_BLOCK, SEG_BLOCKS_PER_SM)
     fold_segments_kernel(const uint32_t* __restrict__ mat, long long w, long long wout,
                          long long n_out, long long G, long long CW, long long S, int count,
-                         uint32_t* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * SEG_THREADS + threadIdx.x;
-  if (t >= n_out) return;
-  const long long b = t / wout, j = t % wout;
-  const uint32_t* row = mat + b * w * G1_WORDS;
+                         int team, uint32_t* __restrict__ out) {
+  const long long slot = ((long long)blockIdx.x * SEG_BLOCK + threadIdx.x) / team;
+  const int t = threadIdx.x & (team - 1);
+  const bool valid = slot < n_out;
+  const long long b = valid ? slot / wout : 0, j = valid ? slot % wout : 0;
   const long long first = (j / G) * CW + (j % G);
-  G1 acc;
-  g1_load(acc, row + first * G1_WORDS);
+  // members k < n_real lie inside the matrix (first + k * S < w)
+  const int n_real = valid && first < w ? (int)min((long long)count, (w - first + S - 1) / S) : 0;
+  const uint32_t* base = mat + (b * w + first) * G1_WORDS;
+  const long long step = S * G1_WORDS;
+  bool has = t < n_real;
+  G1 acc, cur;
+  if (has) g1_load_nc(acc, base + t * step);
+  else g1_identity(acc);
+  int k = t + team;
+  if (k < n_real) g1_load_nc(cur, base + k * step);
 #pragma unroll 1
-  for (int k = 1; k < count; k++) {
-    G1 p;
-    g1_load(p, row + (first + k * S) * G1_WORDS);
-    g1_add(acc, acc, p);
+  for (; k < n_real; k += team) {
+    // the next member, or this one again on the last step (no branch)
+    const int kn = k + team < n_real ? k + team : k;
+    G1 nxt;
+    g1_load_nc(nxt, base + kn * step);
+    g1_add(acc, acc, cur);
+    cur = nxt;
   }
-  g1_store(out + t * G1_WORDS, acc);
+#pragma unroll 1
+  for (int m = team >> 1; m > 0; m >>= 1) {
+    G1 q;
+    g1_shfl_xor(q, acc, m);
+    const bool qhas = __shfl_xor_sync(0xffffffffu, (int)has, m) != 0;
+    if (has && qhas) {
+      g1_add(acc, acc, q);
+    } else if (qhas) {
+      acc = q;
+    }
+    has = has || qhas;
+  }
+  if (t == 0 && valid) g1_store(out + slot * G1_WORDS, acc);
 }
 
 __global__ void __launch_bounds__(CHAIN_THREADS)
@@ -115,14 +164,19 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
 // and returns cudaGetLastError() (0 = launched).  The wrappers check that
 // every slot index a launch reads lies inside the matrix.
 
+// w: the matrix's real width (its row stride); members at or past it are
+// skipped.  team: lanes per output slot, 1, 2, 4, 8, 16 or 32.
 extern "C" int svt_fold_segments(const void* mat, long long nb, long long w, long long wout,
-                                 long long G, long long CW, long long S, int count, void* out,
-                                 void* stream) {
+                                 long long G, long long CW, long long S, int count, int team,
+                                 void* out, void* stream) {
+  if (team < 1 || team > 32 || (team & (team - 1))) return (int)cudaErrorInvalidValue;
   const long long n_out = nb * wout;
   if (n_out > 0) {
-    const unsigned blocks = (unsigned)((n_out + svt::SEG_THREADS - 1) / svt::SEG_THREADS);
-    svt::fold_segments_kernel<<<blocks, svt::SEG_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)mat, w, wout, n_out, G, CW, S, count, (uint32_t*)out);
+    const long long threads = n_out * team;
+    const long long blocks = (threads + svt::SEG_BLOCK - 1) / svt::SEG_BLOCK;
+    if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    svt::fold_segments_kernel<<<(unsigned)blocks, svt::SEG_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)mat, w, wout, n_out, G, CW, S, count, team, (uint32_t*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -111,8 +111,11 @@ def fold_buckets_plain(points_ext, idx):
 _FOLD_BLOCKS_PER_SM = 3
 # `fold_buckets_split` cuts long rows into as many segments as keep the
 # launch within this many rows: one resident wave of 128-thread teams on a
-# card of 128 SMs or more.
-SPLIT_ROWS = 128 * _FOLD_BLOCKS_PER_SM
+# card of 132 SMs (an H100 SXM).  At the 2^20 MSM's top window (49 rows) that
+# is 8 segments a row; the split measured fastest where the first pass
+# fills one wave (392, 784 or 1,568 rows: 8, 16 or 32 segments with teams
+# of 128, 64 or 32) and slower between them (chip_smoke.py's sweep).
+SPLIT_ROWS = 132 * _FOLD_BLOCKS_PER_SM
 
 
 def _fold_team(nb: int, device) -> int:
@@ -178,75 +181,192 @@ def identity(batch_shape, device):
 # ---------------------------------------------------------- dense bucket folds
 
 
-def fold_segments_plain(mat, G: int, CW: int, S: int, count: int):
+# Warps of independent add chains an SM needs before the multiply pipes, not
+# one chain's latency, set a fold's time: a lone warp waits ~950 clocks on a
+# multiply (csrc/probe/team_levels.cu), a busy SM starts one warp's multiply
+# every ~144 clocks (58 G multiplies/s on 132 SMs at 1.98 GHz).
+_BUSY_WARPS_PER_SM = 950 / 144
+TEAMS = (1, 2, 4, 8, 16, 32)
+
+
+def segment_team(n_out: int, members: int, sms: int) -> int:
+    """Lanes per output slot for a `svt_fold_segments` launch of n_out slots
+    of at most `members` real members each, on a card of `sms` SMs.
+
+    A team of T lanes costs a slot ceil(members / T) - 1 + log2 T dependent
+    adds, and the launch takes about that many adds' time whichever of two
+    limits holds: one chain's latency while an SM has fewer than
+    _BUSY_WARPS_PER_SM warps, the multiply pipes' rate beyond.  The T of
+    least (dependent adds) x max(_BUSY_WARPS_PER_SM, warps per SM) wins, the
+    smallest on a tie: T = 1 where the slots alone fill the card."""
+    best, best_cost = 1, None
+    for team in TEAMS:
+        warps_per_sm = -(-n_out * team // 32) / sms
+        cost = chain_adds(members, team) * max(_BUSY_WARPS_PER_SM, warps_per_sm)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = team, cost
+    return best
+
+
+def chain_adds(members: int, team: int) -> int:
+    """Dependent adds of a slot of `members` real members summed by a team
+    of `team` lanes: the longest lane's chain, then log2 team rounds."""
+    return max(-(-members // team) - 1 + team.bit_length() - 1, 0)
+
+
+def grouping_team(nb: int, w: int, grouping, sms: int) -> int:
+    """`segment_team` for a `fold_segments` launch of `grouping` (G, CW, S,
+    count, width) over an (nb, w) matrix: slot 0 has the most real members."""
+    _, _, S, count, width = grouping
+    return segment_team(nb * (width // count), min(count, -(-w // S)), sms)
+
+
+def _round_up(w: int, m: int) -> int:
+    return -(-w // m) * m
+
+
+def level_grouping(w: int, K: int):
+    """(G, CW, S, count, width) of one K-way level of adjacent slots over a
+    width-w matrix: the slot subsets of `_pallas_fold_level`
+    (pallas_ops.py:237), the width padded to a multiple of K."""
+    return 1, K, 1, K, _round_up(w, K)
+
+
+def halving_grouping(w: int, layers: int):
+    """`layers` halving layers across the whole (padded) width: slot j sums
+    j + k·g, g = width >> layers, k < 2^layers, the slot subsets of
+    `_pallas_fold_halving` (pallas_ops.py:316)."""
+    width = _round_up(w, 1 << layers)
+    g = width >> layers
+    return g, width, g, 1 << layers, width
+
+
+def grid_grouping(w: int, wb: int, layers: int):
+    """The same halving inside each wb-wide chunk of the (padded) width: the
+    slot subsets of `_pallas_fold_grid` (pallas_ops.py:573) and its 2-D twin
+    `_pallas_fold_grid2d` (:553)."""
+    g = wb >> layers
+    if g < 1 or g << layers != wb:
+        raise ValueError(f"fold_grid: chunk {wb} is no multiple of 2^{layers}")
+    return g, wb, g, 1 << layers, _round_up(w, wb)
+
+
+def fold_segments_plain(mat, G: int, CW: int, S: int, count: int, width: int | None = None):
     """out[b, j] = Σ_{k<count} mat[b, (j // G)·CW + (j % G) + k·S] in plain
-    PyTorch, summed as the kernel sums it: a chain over k."""
+    PyTorch, a chain over k; members at or past the matrix's width are
+    identities and are skipped, as the kernel skips them."""
     nb, w = mat.shape[:2]
-    j = torch.arange(w // count, device=mat.device)
+    width = _round_up(w, count) if width is None else width
+    j = torch.arange(width // count, device=mat.device)
     first = (j // G) * CW + (j % G)
     pts = words_to_limbs(mat)
-    acc = pts[:, first]
-    for k in range(1, count):
-        acc = G1.add(acc, pts[:, first + k * S])
+    acc = G1.infinity((nb, len(j)), device=mat.device)
+    for k in range(count):
+        idx = first + k * S
+        real = (idx < w)[None, :, None, None]
+        if not real.any():  # members only grow with k
+            break
+        p = pts[:, idx.clamp(max=w - 1)]
+        acc = torch.where(real, p if k == 0 else G1.add(acc, p), acc)
     return limbs_to_words(acc)
 
 
-def fold_segments(mat, G: int, CW: int, S: int, count: int):
-    """Partial fold of a dense bucket matrix: (NB, w, 3, 8) -> (NB, w/count,
-    3, 8), output slot j summing the `count` slots (j // G)·CW + (j % G) +
-    k·S.  The callers below give the slot groupings of the Pallas folds."""
+def fold_segments(mat, G: int, CW: int, S: int, count: int, width: int | None = None, *,
+                  team: int | None = None):
+    """Partial fold of a dense bucket matrix: (NB, w, 3, 8) -> (NB,
+    width/count, 3, 8), output slot j summing the `count` slots (j // G)·CW
+    + (j % G) + k·S of the matrix read as `width` wide (by default w rounded
+    up to a multiple of count): slots at or past w are identities.  The
+    groupings above give the slot subsets of the Pallas folds.  `team`
+    (lanes per slot, one of TEAMS) defaults to `segment_team`'s choice."""
     _check("fold_segments", mat, 4, (3, 8))
     nb, w = mat.shape[:2]
-    if min(G, CW, S, count) < 1 or w % count:
+    width = _round_up(w, count) if width is None else width
+    if min(G, CW, S, count) < 1 or width < w or width % count:
         raise ValueError(f"fold_segments: bad grouping G={G} CW={CW} S={S} count={count} "
-                         f"for width {w}")
-    wout = w // count
+                         f"for width {width} of a {w}-wide matrix")
+    wout = width // count
     q, r = divmod(wout - 1, G)  # the farthest first slot: last q's r, or r = G-1 of q-1
     last = max(q * CW + r, (q - 1) * CW + G - 1)
-    if wout and last + (count - 1) * S >= w:
-        raise ValueError(f"fold_segments: grouping reads past width {w}")
+    if wout and last + (count - 1) * S >= width:
+        raise ValueError(f"fold_segments: grouping reads past width {width}")
+    if team is not None and team not in TEAMS:
+        raise ValueError(f"fold_segments: team {team} is not one of {TEAMS}")
     if mat.device.type == "cpu":
-        return fold_segments_plain(mat, G, CW, S, count)
+        return fold_segments_plain(mat, G, CW, S, count, width)
     out = torch.empty((nb, wout, 3, 8), dtype=torch.int32, device=mat.device)
     if nb * wout:
+        if team is None:
+            sms = torch.cuda.get_device_properties(mat.device).multi_processor_count
+            team = grouping_team(nb, w, (G, CW, S, count, width), sms)
         _launch("fold_segments", load_library().svt_fold_segments, mat.data_ptr(), nb, w, wout,
-                G, CW, S, count, out.data_ptr(), device=mat.device)
+                G, CW, S, count, team, out.data_ptr(), device=mat.device)
     return out
 
 
 def fold_level(mat, K: int):
-    """One K-way level of adjacent slots: (NB, w) -> (NB, w/K), the slot
-    subsets of `_pallas_fold_level` (pallas_ops.py:237)."""
-    return fold_segments(mat, 1, K, 1, K)
+    """One K-way level of adjacent slots: (NB, w) -> (NB, ceil(w/K))."""
+    return fold_segments(mat, *level_grouping(mat.shape[1], K))
 
 
 def fold_halving(mat, layers: int):
     """`layers` halving layers across the whole width: (NB, w) -> (NB,
-    w >> layers), slot j summing j + k·g (g = w >> layers, k < 2^layers),
-    the slot subsets of `_pallas_fold_halving` (pallas_ops.py:316)."""
-    w = mat.shape[1]
-    g = w >> layers
-    if g << layers != w:
-        raise ValueError(f"fold_halving: width {w} is not a multiple of 2^{layers}")
-    return fold_segments(mat, g, w, g, 1 << layers)
+    ceil(w / 2^layers))."""
+    return fold_segments(mat, *halving_grouping(mat.shape[1], layers))
 
 
 def fold_grid(mat, wb: int, layers: int):
     """The same halving inside each wb-wide chunk: (NB, w) -> (NB,
-    (w/wb)·(wb >> layers)), the slot subsets of `_pallas_fold_grid`
-    (pallas_ops.py:573) and its 2-D twin `_pallas_fold_grid2d` (:553)."""
-    w = mat.shape[1]
-    g = wb >> layers
-    if w % wb or g << layers != wb:
-        raise ValueError(f"fold_grid: width {w} / chunk {wb} / {layers} layers do not tile")
-    return fold_segments(mat, g, wb, g, 1 << layers)
+    ceil(w/wb)·(wb >> layers))."""
+    return fold_segments(mat, *grid_grouping(mat.shape[1], wb, layers))
 
 
-def _pad_identity(mat, pad: int):
-    if not pad:
-        return mat
-    fill = identity((mat.shape[0], pad), mat.device)
-    return torch.cat([mat, fill], dim=1)
+def chunked_levels(w: int, K: int = 8):
+    """The groupings of `fold_buckets_chunked`'s levels from width w: K-way
+    levels until one slot is left (pallas_ops.py::fold_buckets_chunked :260,
+    which pads each width with identities to a multiple of K)."""
+    if K < 2 or K & (K - 1):
+        raise ValueError(f"fold_buckets_chunked: K={K} must be a power of two")
+    levels = []
+    while w > 1:
+        levels.append(level_grouping(w, K))
+        w = levels[-1][4] // K
+    return levels
+
+
+def halving_levels(w: int, layers_per_call: int = 4):
+    """`fold_buckets_halving`'s groupings: halving calls of up to
+    `layers_per_call` layers (pallas_ops.py::fold_buckets_halving :631)."""
+    levels = []
+    while w > 1:
+        levels.append(halving_grouping(w, min(layers_per_call, (w - 1).bit_length())))
+        w = levels[-1][0]
+    return levels
+
+
+def grid_levels(w: int, wb: int = 512, layers: int = 4):
+    """`fold_buckets_grid_dense`'s groupings (pallas_ops.py::fold_buckets_grid
+    :602): widths >= wb fold `layers` layers per wb-chunk, the tail folds its
+    whole width."""
+    levels = []
+    while w > 1:
+        if w >= wb:
+            grp = grid_grouping(w, wb, layers)
+        else:
+            grp = halving_grouping(w, min(layers, (w - 1).bit_length()))
+        levels.append(grp)
+        w = grp[4] // grp[3]
+    return levels
+
+
+def _walk(mat, levels, on_level):
+    """One `fold_segments` launch per grouping; `on_level`, if given, is
+    called with each level's output (chip_smoke.py times the levels)."""
+    for grp in levels:
+        mat = fold_segments(mat, *grp)
+        if on_level:
+            on_level(mat)
+    return mat[:, 0]
 
 
 def _check_dense(name, mat):
@@ -257,55 +377,25 @@ def _check_dense(name, mat):
 
 def fold_buckets_chunked(mat, K: int = 8, on_level=None):
     """(NB, cap, 3, 8) dense bucket matrix -> (NB, 3, 8) bucket sums by K-way
-    levels, each width padded with identities to a multiple of K
-    (pallas_ops.py::fold_buckets_chunked :260).  `on_level`, if given, is
-    called with each level's output (chip_smoke.py times the levels)."""
-    if K < 2 or K & (K - 1):
-        raise ValueError(f"fold_buckets_chunked: K={K} must be a power of two")
+    levels (pallas_ops.py::fold_buckets_chunked :260); each level reads its
+    input in place, a width that is no multiple of K as if padded with
+    identities."""
     _check_dense("fold_buckets_chunked", mat)
-    w = mat.shape[1]
-    while w > 1:
-        mat = _pad_identity(mat, (-w) % K)
-        mat = fold_level(mat, K)
-        w = mat.shape[1]
-        if on_level:
-            on_level(mat)
-    return mat[:, 0]
+    return _walk(mat, chunked_levels(mat.shape[1], K), on_level)
 
 
 def fold_buckets_halving(mat, layers_per_call: int = 4, on_level=None):
     """Dense bucket sums by chained halving calls, `layers_per_call` layers
     each (pallas_ops.py::fold_buckets_halving :631)."""
     _check_dense("fold_buckets_halving", mat)
-    w = mat.shape[1]
-    while w > 1:
-        layers = min(layers_per_call, (w - 1).bit_length())
-        mat = _pad_identity(mat, (-w) % (1 << layers))
-        mat = fold_halving(mat, layers)
-        w = mat.shape[1]
-        if on_level:
-            on_level(mat)
-    return mat[:, 0]
+    return _walk(mat, halving_levels(mat.shape[1], layers_per_call), on_level)
 
 
 def fold_buckets_grid_dense(mat, wb: int = 512, layers: int = 4, on_level=None):
     """Dense bucket sums by the fixed-chunk grid walk of
-    pallas_ops.py::fold_buckets_grid (:602): widths >= wb fold `layers`
-    layers per wb-chunk, the tail folds its whole width."""
+    pallas_ops.py::fold_buckets_grid (:602)."""
     _check_dense("fold_buckets_grid_dense", mat)
-    w = mat.shape[1]
-    while w > 1:
-        if w >= wb:
-            mat = _pad_identity(mat, (-w) % wb)
-            mat = fold_grid(mat, wb, layers)
-        else:
-            lyr = min(layers, (w - 1).bit_length())
-            mat = _pad_identity(mat, (-w) % (1 << lyr))
-            mat = fold_grid(mat, mat.shape[1], lyr)
-        w = mat.shape[1]
-        if on_level:
-            on_level(mat)
-    return mat[:, 0]
+    return _walk(mat, grid_levels(mat.shape[1], wb, layers), on_level)
 
 
 # ------------------------------------------------------------ the chain probe

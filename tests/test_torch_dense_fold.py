@@ -146,13 +146,18 @@ def test_dense_drivers_match_pallas(driver, w):
 
 
 def test_fold_segments_rejects_bad_groupings():
+    """A width that is no multiple of the grouping's reads as padded with
+    identities (tests/test_torch_fold_segments_schedule.py); a grouping that
+    does not tile or reads past its width is refused."""
     _, words, _ = _matrix(1, 12, seed=1)
     with pytest.raises(ValueError):
-        cuda_ops.fold_level(words, 5)  # 12 is no multiple of 5
+        cuda_ops.fold_grid(words, 6, 2)  # a chunk of 6 is no multiple of 2^2
     with pytest.raises(ValueError):
-        cuda_ops.fold_halving(words, 3)  # 12 is no multiple of 8
+        cuda_ops.fold_segments(words, 1, 2, 1, 2, width=10)  # narrower than the matrix
     with pytest.raises(ValueError):
-        cuda_ops.fold_grid(words, 8, 2)  # chunks of 8 do not tile 12
+        cuda_ops.fold_segments(words, 1, 4, 1, 4, width=14)  # no multiple of count
+    with pytest.raises(ValueError):
+        cuda_ops.fold_segments(words, 1, 4, 1, 4, team=3)  # no team the kernel takes
     with pytest.raises(ValueError):
         cuda_ops.fold_segments(words, 1, 4, 4, 4)  # reads past the width
     with pytest.raises(ValueError):

@@ -146,6 +146,25 @@ def test_fold_split_on_card_matches_twin(cuda):
     assert to_affine_int(words_to_limbs(got)) == to_affine_int(words_to_limbs(twin))
 
 
+def test_fold_split_at_the_top_window_shape(cuda):
+    """fold_buckets_split at the 2^20 MSM's top-window shape (49, 25,846):
+    one fold_buckets and one fold_segments launch, equal to the plain
+    version and to the python-int bucket sums."""
+    base = py_ec.rand_points(7, seed=24)
+    pts_ext = limbs_to_words(from_affine_int(base + [None], device=cuda))
+    rng = np.random.default_rng(25)
+    idx = torch.as_tensor(rng.integers(0, 8, size=(49, 25846)), dtype=torch.int32, device=cuda)
+    idx[5] = 7
+    cuda_ops.reset_launches()
+    got = cuda_ops.fold_buckets_split(pts_ext, idx)
+    assert cuda_ops.LAUNCHES["fold_buckets"] == 1 and cuda_ops.LAUNCHES["fold_segments"] == 1
+    ga = to_affine_int(words_to_limbs(got))
+    assert ga == to_affine_int(words_to_limbs(cuda_ops.fold_buckets_plain(pts_ext, idx)))
+    counts = [np.bincount(r, minlength=8) for r in idx.cpu().numpy()]
+    assert ga == [py_ec.msm(base, [int(c) for c in row[:7]]) for row in counts]
+    assert ga[5] is None
+
+
 def test_msm_on_card_matches_oracle(cuda):
     pts = py_ec.rand_points(300, seed=7)
     rng = np.random.default_rng(8)
@@ -269,12 +288,42 @@ def test_fold_segments_kernel_matches_twin(cuda, kind):
     assert _affine_rows(got) == _affine_rows(fn(mat.cpu()))
 
 
+@pytest.mark.parametrize("team", cuda_ops.TEAMS)
+@pytest.mark.parametrize("kind,w", [("level", 48), ("level", 45), ("halving", 48),
+                                    ("halving", 41), ("grid", 48), ("grid", 37)])
+def test_fold_segments_kernel_every_team(cuda, kind, w, team):
+    """The kernel at each team size against its plain version, on widths
+    that tile the grouping and on widths read as padded with identities."""
+    mat, aff = _dense(3, w, 13 + w, cuda)
+    grp = {"level": cuda_ops.level_grouping(w, 8), "halving": cuda_ops.halving_grouping(w, 4),
+           "grid": cuda_ops.grid_grouping(w, 16, 2)}[kind]
+    cuda_ops.reset_launches()
+    got = cuda_ops.fold_segments(mat, *grp, team=team)
+    assert cuda_ops.LAUNCHES["fold_segments"] == 1
+    rows = _affine_rows(got)
+    assert rows == _affine_rows(cuda_ops.fold_segments_plain(mat, *grp))
+    G, CW, S, count, _ = grp
+    for b, row in enumerate(aff):
+        for j, pt in enumerate(rows[b]):
+            acc = None
+            for k in range(count):
+                m = (j // G) * CW + j % G + k * S
+                if m < w:
+                    acc = py_ec.add(acc, row[m])
+            assert pt == acc
+
+
 @pytest.mark.parametrize("driver", ["chunked", "halving", "grid"])
 def test_dense_drivers_on_card_match_oracle(cuda, driver):
     mat, aff = _dense(4, 300, 12, cuda)
-    fn = {"chunked": cuda_ops.fold_buckets_chunked, "halving": cuda_ops.fold_buckets_halving,
-          "grid": lambda m: cuda_ops.fold_buckets_grid_dense(m, wb=64, layers=3)}[driver]
+    fn, levels = {
+        "chunked": (cuda_ops.fold_buckets_chunked, cuda_ops.chunked_levels(300)),
+        "halving": (cuda_ops.fold_buckets_halving, cuda_ops.halving_levels(300)),
+        "grid": (lambda m: cuda_ops.fold_buckets_grid_dense(m, wb=64, layers=3),
+                 cuda_ops.grid_levels(300, 64, 3))}[driver]
+    cuda_ops.reset_launches()
     got = to_affine_int(words_to_limbs(fn(mat)))
+    assert cuda_ops.LAUNCHES["fold_segments"] == len(levels)  # no padding copy, no other launch
     want = []
     for row in aff:
         acc = None
