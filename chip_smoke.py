@@ -72,7 +72,38 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    least multiplies), chain floors (the least critical path: dependent
    multiplies when each Fq12 operation's products run at once), their own
    counts (`muls_per_proof`, `depth_muls`), clocks per level and ptxas
-   usage.
+   usage;
+12. the GWC19 verify path: `batch_verify(..., "gwc")` at batch 1,024 (the
+   16 committed gwcsnark fixtures tiled) with its launch counts read around
+   one call; gates: every lane accepts, every lane's accumulator equals the
+   port's python-int oracle for its fixture, a tampered instance rejects
+   lane 0 alone, one launch each of `fr_tape`, `miller_loop` and
+   `final_exp`, two of `msm_windowed` (a side each); best-of-3 proofs/s, the
+   steps of three runs, and the two MSM sides as launched beside one
+   stacked launch;
+13. the tree (bench.py's bench_tree): `tree_aggregate_root` over 1,024
+   leaves (the vanilla-PLONK fixtures tiled) with its launch counts read
+   around one call; gates: the root accepts, a tampered leaf 0 makes it
+   reject, one `fr_powers` launch per fold level, each fold level (group 0
+   of layer 1, the fold of the 32 group accumulators, the root) equals the
+   python-int `create_proof` on the device's own inputs to that level;
+   best-of-3 leaves/s, the phases of three runs, one traced tree's device
+   time; then `aggregate_and_decide` on the same leaves (accepts; the
+   tampered batch rejects);
+14. `fr_powers` against `powers_plain` at the tree's shapes (32, 32),
+   (1, 32), (1, 1) and at (1,024, 33), its times, bound, chain floor and
+   ptxas usage; `poseidon_absorb` at the fold's 32 states × 128 elements and
+   `msm_windowed` at the fold's shapes, each against its plain version on
+   random inputs and timed beside its chain floor;
+15. instance-encoded old accumulators (the committed
+   `snark_verifier_tpu_torch/fixtures/old_acc_*.json`, k = 4 on
+   toy_srs(32)) on the card at batch 1,024: the limb decode alone equals
+   the host codec with one launch each of `field_mul` (Fr), `field_canon`
+   and `field_mul` (Fq); a batch's single-op field launches are those of
+   the same protocol naming no accumulator plus exactly those three, with
+   one `fr_tape` and one `msm_windowed`; every lane's [fresh, old] equals
+   the port's python-int oracle; the valid snark accepts on every lane, the
+   bogus one (on the curve, not a valid accumulator) rejects on every lane.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -98,6 +129,7 @@ PROBE_BATCHES = (256, 1 << 17)
 VERIFY_BATCH = 1024
 PAIRING_BATCH = 256  # bench.py's BENCH_BATCH_PAIRING
 PAIR_CHECK_B = 1024  # the pairing kernels' checks against their plain versions
+TREE_LEAVES = 1024  # bench.py's BENCH_BATCH_TREE
 SPLIT_SEGMENTS = (4, 7, 8, 12, 16, 24, 32, 48)  # fold_buckets_split's segments a top row, timed
 # Peak rates of one H100 SXM (700 W): HBM3 bandwidth, and the 32-bit integer
 # multiply-add throughput (64 per SM per clock, 132 SMs, 1.98 GHz boost).
@@ -363,6 +395,69 @@ def kernel_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def load_fixtures(prefix):
+    """The fixture SRS and the 16 committed `prefix`_*.json snarks."""
+    from pathlib import Path
+
+    from snark_verifier_tpu_torch.sdk.snark import Snark
+    from snark_verifier_tpu_torch.sdk.srs import load_params
+
+    d = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    return (load_params(str(d / "srs.bin")),
+            [Snark.load(str(d / f"{prefix}_{i:02d}.json")) for i in range(16)])
+
+
+def tampered(s):
+    """s with instances[0][0] moved by one."""
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.sdk.snark import Snark
+
+    t = Snark(s.protocol, [list(c) for c in s.instances], s.scalars, s.points)
+    t.instances[0][0] = (t.instances[0][0] + 1) % FR.p
+    return t
+
+
+def affine_pairs(lhs, rhs):
+    from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
+
+    return list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
+
+
+def best_of_3(fn):
+    """(best, runs) host seconds of fn(), each call ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return min(times), times
+
+
+def traced(fn):
+    """(busy ms, wall ms, [(kernel, ms, count)] by device time) of one call
+    under torch.profiler: the kernels' device time over the host-clock wall
+    time of the same call; busy None when no device event was recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    events = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in on_card),
+                    key=lambda e: -e[1])
+    return (busy or None), wall, events
 
 
 def smi_line():
@@ -648,7 +743,6 @@ def verify_phase(dev, kernels, errs):
     decide's captured Miller-loop arguments and final-exponentiation input,
     its launch counts)."""
     import torch
-    from pathlib import Path
 
     from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
     from snark_verifier_tpu_torch.ff import FRW, digits4, fr_tape
@@ -658,16 +752,12 @@ def verify_phase(dev, kernels, errs):
     from snark_verifier_tpu_torch.parallel import batch_verify
     from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
     from snark_verifier_tpu_torch.sdk import aggregation as agg
-    from snark_verifier_tpu_torch.sdk.snark import Snark
-    from snark_verifier_tpu_torch.sdk.srs import load_params
     from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
     from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
 
     B = VERIFY_BATCH
-    d = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
     t0 = time.time()
-    srs = load_params(str(d / "srs.bin"))
-    base = [Snark.load(str(d / f"snark_{i:02d}.json")) for i in range(16)]
+    srs, base = load_fixtures("snark")
     snarks = [base[i % 16] for i in range(B)]
     oracle = [pv.succinct_verify_native(s, srs)[0] for s in base]
     log(f"# verify inputs: SRS + 16 fixtures + 16 oracle runs: {time.time() - t0:.2f}s")
@@ -697,9 +787,7 @@ def verify_phase(dev, kernels, errs):
         oks = batch_verify(snarks, srs)
         torch.cuda.synchronize()
         launches = dict(cuda_ops.LAUNCHES)
-        tam = Snark(base[0].protocol, [list(c) for c in base[0].instances], base[0].scalars,
-                    base[0].points)
-        tam.instances[0][0] = (tam.instances[0][0] + 1) % FRW.spec.p
+        tam = tampered(base[0])
         oks_t = batch_verify([tam] + snarks[1:], srs)
     finally:
         fr_tape.run, pairing.miller_loop, pairing.final_exponentiation = real_tape, real_ml, real_fe
@@ -742,14 +830,7 @@ def verify_phase(dev, kernels, errs):
     log(f"# verify gates: all {B} lanes accept, their accumulators == the native oracle of their "
         f"fixture; the tampered instance rejects lane 0 alone and moved its accumulator alone")
 
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        batch_verify(snarks, srs)
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-    best = min(times)
+    best, times = best_of_3(lambda: batch_verify(snarks, srs))
     log(f"# verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} verify proofs/s "
         f"(runs {[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
 
@@ -778,28 +859,15 @@ def verify_phase(dev, kernels, errs):
         f"{plan.tape.n_slots} slots, {len(plan.tape.inputs)} inputs, "
         f"{len(plan.tape.outputs)} outputs")
 
-    # Device busy share of one batch: kernel time from a torch.profiler
-    # trace over the host-clock wall time of the same (traced) call; the
-    # decide's two kernels apart from the succinct phase's.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        batch_verify(snarks, srs)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
-    decide_ms = sum(e.self_device_time_total for e in on_card
-                    if "miller_loop" in e.key or "final_exp" in e.key) / 1e3
-    if busy_ms > 0:
+    # Device busy share of one batch, the decide's two kernels apart from
+    # the succinct phase's.
+    busy_ms, wall_ms, events = traced(lambda: batch_verify(snarks, srs))
+    decide_ms = sum(ms for k, ms, _ in events if "miller_loop" in k or "final_exp" in k)
+    if busy_ms:
         log(f"# verify device time (torch.profiler, one traced batch): {busy_ms:.2f} ms busy of "
             f"{wall_ms:.2f} ms wall = {busy_ms / wall_ms:.1%} busy; decide kernels {decide_ms:.2f} "
             f"ms, succinct {busy_ms - decide_ms:.2f} ms; top: " + ", ".join(
-                f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+                f"{k[:40]} {ms:.2f} ms x{c}" for k, ms, c in events[:6]))
     else:
         log("# verify device time: not measured (the profiler recorded no device events)")
 
@@ -1015,14 +1083,7 @@ def pairing_phase(dev):
                                 f"{torch.nonzero(~neg).flatten()[:5].tolist()}, want [0]")
     log(f"# pairing gates: all {B} valid accept; lhs + G rejects lane 0 alone; the all-identity "
         f"lane accepts")
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        decide(srs, lhs, rhs)
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-    best = min(times)
+    best, times = best_of_3(lambda: decide(srs, lhs, rhs))
     log(f"# pairing at B={B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} checks/s (runs "
         f"{[round(t * 1e3, 2) for t in times]} ms) on {smi_line()}")
     return B / best
@@ -1159,6 +1220,352 @@ def pairing_kernel_checks(dev, kernels, decide_inputs, launches):
         bound_by=by, library_ms=None, shape=[B, 2, 3, 2, 8], timed="mul",
         chain_floor_ms=floor, ops_ms=op_ms, ops_plain_ms=op_plain_ms, ptxas=use,
         launches_checks=check_launches["fq12_op"], tolerance="exact, canonical"))
+
+
+def gwc_phase(dev, kernels):
+    """The GWC19 verify path: batch_verify(..., "gwc") at batch 1,024 over
+    the 16 committed gwcsnark fixtures, tiled.  Returns proofs/s."""
+    import torch
+
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.parallel import batch_verify
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+    from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
+
+    B = VERIFY_BATCH
+    t0 = time.time()
+    srs, base = load_fixtures("gwcsnark")
+    snarks = [base[i % 16] for i in range(B)]
+    oracle = [pv.succinct_verify_native(s, srs, "gwc")[0] for s in base]
+    log(f"# gwc inputs: SRS + 16 fixtures + 16 oracle runs: {time.time() - t0:.2f}s")
+    cuda_ops.reset_launches()
+    oks = batch_verify(snarks, srs, "gwc")
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "miller_loop", "final_exp")
+    log(f"# gwc path launches per batch of {B}: "
+        f"{ {k: launches[k] for k in path + ('add', 'double')} }; single-op field kernels "
+        f"{ {k: v for k, v in launches.items() if k.startswith('field_') and v} }")
+    for k in ("fr_tape", "miller_loop", "final_exp"):
+        check(launches[k] == 1, f"the gwc batch launched {k} {launches[k]} times, not once")
+    check(launches["msm_windowed"] == 2,
+          f"the gwc batch launched msm_windowed {launches['msm_windowed']} times, not twice")
+    check(launches["poseidon_absorb"] > 0, "the gwc batch launched no poseidon_absorb")
+    check(launches["add"] == 0 and launches["double"] == 0, "the gwc batch launched add/double")
+    check(bool(oks.all()), f"{int((~oks).sum())} of {B} valid gwc proofs rejected")
+    # Each lane's accumulator against the oracle; the MSM's inputs captured.
+    seen, kernel = [], cuda_ops.msm_windowed
+
+    def capture(pts, scalars, c=4):
+        seen.append((pts, scalars))
+        return kernel(pts, scalars, c)
+
+    cuda_ops.msm_windowed = capture
+    try:
+        (lhs, rhs), = agg.batch_succinct_verify(snarks, srs, "gwc")
+    finally:
+        cuda_ops.msm_windowed = kernel
+    got = affine_pairs(lhs, rhs)
+    bad = [b for b in range(B) if got[b] != oracle[b % 16]]
+    check(not bad, f"{len(bad)} gwc lanes differ from the native oracle, first {bad[:5]}")
+    oks_t = batch_verify([tampered(base[0])] + snarks[1:], srs, "gwc")
+    check(not bool(oks_t[0]) and bool(oks_t[1:].all()),
+          f"gwc tampered lane 0: rejected lanes {torch.nonzero(~oks_t).flatten()[:5].tolist()}")
+    log(f"# gwc gates: all {B} lanes accept, their accumulators == the native oracle of their "
+        f"fixture; the tampered instance rejects lane 0 alone")
+    best, runs = best_of_3(lambda: batch_verify(snarks, srs, "gwc"))
+    log(f"# gwc verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} proofs/s "
+        f"(runs {[round(t * 1e3, 2) for t in runs]} ms) on {smi_line()}")
+    steps = ("stack_s", "plan_s", "read_s", "gather_s", "fr_tape_s", "msm_s", "succinct_s",
+             "decide_s")
+    phases = []
+    for _ in range(3):
+        tm = {}
+        batch_verify(snarks, srs, "gwc", timings=tm)
+        phases.append(tm)
+    log("# gwc steps (ms, the three runs): " + ", ".join(
+        f"{k[:-2]} {[round(tm[k] * 1e3, 3) for tm in phases]}" for k in steps))
+    # The two sides' MSMs: as launched (one launch a side), and, for
+    # PERF.md, stacked into one launch with the rhs padded.
+    sides = [(p.shape[1], p, s) for p, s in seen]
+    desc = ", ".join(f"({p.shape[0]}, {n})" for n, p, _ in sides)
+    ms_as = sum(time_ms(lambda p=p, s=s: cuda_ops.msm_windowed(p, s), 10) for _, p, s in sides)
+    if len(sides) == 2:
+        n = max(n for n, _, _ in sides)
+        pts, scs = [], []
+        for k, p, sc in sides:
+            pts.append(torch.cat([p, p[:, :1].expand(-1, n - k, 3, 8)], 1))
+            scs.append(torch.cat([sc, sc.new_zeros((B, n - k, 8))], 1))
+        pts, scs = torch.cat(pts, 0).contiguous(), torch.cat(scs, 0).contiguous()
+        stacked = cuda_ops.msm_windowed(pts, scs)
+        check(affine_err(stacked[:B], lhs) == 0 and affine_err(stacked[B:], rhs) == 0,
+              "the stacked gwc MSM differs from the two launches")
+        ms_stacked = time_ms(lambda: cuda_ops.msm_windowed(pts, scs), 10)
+        log(f"# gwc MSM sides {desc}: as launched {ms_as:.4f} ms; stacked into one launch at "
+            f"{tuple(pts.shape[:2])} {ms_stacked:.4f} ms (same points)")
+    else:
+        ms_stacked = None
+        log(f"# gwc MSM sides {desc}: {ms_as:.4f} ms")
+    for row in kernels:
+        if row["name"] == "msm_windowed":
+            row.update(gwc_shapes=desc, gwc_ms=ms_as, gwc_stacked_ms=ms_stacked,
+                       launches_gwc=launches["msm_windowed"])
+        if row["name"] == "fr_tape":
+            row["launches_gwc"] = launches["fr_tape"]
+    return B / best
+
+
+def old_acc_phase(dev):
+    """Instance-encoded old accumulators on the card: the committed
+    old_acc_{valid,bogus}.json (a k = 4 snark carrying a folded accumulator
+    as 12 limbs; tests/test_torch_old_accumulators.py writes them from the
+    host prover), at batch 1,024."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FRW
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.parallel import batch_verify
+    from snark_verifier_tpu_torch.pcs.kzg.accumulator import (
+        accumulator_from_limbs,
+        accumulator_from_limbs_int,
+    )
+    from snark_verifier_tpu_torch.sdk.aggregation import batch_succinct_verify
+    from snark_verifier_tpu_torch.sdk.snark import Snark
+    from snark_verifier_tpu_torch.sdk.srs import toy_srs
+    from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
+    from pathlib import Path
+
+    B = VERIFY_BATCH
+    d = Path(__file__).resolve().parent / "snark_verifier_tpu_torch" / "fixtures"
+    raw = {n: json.loads((d / f"old_acc_{n}.json").read_text()) for n in ("valid", "bogus")}
+    valid, bogus = Snark.from_json(raw["valid"]), Snark.from_json(raw["bogus"])
+    raw["valid"]["protocol"]["accumulator_indices"] = []
+    plain = Snark.from_json(raw["valid"])  # the same proof, its protocol naming no accumulator
+    srs = toy_srs(32)
+
+    def field_launches():
+        return {k: v for k, v in cuda_ops.LAUNCHES.items() if k.startswith("field_") and v}
+
+    old = accumulator_from_limbs_int(valid.instances[0])
+    limbs = FRW.from_int(valid.instances[0], dev)[:, None].expand(12, B, 8).unbind(0)
+    cuda_ops.reset_launches()
+    lhs, rhs = accumulator_from_limbs(limbs)
+    torch.cuda.synchronize()
+    decode = field_launches()
+    check(decode == {"field_mul": 2, "field_canon": 1},
+          f"the limb decode launched {decode}, not field_mul 2 and field_canon 1")
+    check(affine_pairs(lhs, rhs) == [old] * B, "the card's limb decode differs from the host codec")
+    want = pv.succinct_verify_native(valid, srs)
+    check(want[1] == old, "the oracle's old accumulator differs from the host codec")
+    cuda_ops.reset_launches()
+    fresh_only = batch_succinct_verify([plain] * B, srs)
+    torch.cuda.synchronize()
+    base = field_launches()
+    cuda_ops.reset_launches()
+    accs = batch_succinct_verify([valid] * B, srs)
+    torch.cuda.synchronize()
+    got = field_launches()
+    log(f"# old accumulators at batch {B}: single-op field launches {got}; the same protocol "
+        f"naming no accumulator {base}; the decode alone {decode}")
+    check(got == {k: base.get(k, 0) + decode.get(k, 0) for k in base.keys() | decode.keys()},
+          "the old-accumulator batch's field launches are not the plain batch's plus the decode's")
+    check(cuda_ops.LAUNCHES["fr_tape"] == 1 and cuda_ops.LAUNCHES["msm_windowed"] == 1,
+          "the old-accumulator batch's fr_tape / msm_windowed launches")
+    check(len(accs) == 2, f"{len(accs)} accumulators, not [fresh, old]")
+    lanes = list(zip(*(affine_pairs(l, r) for l, r in accs)))
+    bad = [b for b in range(B) if list(lanes[b]) != want]
+    check(not bad, f"{len(bad)} lanes' [fresh, old] differ from the oracle, first {bad[:5]}")
+    check(affine_pairs(*fresh_only[0]) == [want[0]] * B,
+          "the fresh accumulator differs with and without the old one")
+    oks = batch_verify([valid] * B, srs)
+    check(bool(oks.all()), f"{int((~oks).sum())} of {B} valid old-accumulator lanes rejected")
+    oks = batch_verify([bogus] * B, srs)
+    check(not bool(oks.any()), f"{int(oks.sum())} of {B} bogus old-accumulator lanes accepted")
+    log(f"# old-accumulator gates: the decode == the host codec, every lane's [fresh, old] == "
+        f"the native oracle, valid accepts and bogus rejects on all {B} lanes")
+
+
+def tree_phase(dev):
+    """bench.py's bench_tree on the port: tree_aggregate_root over 1,024
+    leaves (the 16 committed vanilla-PLONK k=10 fixtures tiled), then
+    aggregate_and_decide on the same leaves.  Returns (leaves/s, the tree's
+    launch counts, the fold levels' (inputs, outputs))."""
+    import torch
+
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import KzgAs
+    from snark_verifier_tpu_torch.sdk.aggregation import aggregate_and_decide
+    from snark_verifier_tpu_torch.sdk.tree_aggregation import tree_aggregate_root
+    from snark_verifier_tpu_torch.transcript.poseidon_transcript import PoseidonTranscriptPy
+
+    B = TREE_LEAVES
+    srs, base = load_fixtures("snark")
+    snarks = [base[i % 16] for i in range(B)]
+    bad = [tampered(base[0])] + snarks[1:]
+    levels, real = [], KzgAs._fold_once
+
+    def capture(pairs):
+        out = real(pairs)
+        levels.append((pairs, out))
+        return out
+
+    KzgAs._fold_once = capture
+    try:
+        cuda_ops.reset_launches()
+        lhs, rhs, ok = tree_aggregate_root(snarks, srs)
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+    finally:
+        KzgAs._fold_once = real
+    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "fr_powers", "miller_loop", "final_exp")
+    log(f"# tree launches per tree of {B} leaves: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for k in path:
+        check(launches[k] > 0, f"kernel {k} was not launched on the tree path")
+    g = KzgAs.group_size(B)
+    want_shapes = ([(B // g, g), (1, B // g)] if g else [(1, B)]) + [(1, 1)]
+    shapes = [tuple(p.shape[:2]) for p, _ in levels]
+    check(shapes == want_shapes, f"the tree's fold levels {shapes}, not {want_shapes}")
+    check(launches["fr_powers"] == len(shapes), "the tree did not launch fr_powers once per "
+                                                "fold level")
+    check(launches["miller_loop"] == 1 and launches["final_exp"] == 1, "the tree's decide")
+    check(launches["add"] == 0 and launches["double"] == 0, "the tree launched add/double")
+    check(ok.dtype == torch.bool and ok.shape == () and bool(ok), "the tree's root rejected")
+    # Each level against the python-int prover on the device's own inputs:
+    # group 0 of layer 1, the fold of the 32 group accumulators, the root.
+    t0 = time.time()
+    for k, (pairs, (l_out, r_out)) in enumerate(levels):
+        pts = affine_pairs(pairs[0, :, 0], pairs[0, :, 1])
+        want = KzgAs.create_proof(None, pts, PoseidonTranscriptPy())
+        check(affine_pairs(l_out[:1], r_out[:1]) == [want],
+              f"fold level {k} {shapes[k]} differs from create_proof on its inputs")
+        if k:
+            prev = torch.stack(levels[k - 1][1], 1)
+            check(proj_equal(pairs[0], prev).all(), f"fold level {k} did not take level "
+                                                    f"{k - 1}'s accumulators")
+    check(proj_equal(levels[-1][1][0][0], lhs) and proj_equal(levels[-1][1][1][0], rhs),
+          "the root is not the last fold level's")
+    log(f"# tree gates: the root accepts; every fold level {shapes} (group 0 of layer 1, the "
+        f"group accumulators, the root) == create_proof on its own inputs "
+        f"({time.time() - t0:.2f}s)")
+    _, _, ok_t = tree_aggregate_root(bad, srs)
+    check(not bool(ok_t), "the tree with a tampered leaf 0 accepted")
+    log("# tree gate: leaf 0's instances[0][0] + 1 makes the root reject")
+    best, runs = best_of_3(lambda: tree_aggregate_root(snarks, srs))
+    log(f"# tree at {B} leaves: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} leaves/s "
+        f"(runs {[round(t * 1e3, 2) for t in runs]} ms) on {smi_line()}")
+    keys = ("succinct_s", "fold_groups_s", "fold_top_s", "fold_root_s", "decide_s", "stack_s",
+            "plan_s", "read_s", "gather_s", "fr_tape_s", "msm_s")
+    phases = []
+    for _ in range(3):
+        tm = {}
+        tree_aggregate_root(snarks, srs, timings=tm)
+        phases.append(tm)
+    log("# tree phases (ms, the three runs): " + ", ".join(
+        f"{k[:-2]} {[round(tm[k] * 1e3, 3) for tm in phases]}" for k in keys if k in phases[0]))
+    busy, wall, events = traced(lambda: tree_aggregate_root(snarks, srs))
+    if busy:
+        log(f"# tree device time (torch.profiler, one traced tree): {busy:.2f} ms busy of "
+            f"{wall:.2f} ms wall = {busy / wall:.1%} busy; top: " + ", ".join(
+                f"{k[:40]} {ms:.3f} ms x{c}" for k, ms, c in events[:8]))
+    else:
+        log("# tree device time: not measured (the profiler recorded no device events)")
+    cuda_ops.reset_launches()
+    ok_a = aggregate_and_decide(snarks, srs)
+    torch.cuda.synchronize()
+    agg_launches = {k: v for k, v in cuda_ops.LAUNCHES.items() if v}
+    check(bool(ok_a), "aggregate_and_decide rejected the 1,024 valid leaves")
+    check(not bool(aggregate_and_decide(bad, srs)), "aggregate_and_decide accepted the tampered "
+                                                    "batch")
+    best_a, _ = best_of_3(lambda: aggregate_and_decide(snarks, srs))
+    log(f"# aggregate_and_decide at {B}: accepts, the tampered batch rejects; launches "
+        f"{agg_launches}; best-of-3 {best_a * 1e3:.2f} ms = {B / best_a:.1f} proofs/s")
+    return B / best, launches, levels
+
+
+def accumulation_kernel_checks(dev, kernels, launches, levels):
+    """svt_fr_powers against powers_plain at the tree's shapes, with its
+    bound, chain floor and ptxas usage; svt_poseidon_absorb and
+    svt_msm_windowed at the fold's shapes on random inputs, against their
+    plain versions, timed."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FRW, digits4
+    from snark_verifier_tpu_torch.hash import absorb, absorb_plain
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers, powers_plain
+
+    rng = np.random.default_rng(11)
+    shapes = [(32, 32), (1, 32), (1, 1), (1024, 33)]
+    rs = {B: rand_lazy_words(rng, (B,), FRW.spec.p, dev) for B, _ in shapes}
+    err = 0
+    for B, n in shapes:
+        e = word_err(powers(rs[B], n), powers_plain(rs[B], n))
+        check(e == 0, f"fr_powers differs from powers_plain at ({B}, {n})")
+        err = max(err, e)
+    ms = {(B, n): kernel_ms(lambda B=B, n=n: powers(rs[B], n), 50) for B, n in shapes}
+    plain_ms = time_ms(lambda: powers_plain(rs[32], 32), 1, warmup=1)
+
+    def bound(B, n):
+        return bound_ms(B * 32 + B * n * 32, (n - 1) * B * MULADDS_PER_FQ_MUL)
+
+    floors = {(B, n): (n - 1) * CHAIN_FLOOR_MS_PER_MUL for B, n in shapes}
+    use = ptxas_usage("fr_powers_kernel")
+    bms, by = bound(32, 32)
+    log("# fr_powers: " + "; ".join(
+        f"({B}, {n}) {ms[(B, n)]:.4f} ms (bound {bound(B, n)[0]:.6f} ms, chain floor "
+        f"{floors[(B, n)]:.4f} ms)" for B, n in shapes)
+        + f"; plain at (32, 32) {plain_ms:.1f} ms; ptxas {use['registers']} registers, "
+          f"{use['stack_bytes']} B stack; == powers_plain word for word")
+    kernels.append(dict(
+        name="fr_powers", route="cuda",
+        source="snark_verifier_tpu_torch/csrc/accumulation_kernels.cu",
+        replaces="snark_verifier_tpu/pcs/kzg/accumulation.py:196", launches=launches["fr_powers"],
+        max_abs_err=err, ms=ms[(32, 32)], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None, shape=[32, 32, 8], chain_floor_ms=floors[(32, 32)],
+        ms_1x32=ms[(1, 32)], ms_1x1=ms[(1, 1)], ms_1024x33=ms[(1024, 33)],
+        bound_ms_1x32=bound(1, 32)[0], bound_ms_1x1=bound(1, 1)[0],
+        chain_floor_ms_1x32=floors[(1, 32)], chain_floor_ms_1x1=floors[(1, 1)],
+        ptxas_registers=use["registers"], ptxas_stack_bytes=use["stack_bytes"],
+        tolerance="exact, canonical words"))
+    # The fold's absorb: 32 transcripts of 128 elements, 65 chained
+    # permutations each; its chain floor is 65 permutations of 390
+    # multiplies a lane.
+    st = rand_lazy_words(rng, (32, 3), FRW.spec.p, dev)
+    buf = rand_lazy_words(rng, (32, 128), FRW.spec.p, dev)
+    n_perm = 128 // 2 + 1
+    ab_err = word_err(absorb(st, buf), absorb_plain(st, buf))
+    check(ab_err == 0, "poseidon_absorb differs from absorb_plain at the fold's (32, 128)")
+    ab_ms = kernel_ms(lambda: absorb(st, buf), 20)
+    ab_floor = n_perm * POSEIDON_CHAIN_MULS * CHAIN_FLOOR_MS_PER_MUL
+    ab_bound = bound_ms((2 * 96 + 32 * 128) * 32,
+                        n_perm * MULS_PER_PERMUTATION * MULADDS_PER_FQ_MUL * 32)[0]
+    # The fold's MSM: both sides of the 32 groups (64, 32) and of the top (2, 32).
+    msm_ms = {}
+    for label, (p, _) in zip(("groups", "top"), levels[:-1]):
+        pts = torch.cat([p[:, :, 0], p[:, :, 1]], 0).contiguous()
+        scs = powers(rand_lazy_words(rng, (pts.shape[0],), FRW.spec.p, dev), pts.shape[1])
+        msm_err = affine_err(cuda_ops.msm_windowed(pts, scs),
+                             cuda_ops.msm_windowed_plain(pts, digits4(scs)))
+        check(msm_err == 0, f"msm_windowed differs from its plain version at the fold's "
+                            f"{tuple(pts.shape[:2])}")
+        msm_ms[label] = (tuple(pts.shape[:2]), kernel_ms(lambda: cuda_ops.msm_windowed(pts, scs),
+                                                         10))
+    log(f"# poseidon_absorb at the fold's (32, 128): {ab_ms:.4f} ms ({n_perm} chained "
+        f"permutations; chain floor {ab_floor:.4f} ms, bound {ab_bound:.4f} ms); msm_windowed at "
+        + ", ".join(f"{s} {t:.4f} ms" for s, t in msm_ms.values())
+        + "; each == its plain version on the same random inputs")
+    for row in kernels:
+        if row["name"] == "poseidon_absorb":
+            row.update(fold_shape=[32, 128], fold_ms=ab_ms, fold_chain_floor_ms=ab_floor,
+                       fold_bound_ms=ab_bound, launches_tree=launches["poseidon_absorb"])
+        if row["name"] == "msm_windowed":
+            row.update(fold_shapes=[list(s) for s, _ in msm_ms.values()],
+                       fold_ms=[t for _, t in msm_ms.values()],
+                       launches_tree=launches["msm_windowed"])
+        if row["name"] in ("fr_tape", "miller_loop", "final_exp", "field_inv", "field_mul",
+                           "field_canon"):
+            row["launches_tree"] = launches[row["name"]]
 
 
 def main() -> int:
@@ -1334,14 +1741,7 @@ def main() -> int:
           "negative control: result moved by the wrong amount")
     log("# msm gates: no overflow, == k_total·G, negative control moved by (j+1)·G")
 
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out, _ = msm(points, scalars, c=C_BITS)
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-    best = min(times)
+    best, times = best_of_3(lambda: msm(points, scalars, c=C_BITS))
     log(f"# msm 2^{LOG2N} c={C_BITS}: best-of-3 {best * 1e3:.2f} ms = "
         f"{n / best:.1f} points/s (runs {[round(t * 1e3, 2) for t in times]} ms) "
         f"on {name}, {smi}")
@@ -1512,6 +1912,18 @@ def main() -> int:
     t0 = time.time()
     pairing_kernel_checks(dev, kernels, decide_inputs, verify_launches)
     log(f"# pairing kernel checks: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    gwc_rate = gwc_phase(dev, kernels)
+    log(f"# gwc phase: {time.time() - t0:.1f}s; {gwc_rate:.1f} gwc verify proofs/s")
+    t0 = time.time()
+    leaves, tree_launches, levels = tree_phase(dev)
+    log(f"# tree phase: {time.time() - t0:.1f}s; {leaves:.1f} leaves/s")
+    t0 = time.time()
+    accumulation_kernel_checks(dev, kernels, tree_launches, levels)
+    log(f"# accumulation kernel checks: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    old_acc_phase(dev)
+    log(f"# old accumulator phase: {time.time() - t0:.1f}s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

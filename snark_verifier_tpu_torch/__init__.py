@@ -5,10 +5,13 @@ here mirrors its counterpart's path (ff/, ec/, msm/) and is held against it
 in tests/test_torch_*.py.  It imports torch, never jax, and nothing of
 snark_verifier_tpu.
 
-Ported so far: the BN254 G1 Pippenger MSM (`msm.msm`), with hand-written
-Hopper kernels (csrc/) for the RC15 add, the RC15 double and the fused
-gather + bucket fold.  Entry points run on the CUDA card unless the caller
-passes device="cpu", where every kernel's plain PyTorch twin runs instead.
+Ported so far: the BN254 G1 Pippenger MSM (`msm.msm`), the batched PLONK
+verifier with SHPLONK or GWC19 and the Poseidon transcript
+(`parallel.batch_verify`), the pairing decide, and the KZG accumulation
+fold with the 1-card recursion tree (`sdk.aggregation.aggregate_and_decide`,
+`sdk.tree_aggregation.tree_aggregate_root`), on hand-written Hopper kernels
+(csrc/).  Entry points run on the CUDA card unless the caller passes
+device="cpu", where every kernel's plain PyTorch twin runs instead.
 """
 
 from .device import resolve_device

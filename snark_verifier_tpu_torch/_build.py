@@ -59,6 +59,8 @@ _SIGNATURES = {
     "svt_miller_loop": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P],
     "svt_final_exp": [_P, _P, _I, _LL, _P, _P],
     "svt_fq12_op": [_I, _P, _P, _LL, _P, _P],
+    # accumulation_kernels.cu
+    "svt_fr_powers": [_P, _I, _P, _LL, _P],
 }
 
 _lib = None

@@ -26,6 +26,8 @@ LAUNCHES = {
     "poseidon_permute": 0, "poseidon_absorb": 0,
     # pairing/pairing.py
     "miller_loop": 0, "final_exp": 0, "fq12_op": 0,
+    # pcs/kzg/accumulation.py
+    "fr_powers": 0,
 }
 
 

@@ -208,8 +208,9 @@ def absorb(state, inputs):
 
 class PoseidonSponge:
     """The batched sponge: state (B, 3, 8) Fr words on one device; inputs
-    are (B, 8) or (8,) word handles.  A squeeze knows its whole buffer, so
-    it is one `absorb`: on the card one launch for all its permutations."""
+    are (B, 8) or (8,) word handles (`update`) or (B, k, 8) blocks of k
+    elements (`update_block`).  A squeeze knows its whole buffer, so it is
+    one `absorb`: on the card one launch for all its permutations."""
 
     def __init__(self, batch: int, device):
         self.device = torch.device(device)
@@ -219,13 +220,17 @@ class PoseidonSponge:
         self.buf: List = []
 
     def update(self, elements: Sequence):
-        self.buf.extend(elements)
+        self.buf.extend(c.expand(self.state.shape[0], 8)[:, None] for c in elements)
+
+    def update_block(self, block):
+        """Buffer (B, k, 8) elements, k of them per lane, in order."""
+        self.buf.append(block)
 
     def squeeze(self):
         buf, self.buf = self.buf, []
         batch = self.state.shape[0]
         if buf:
-            inputs = torch.stack([c.expand(batch, 8) for c in buf], 1)
+            inputs = torch.cat(buf, 1).contiguous()
         else:
             inputs = torch.empty((batch, 0, 8), dtype=torch.int32, device=self.device)
         self.state = absorb(self.state, inputs)

@@ -21,6 +21,7 @@ Loader interface:
   msm_sum([Expr]) -> Expr
   msm_evaluate(Expr, g) -> P   lower the lazy MSM (g = generator handle)
   zero_scalar() -> S           the value of an empty Expr's constant
+  accumulator_from_limbs([S]) -> (P, P)  decode an instance-encoded accumulator
   decide_all(srs, [(lhs, rhs)]) -> accept bit(s)  the pairing decide
 """
 
@@ -34,6 +35,7 @@ from ..ec import py_ec
 from ..ec.g1 import from_affine_int_np
 from ..ff import FQW, FRW
 from ..ff.spec import FR
+from ..pcs.kzg.accumulator import accumulator_from_limbs, accumulator_from_limbs_int
 from .msm_expr import MsmExpr, lower
 
 
@@ -112,6 +114,10 @@ class TorchLoader:
             pts = torch.stack([p.expand(B, 3, 8) for _, p in scaled], 1)  # (B, n, 3, 8)
             scs = FRW.from_mont(torch.stack([s.expand(B, 8) for s, _ in scaled], 1))
         return lower(pts, scs, plain, B, self.device)
+
+    def accumulator_from_limbs(self, limbs: List):
+        """12 limb handles -> (lhs, rhs), each (B, 3, 8): the device decode."""
+        return accumulator_from_limbs([l.expand(self.batch, 8) for l in limbs])
 
     # -------------------------------------------------------------- decide
 
@@ -256,6 +262,9 @@ class NativeLoader:
 
     def msm_evaluate(self, expr: NativeMsm, g=None):
         return expr.evaluate(g)
+
+    def accumulator_from_limbs(self, limbs: List[int]):
+        return accumulator_from_limbs_int(limbs)
 
 
 NATIVE = NativeLoader()

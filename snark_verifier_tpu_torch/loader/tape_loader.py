@@ -14,7 +14,10 @@ program (the JAX package's `parallel/batch_verify.py:86-108`).
     the k-th protocol point; ("g",), the generator;
   * `msm_evaluate` records one output (an OUT row: the scalar's canonical
     plain word) per scaled term, in `MsmExpr.terms`' order, and returns an
-    `MsmRecord` of output rows and base sources.
+    `MsmRecord` of output rows and base sources;
+  * `accumulator_from_limbs` records nothing on the tape: it returns a
+    `LimbRecord` of the 12 instance inputs that hold an old accumulator,
+    which the plan decodes on the device per batch.
 
 What it cannot record raises `errors.InvalidProtocol` naming what it met:
 a symbol's value read on the host, a handle of another loader, the decide.
@@ -78,6 +81,14 @@ class MsmRecord:
 
     scaled: List[Tuple[int, tuple]]
     plain: List[tuple]
+
+
+@dataclass
+class LimbRecord:
+    """An instance-encoded old accumulator: the tape's input rows of its 12
+    limbs (`pcs/kzg/accumulator.py`)."""
+
+    inputs: List[int]
 
 
 _FOLD = {
@@ -199,6 +210,16 @@ class TapeLoader:
             raise errors.InvalidProtocol("the recorder takes the generator as tape_loader.GENERATOR")
         scaled, plain = expr.terms(GENERATOR)
         return MsmRecord([(self.output(s, "msm"), base) for s, base in scaled], plain)
+
+    def accumulator_from_limbs(self, limbs: List) -> LimbRecord:
+        rows = []
+        for limb in limbs:
+            ref = self._ref("accumulator_from_limbs", limb)
+            if ref[0] != "in":
+                raise errors.InvalidProtocol("the recorder decodes accumulators from instance "
+                                             f"inputs only, not {ref}")
+            rows.append(ref[1])
+        return LimbRecord(rows)
 
     def output(self, s, label) -> int:
         """Record an output row: s as a canonical plain word.  -> its index."""

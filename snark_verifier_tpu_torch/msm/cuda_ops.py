@@ -23,7 +23,8 @@ does about it.
 
 Drivers over the wrappers: the dense bucket-fold level walks
 (`fold_buckets_chunked`, `fold_buckets_halving`, `fold_buckets_grid_dense`,
-as `pallas_ops.py:260-283, 602-648`) and `to_affine` (`ec/curve.py:261`).
+as `pallas_ops.py:260-283, 602-648`) and `to_affine` / `affine_xy`
+(`ec/curve.py:261`).
 The verify MSM's plain version, `msm_windowed_plain` with `tree_sum`, is the
 JAX package's loop of group operations; on the card no loop launches
 `svt_g1_add` or `svt_g1_double` any more.
@@ -537,10 +538,16 @@ def msm_windowed(pts, scalars, c: int = 4):
     return out
 
 
+def affine_xy(pt):
+    """(..., 3, 8) -> (..., 2, 8) affine (x, y), Fq Montgomery words (the
+    identity maps to (0, 0)): one `svt_field_inv` and one `svt_field_mul`
+    launch on the card."""
+    zinv = FQW.inv(pt[..., 2, :])
+    return FQW.mul(pt[..., :2, :], zinv[..., None, :])
+
+
 def to_affine(pt):
     """(..., 3, 8) -> (x, y, is_inf), x and y Fq Montgomery words (the
     identity maps to (0, 0))."""
-    x, y, z = pt[..., 0, :], pt[..., 1, :], pt[..., 2, :]
-    zinv = FQW.inv(z)
-    xy = FQW.mul(torch.stack([x, y], -2), zinv[..., None, :])
-    return xy[..., 0, :], xy[..., 1, :], FQW.is_zero(z)
+    xy = affine_xy(pt)
+    return xy[..., 0, :], xy[..., 1, :], FQW.is_zero(pt[..., 2, :])

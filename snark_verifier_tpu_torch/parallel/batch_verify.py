@@ -27,7 +27,10 @@ def batch_verify(snarks: Sequence, srs, scheme_name: str = "shplonk",
     (B,) bool on that device.  `timings`, when given, gets `succinct_s` and
     `decide_s`: host seconds of each phase, each ended by a synchronize,
     and the succinct phase's steps (`sdk.aggregation.batch_succinct_verify`).
-    An unsupported scheme/transcript pair raises ValueError."""
+    Supported: the schemes "shplonk" (SHPLONK) and "gwc" (GWC19) with the
+    transcript "poseidon"; any other pair raises ValueError.  Every
+    accumulator a proof yields (the fresh one and any old ones its
+    instances carry) must pass for the proof to be accepted."""
     dev = resolve_device(device)
     t0 = time.time()
     accs = batch_succinct_verify(snarks, srs, scheme_name, transcript, device=dev,

@@ -1,10 +1,14 @@
-"""The KZG multi-open verifier BDFG21 (SHPLONK), loader-generic: the
-counterpart of the JAX package's `pcs/kzg/multiopen.py` (`Query`,
-`bdfg_query_sets` :122, `Bdfg21` :152).
+"""The KZG multi-open verifiers GWC19 and BDFG21 (SHPLONK), loader-generic:
+the counterpart of the JAX package's `pcs/kzg/multiopen.py` (`Query`,
+`gwc_query_sets` :59, `Gwc19` :72, `bdfg_query_sets` :122, `Bdfg21` :152).
 
-The math is the reference's bdfg21.rs: accumulator lhs = f + z'·W',
-rhs = W' with f = Σₛ γˢ·msmₛ − Z_{s₁}(z')·W; queries grouped by shift-set,
-barycentric per-set coefficients with a two-phase batched inversion.
+  * GWC19 (the reference's gwc19.rs): accumulator lhs = f + Σᵢ uⁱ·(z·ωᵢ)·Wᵢ,
+    rhs = Σᵢ uⁱ·Wᵢ with f = Σᵢ uⁱ Σⱼ vʲ (Cᵢⱼ − evalᵢⱼ·G); queries grouped by
+    shift, one opening point Wᵢ per set.
+  * BDFG21 (bdfg21.rs): accumulator lhs = f + z'·W', rhs = W' with
+    f = Σₛ γˢ·msmₛ − Z_{s₁}(z')·W; queries grouped by shift-set,
+    barycentric per-set coefficients with a two-phase batched inversion.
+
 Query shifts are host ints (rotations are protocol constants); scalars and
 MSM expressions are the loader's handles.
 """
@@ -22,6 +26,52 @@ class Query:
     poly: int
     shift: int  # host int (rotation ω^k), canonical value mod r
     eval: Any = None  # loader scalar once loaded
+
+
+def gwc_query_sets(queries: List[Query]):
+    """Group queries by shift -> [(shift, [poly], [eval])] (gwc19.rs:140-158)."""
+    sets = []
+    for q in queries:
+        for s in sets:
+            if s[0] == q.shift:
+                s[1].append(q.poly)
+                s[2].append(q.eval)
+                break
+        else:
+            sets.append((q.shift, [q.poly], [q.eval]))
+    return sets
+
+
+class Gwc19:
+    """One opening point Wᵢ read per query set."""
+
+    @staticmethod
+    def read_proof(queries: List[Query], transcript):
+        v = transcript.squeeze_challenge()
+        ws = transcript.read_n_ec_points(len(gwc_query_sets(queries)))
+        u = transcript.squeeze_challenge()
+        return {"v": v, "ws": ws, "u": u}
+
+    @staticmethod
+    def verify(g, commitments: List, z, queries: List[Query], proof, L):
+        """g: the loader's generator handle; z: a loader scalar -> (lhs, rhs)."""
+        sets = gwc_query_sets(queries)
+        pow_u = L.powers(proof["u"], len(sets))
+        pow_v = L.powers(proof["v"], max(len(s[1]) for s in sets))
+
+        f = L.msm_zero()
+        for (_, polys, evals), pu in zip(sets, pow_u):
+            inner = L.msm_zero()
+            for (poly, ev), pv in zip(zip(polys, evals), pow_v):
+                inner = inner + (commitments[poly] - L.msm_constant(ev)) * pv
+            f = f + inner * pu
+
+        rhs_expr, lhs_expr = L.msm_zero(), f
+        for (shift, _, _), pu, w in zip(sets, pow_u, proof["ws"]):
+            uw = L.msm_base(w) * pu
+            rhs_expr = rhs_expr + uw
+            lhs_expr = lhs_expr + uw * L.mul(L.scalar(shift), z)
+        return L.msm_evaluate(lhs_expr, g), L.msm_evaluate(rhs_expr, g)
 
 
 def bdfg_query_sets(queries: List[Query]):

@@ -1,20 +1,26 @@
-"""Batched succinct verification: the counterpart of the JAX package's
-`sdk/aggregation.py` (`_stack_streams` :40, `_stack_instances` :50,
-`batch_succinct_verify` :80).
+"""Batched succinct verification and accumulator aggregation: the
+counterpart of the JAX package's `sdk/aggregation.py` (`_stack_streams`
+:40, `_stack_instances` :50, `batch_succinct_verify` :80, `aggregate`
+:110, `aggregate_and_decide` :124, `aggregate_heterogeneous` :146).
 
 B snarks of one protocol verify as one batch on one device: their streams
 are stacked on the host and uploaded once per stream, the Poseidon
 transcript reads the proofs (one `svt_poseidon_absorb` launch per
 challenge), the protocol's recorded Fr program (`verifier/plonk/plan.py`)
 runs as one `svt_fr_tape` launch, and the MSM as one `svt_msm_windowed`
-launch.  The result is each proof's KZG accumulator, to be decided by
-pairings.
+launch.  The result is each proof's KZG accumulators (the fresh one, then
+any the instances carry), to be decided by pairings.
+
+`aggregate` folds a batch's accumulators into one with the KZG accumulation
+scheme (`pcs/kzg/accumulation.py::KzgAs.fold_hierarchical`), so one pairing
+decides the whole batch; `aggregate_heterogeneous` does the same for snarks
+of several protocols, one batch per protocol and one shared fold.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,12 +29,14 @@ from ..device import resolve_device
 from ..ff import np_limbs_to_words
 from ..ff.spec import FR, int_to_limbs
 from ..loader.base import TorchLoader
-from ..pcs.kzg.multiopen import Bdfg21
+from ..pcs.kzg.accumulation import KzgAs
+from ..pcs.kzg.decider import decide
+from ..pcs.kzg.multiopen import Bdfg21, Gwc19
 from ..transcript.poseidon_transcript import PoseidonTranscript
 from ..verifier.plonk.plan import succinct_plan
 from .snark import Snark
 
-SCHEMES = {"shplonk": Bdfg21}
+SCHEMES = {"shplonk": Bdfg21, "gwc": Gwc19}
 TRANSCRIPTS = {"poseidon": PoseidonTranscript}
 
 
@@ -77,7 +85,8 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
                           transcript: str = "poseidon", device=None, timings: dict = None):
     """One batched succinct verification of B same-protocol snarks on
     `device` (None: the CUDA card).  Returns the list of (lhs, rhs)
-    accumulators, each (B, 3, 8) projective G1 words.  The protocol's Fr
+    accumulators, each (B, 3, 8) projective G1 words: the fresh one, then
+    the old ones the protocol's `accumulator_indices` name.  The protocol's Fr
     program is recorded on its first batch in this process and replayed
     (`verifier/plonk/plan.py`).
 
@@ -87,11 +96,12 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     (the transcript and read_proof), `gather_s`, `fr_tape_s`, `msm_s` (the
     bases and the MSM).
 
-    Supported: scheme "shplonk" with transcript "poseidon"; any other pair
-    raises ValueError."""
+    Supported: the schemes "shplonk" and "gwc" with the transcript
+    "poseidon"; any other pair raises ValueError."""
     if scheme_name not in SCHEMES or transcript not in TRANSCRIPTS:
         raise ValueError(f"unsupported scheme/transcript pair {scheme_name}/{transcript}: "
-                         f"the port verifies {sorted(SCHEMES)} with {sorted(TRANSCRIPTS)}")
+                         f"the port verifies the schemes {sorted(SCHEMES)} with the "
+                         f"transcripts {sorted(TRANSCRIPTS)}")
     if not snarks:
         raise ValueError("batch_succinct_verify: empty batch")
     dev = resolve_device(device)
@@ -112,4 +122,56 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
         instances, TRANSCRIPTS[transcript](sc, pts, dev), TorchLoader(B, dev)))
     inputs = _step(timings, "gather_s", dev, lambda: plan.gather(instances, reads, B))
     outs = _step(timings, "fr_tape_s", dev, lambda: plan.scalars(inputs))
-    return _step(timings, "msm_s", dev, lambda: plan.accumulators(outs, pts, srs.g_dev(dev)))
+    return _step(timings, "msm_s", dev,
+                 lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs))
+
+
+def stack_pairs(accs) -> torch.Tensor:
+    """[(lhs, rhs)], each (B, 3, 8) -> (len(accs)·B, 2, 3, 8), accumulator-major
+    (the JAX package's absorb order)."""
+    return torch.cat([torch.stack([lhs, rhs], 1) for lhs, rhs in accs], 0)
+
+
+def aggregate(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk", device=None):
+    """Fold every accumulator of a same-protocol batch into one -> (lhs, rhs),
+    each (3, 8): the batched succinct phase, the accumulator-major stack and
+    `KzgAs.fold_hierarchical`."""
+    accs = batch_succinct_verify(snarks, srs, scheme_name, device=device)
+    return KzgAs.fold_hierarchical(stack_pairs(accs))
+
+
+def aggregate_and_decide(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",
+                         device=None):
+    """`aggregate`, then one pairing check -> a 0-dim bool tensor."""
+    lhs, rhs = aggregate(snarks, srs, scheme_name, device)
+    return decide(srs, lhs, rhs)
+
+
+def aggregate_heterogeneous(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",
+                            device=None):
+    """Snarks of several protocols -> one folded (lhs, rhs), each (3, 8).
+    One `batch_succinct_verify` per protocol (grouped by `content_hash()`),
+    then one fold of every accumulator in the original snark order (each
+    snark's accumulators together), so the fold's challenge does not depend
+    on the grouping."""
+    if not snarks:
+        raise ValueError("aggregate_heterogeneous: empty batch")
+    dev = resolve_device(device)
+    groups: Dict[str, List[int]] = {}
+    for i, s in enumerate(snarks):
+        groups.setdefault(s.protocol.content_hash(), []).append(i)
+    per_snark: List[List[Tuple]] = [[] for _ in snarks]
+    for idxs in groups.values():
+        accs = batch_succinct_verify([snarks[i] for i in idxs], srs, scheme_name, device=dev)
+        for lhs, rhs in accs:
+            for j, i in enumerate(idxs):
+                per_snark[i].append(torch.stack([lhs[j], rhs[j]], 0))
+    pairs = torch.stack([acc for lst in per_snark for acc in lst], 0)
+    return KzgAs.fold_hierarchical(pairs)
+
+
+def aggregate_heterogeneous_and_decide(snarks: Sequence[Snark], srs,
+                                       scheme_name: str = "shplonk", device=None):
+    """`aggregate_heterogeneous`, then one pairing check -> a 0-dim bool."""
+    lhs, rhs = aggregate_heterogeneous(snarks, srs, scheme_name, device)
+    return decide(srs, lhs, rhs)

@@ -20,6 +20,7 @@ from ..ec import py_ec
 from ..ec.g1 import from_affine_int_np
 from ..ff import np_limbs_to_words
 from ..ff.spec import FQ, FR, int_to_limbs
+from ..pcs.kzg.accumulator import accumulator_from_limbs_int
 from ..verifier.plonk.protocol import PlonkProtocol
 
 
@@ -50,7 +51,8 @@ class Snark:
         point on the curve with reduced coordinates (the identity is
         invalid: the transcript absorbs affine coordinates), every scalar
         and instance a reduced Fr element, instance columns of the
-        protocol's sizes.  Raises errors.TranscriptError /
+        protocol's sizes, and every instance-encoded old accumulator
+        decoding to two curve points.  Raises errors.TranscriptError /
         errors.InvalidInstances."""
         for i, pt in enumerate(self.points):
             if pt is None:
@@ -71,8 +73,11 @@ class Snark:
             for v in col:
                 if not 0 <= v < FR.p:
                     raise errors.InvalidInstances("instance value not reduced")
-        if self.protocol.accumulator_indices:
-            raise errors.InvalidProtocol("instance-encoded accumulators are not supported yet")
+        for acc_idx in self.protocol.accumulator_indices:
+            lhs, rhs = accumulator_from_limbs_int([self.instances[i][j] for i, j in acc_idx])
+            for name, pt in (("lhs", lhs), ("rhs", rhs)):
+                if not py_ec.is_on_curve(pt):
+                    raise errors.InvalidInstances(f"old accumulator {name} decodes off-curve")
         return self
 
     def host_streams(self):

@@ -13,8 +13,11 @@ scalars (B, n, 8) Fr words, points (B, m, 2, 8) affine Fq words, both
 Montgomery form.  Stream points were checked on the host
 (`Snark.validate`), so none is the identity.  Their coordinates are mapped
 Fq -> Fr once for the whole stream (three field launches per batch on the
-card), and each read absorbs its slice.  `PoseidonTranscriptPy` is the
-python-int oracle.
+card), and each read absorbs its slice.  `absorb_ec_points` takes a whole
+stack of points at once (the accumulation fold's M accumulator points):
+one Fq -> Fr pass, and the next squeeze absorbs all 2M coordinates in one
+`svt_poseidon_absorb` launch, the same sponge as M `common_ec_point`
+calls.  `PoseidonTranscriptPy` is the python-int oracle.
 """
 
 from __future__ import annotations
@@ -53,6 +56,14 @@ class PoseidonTranscript:
     def common_ec_point(self, xy):
         """xy: (B, 2, 8) affine point, Fq Montgomery words."""
         self._absorb_fr(fq_to_fr(xy))
+
+    def absorb_ec_points(self, xy):
+        """xy: (B, M, 2, 8) affine points, Fq Montgomery words -> their 2M
+        coordinates buffered in order (x₀, y₀, x₁, y₁, …).  The identity's
+        affine form (0, 0) is absorbed as it is, as the JAX package's device
+        transcript does (`absorb_ec_points_scanned`)."""
+        fr = fq_to_fr(xy)
+        self.h.update_block(fr.reshape(fr.shape[0], -1, 8))
 
     def _absorb_fr(self, fr):
         self.h.update([fr[:, 0], fr[:, 1]])
@@ -121,3 +132,11 @@ class PoseidonTranscriptPy:
 
     def read_n_ec_points(self, n: int) -> List:
         return [self.read_ec_point() for _ in range(n)]
+
+    # the prover's side: absorb and record the stream
+    def write_ec_point(self, pt):
+        self.common_ec_point(pt)
+        self._points.append(pt)
+
+    def streams(self):
+        return list(self._scalars), list(self._points)

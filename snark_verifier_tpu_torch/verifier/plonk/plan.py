@@ -19,7 +19,10 @@ A batch then runs (`sdk/aggregation.py::batch_succinct_verify`):
 (n_in, B, 8) input block, its labels checked) -> `scalars` (one `svt_fr_tape` launch on the
 card, `run_plain` on the CPU: the canonical MSM scalars) -> `accumulators`
 (the bases the plan names gathered into (B, n, 3, 8), one
-`svt_msm_windowed` launch per accumulator side with scaled terms).
+`svt_msm_windowed` launch per accumulator side with scaled terms: GWC19's
+two sides are two launches, SHPLONK's rhs has none).  An old accumulator the
+protocol's instances carry (`TapeLoader.accumulator_from_limbs`) is decoded
+from the batch's instance inputs on the device (`pcs/kzg/accumulator.py`).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 from ...ec.g1 import from_affine_int_np
 from ...ff import FQW, fr_tape
 from ...loader.msm_expr import lower
-from ...loader.tape_loader import GENERATOR, TapeLoader, TapeTranscript
+from ...loader.tape_loader import GENERATOR, LimbRecord, TapeLoader, TapeTranscript
+from ...pcs.kzg.accumulator import accumulator_from_limbs
 from .verifier import PlonkSuccinctVerifier
 
 _PLANS: Dict[tuple, "SuccinctPlan"] = {}
@@ -55,7 +59,7 @@ class SuccinctPlan:
         accs = PlonkSuccinctVerifier.verify(GENERATOR, protocol, instances, proof, scheme, L)
         self.protocol, self.scheme = protocol, scheme
         self.tape = L.finish()
-        self.accs = accs  # [(lhs MsmRecord, rhs MsmRecord)]
+        self.accs = accs  # [(lhs MsmRecord, rhs MsmRecord)] then old accumulators' LimbRecords
         self.const_points = list(L.const_points)
         self.n_points = tr.n_points
         self._bases: Dict[str, torch.Tensor] = {}
@@ -66,9 +70,10 @@ class SuccinctPlan:
     def read(self, instances, transcript, L) -> TapeTranscript:
         """Read one batch's proofs through `transcript` -> the TapeTranscript
         that holds the challenges and scalars, (B, 8) handles in read order.
-        `L` only loads the protocol's initial transcript state."""
+        `L` only loads the protocol's initial transcript state: the old
+        accumulators are decoded once, by `accumulators`."""
         tr = TapeTranscript(inner=transcript)
-        PlonkSuccinctVerifier.read_proof(self.protocol, instances, tr, self.scheme, L)
+        PlonkSuccinctVerifier.read_proof(self.protocol, instances, tr, self.scheme, _ReadLoader(L))
         return tr
 
     def gather(self, instances, tr: TapeTranscript, batch: int):
@@ -118,13 +123,17 @@ class SuccinctPlan:
             return self.n_points + src[1]
         return self.n_points + len(self.const_points)  # the generator
 
-    def accumulators(self, outs, points, g) -> List:
+    def accumulators(self, outs, points, g, inputs) -> List:
         """outs (n_out, B, 8) canonical scalars, points (B, m, 2, 8) the
-        stream's affine points, g (3, 8) -> [(lhs, rhs)], each (B, 3, 8)."""
+        stream's affine points, g (3, 8), inputs the (n_in, B, 8) block of
+        `gather` -> [(lhs, rhs)], each (B, 3, 8)."""
         table = self.base_table(points, g)
         B, dev = table.shape[0], table.device
         result = []
         for acc in self.accs:
+            if isinstance(acc, LimbRecord):
+                result.append(accumulator_from_limbs([inputs[k] for k in acc.inputs]))
+                continue
             sides = []
             for rec in acc:
                 pts = scs = None
@@ -137,6 +146,18 @@ class SuccinctPlan:
                 sides.append(lower(pts, scs, plain, B, dev))
             result.append(tuple(sides))
         return result
+
+
+class _ReadLoader:
+    """`L`'s scalars for `SuccinctPlan.read`, whose proof is dropped: its
+    old accumulators are not decoded."""
+
+    def __init__(self, L):
+        self.scalar = L.scalar
+
+    @staticmethod
+    def accumulator_from_limbs(limbs):
+        return None
 
 
 def succinct_plan(protocol, scheme, scheme_name: str, transcript: str,

@@ -5,16 +5,19 @@ counterpart of the JAX package's `verifier/plonk/verifier.py`.
     with one batched inversion (reference protocol.rs:188-279);
   * PlonkProof.read — transcript-driven proof parsing (proof.rs:52-153),
     instance evaluations (:283-318), linearization MSM assembly (:179-281);
-  * PlonkSuccinctVerifier.verify -> [accumulator] (verifier/plonk.rs:58-92).
+  * PlonkSuccinctVerifier.verify -> [accumulator, *old_accumulators]
+    (verifier/plonk.rs:58-92); the old accumulators are decoded from the
+    instances the protocol's `accumulator_indices` name (3 × 88-bit limbs
+    per coordinate, `pcs/kzg/accumulator.py`).
 
 The protocol is host data; scalars and points are loader handles.  Under
 `TapeLoader` one call records the protocol's Fr program
 (`verifier/plonk/plan.py`, the verify path); under `TorchLoader` one call
 verifies a batch of proofs of one protocol on one device, op by op (the
 plan's witness); under `NATIVE` it is the python-int oracle
-(`succinct_verify_native`).  Supported: SHPLONK (`Bdfg21`) with the
-Poseidon transcript, protocols whose instances are absorbed as scalars
-(no instance committing key) and carry no old accumulators.
+(`succinct_verify_native`).  Supported: GWC19 (`Gwc19`) and SHPLONK
+(`Bdfg21`) with the Poseidon transcript, protocols whose instances are
+absorbed as scalars (no instance committing key).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from ... import errors
-from ...pcs.kzg.multiopen import Bdfg21, Query as PcsQuery
+from ...pcs.kzg.multiopen import Bdfg21, Gwc19, Query as PcsQuery
 from .protocol import PlonkProtocol, Query, R
 
 
@@ -63,8 +66,6 @@ class PlonkProof:
             )
         if protocol.instance_committing_key is not None:
             raise errors.InvalidProtocol("instance committing keys are not supported yet")
-        if protocol.accumulator_indices:
-            raise errors.InvalidProtocol("instance-encoded accumulators are not supported yet")
         for cols in instances:
             for v in cols:
                 transcript.common_scalar(v)
@@ -78,6 +79,10 @@ class PlonkProof:
         z = transcript.squeeze_challenge()
         evaluations = transcript.read_n_scalars(len(protocol.evaluations))
         pcs_proof = pcs_scheme.read_proof(PlonkProof.empty_queries(protocol), transcript)
+        old_accumulators = [
+            L.accumulator_from_limbs([instances[i][j] for i, j in acc_idx])
+            for acc_idx in protocol.accumulator_indices
+        ]
         return PlonkProof(
             witnesses=witnesses,
             challenges=challenges,
@@ -85,6 +90,7 @@ class PlonkProof:
             z=z,
             evaluations=evaluations,
             pcs=pcs_proof,
+            old_accumulators=old_accumulators,
         )
 
     @staticmethod
@@ -186,8 +192,7 @@ class PlonkProof:
 
 
 class PlonkSuccinctVerifier:
-    """verify -> [accumulator] (verifier/plonk.rs:58-92; a protocol with
-    instance-encoded old accumulators is refused by `PlonkProof.read`)."""
+    """verify -> [accumulator, *old_accumulators] (verifier/plonk.rs:58-92)."""
 
     @staticmethod
     def read_proof(protocol, instances, transcript, pcs_scheme, L):
@@ -200,17 +205,26 @@ class PlonkSuccinctVerifier:
         commitments = proof.commitments(protocol, cpe, evaluations, L)
         queries = proof.queries(protocol, evaluations)
         accumulator = pcs_scheme.verify(svk_g, commitments, proof.z, queries, proof.pcs, L)
-        return [accumulator]
+        return [accumulator] + list(proof.old_accumulators)
 
 
-def succinct_verify_native(snark, srs):
-    """Python-int succinct verification of one `sdk.snark.Snark` (SHPLONK,
-    Poseidon transcript) -> [(lhs, rhs)] affine-int accumulators: the
-    port's own oracle, the reference's NativeLoader path."""
+_SCHEMES = {"shplonk": Bdfg21, "gwc": Gwc19}
+
+
+def succinct_verify_native(snark, srs, scheme_name: str = "shplonk",
+                           transcript: str = "poseidon"):
+    """Python-int succinct verification of one `sdk.snark.Snark` ("shplonk"
+    or "gwc", the Poseidon transcript) -> [(lhs, rhs)] affine-int
+    accumulators, the fresh one and the instance-decoded old ones: the
+    port's own oracle, the reference's NativeLoader path.  Any other
+    scheme or transcript raises ValueError."""
     from ...loader.base import NATIVE
     from ...transcript.poseidon_transcript import PoseidonTranscriptPy
 
+    if scheme_name not in _SCHEMES or transcript != "poseidon":
+        raise ValueError(f"unsupported scheme/transcript pair {scheme_name}/{transcript}")
+    scheme = _SCHEMES[scheme_name]
     t = PoseidonTranscriptPy(scalars=snark.scalars, points=snark.points)
     instances = [[v % R for v in col] for col in snark.instances]
-    proof = PlonkProof.read(snark.protocol, instances, t, Bdfg21, NATIVE)
-    return PlonkSuccinctVerifier.verify(srs.g, snark.protocol, instances, proof, Bdfg21, NATIVE)
+    proof = PlonkProof.read(snark.protocol, instances, t, scheme, NATIVE)
+    return PlonkSuccinctVerifier.verify(srs.g, snark.protocol, instances, proof, scheme, NATIVE)

@@ -4,7 +4,10 @@ squares where both operands are one value, reads its operands from a
 [slot][word][lane] slot file, and picks its ops by row; this test runs that
 code, lane by lane.
 
-g++ compiles the source with the launch syntax stripped, a stub of the CUDA
+`svt_fr_powers` (csrc/accumulation_kernels.cu) runs the same way, thread by
+thread, against `pcs/kzg/accumulation.py::powers_plain`.
+
+g++ compiles the sources with the launch syntax stripped, a stub of the CUDA
 runtime, and a portable C++ stand-in for csrc/fq.cuh's field functions for
 both fields (whose inline-PTX carry chains tests/test_torch_mul_schedule.py
 runs word by word).  The program is the recorded vanilla PLONK k=10 plan;
@@ -26,6 +29,7 @@ import torch
 from snark_verifier_tpu_torch.ff import FQ, FR, limbs_to_words
 from snark_verifier_tpu_torch.ff import fr_tape as ft
 from snark_verifier_tpu_torch.loader.base import TorchLoader
+from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers_plain
 from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
 from snark_verifier_tpu_torch.sdk import aggregation as agg
 from snark_verifier_tpu_torch.sdk.snark import Snark
@@ -269,3 +273,54 @@ def test_kernel_body_squares_and_selects(harness):
     # the lane with y = 0: ONE_IF_ZERO gives 1, ZERO_IF_ZERO 0
     assert want[1, 2].tolist() == [1] + [0] * 7 and not bool(want[2, 2].any())
     assert bool(want[2, :2].any(-1).all())
+
+
+POWERS_HARNESS = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "cuda_runtime.h"
+dim3_ threadIdx, blockIdx;
+#include "accumulation_kernels.cpp"
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  long long h[2];
+  if (fread(h, 8, 2, f) != 2) return 2;
+  const long long B = h[0], n = h[1];
+  std::vector<uint32_t> r(B * 8), out(B * n * 8);
+  if (fread(r.data(), 4, r.size(), f) != r.size()) return 3;
+  for (long long b = 0; b < B; b++) {
+    blockIdx.x = b / svt::POW_THREADS; threadIdx.x = b % svt::POW_THREADS;
+    svt::fr_powers_kernel(r.data(), (int)n, out.data(), B);
+  }
+  FILE* o = fopen(argv[2], "wb");
+  fwrite(out.data(), 4, out.size(), o);
+  fclose(o);
+  return 0; }
+"""
+
+
+@pytest.mark.parametrize("n", [1, 2, 33])
+def test_powers_kernel_body_matches_powers_plain(tmp_path, n):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to run the kernel's C++ on the host")
+    (tmp_path / "cuda_runtime.h").write_text(RUNTIME_STUB)
+    (tmp_path / "fq.cuh").write_text(FIELD_STUB)
+    src = (CSRC / "accumulation_kernels.cu").read_text()
+    (tmp_path / "accumulation_kernels.cpp").write_text(re.sub(r"<<<.*?>>>", "", src, flags=re.S))
+    (tmp_path / "harness.cpp").write_text(POWERS_HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O2", "-I", str(tmp_path), "-o", str(tmp_path / "h"),
+                    str(tmp_path / "harness.cpp")], check=True, capture_output=True, timeout=300)
+    # lazy words in [0, 2r] over more than one block, and zero as 0, r and 2r
+    # (r^1 = r then leaves from_mont as r itself, which only canon maps to 0)
+    zeros = limbs_to_words(torch.tensor([[(k * FR.p >> (16 * i)) & 0xFFFF for i in range(16)]
+                                         for k in (0, 1, 2)]))
+    r = torch.cat([_lazy_words(np.random.default_rng(n), 129), zeros]).contiguous()
+    inp, out = tmp_path / "in.bin", tmp_path / "out.bin"
+    with open(inp, "wb") as f:
+        f.write(np.array([r.shape[0], n], np.int64).tobytes())
+        f.write(r.numpy().tobytes())
+    subprocess.run([str(tmp_path / "h"), str(inp), str(out)], check=True, timeout=300)
+    got = torch.from_numpy(np.fromfile(out, np.int32).reshape(r.shape[0], n, 8))
+    assert torch.equal(got, powers_plain(r, n))

@@ -10,6 +10,7 @@ the verify MSM (`msm_windowed`), the bucket reduction and the MSM in affine
 form (their summation orders differ from the twins'); the pairing kernels
 canonically (they skip products by 1)."""
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +40,7 @@ from snark_verifier_tpu_torch.pairing.pairing import (
     prepare_pairs,
 )
 from snark_verifier_tpu_torch.parallel import batch_verify
+from snark_verifier_tpu_torch.sdk.aggregation import batch_succinct_verify
 from snark_verifier_tpu_torch.sdk.snark import Snark
 from snark_verifier_tpu_torch.sdk.srs import load_params
 from snark_verifier_tpu_torch.tower import fq12_from_int, fq12_to_int, tower_from_int
@@ -614,3 +616,149 @@ def test_pairing_wrappers_reject_on_card(cuda):
         miller_loop(xs3, xs3, xs3, lines, lines, np.zeros(65, bool), fin)
     with pytest.raises(ValueError):  # zs of another batch
         miller_loop(xs, xs, xs[:2], lines, lines, np.zeros(65, bool), fin)
+
+
+# ------------------------------------------------- accumulation (GWC, the tree)
+
+
+def _fixtures(prefix, n):
+    d = Path(__file__).resolve().parent.parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    return load_params(str(d / "srs.bin")), [Snark.load(str(d / f"{prefix}_{i:02d}.json"))
+                                             for i in range(n)]
+
+
+def _rand_fr_words(b, seed, device):
+    rng = np.random.default_rng(seed)
+    from snark_verifier_tpu_torch.ff import FRW
+
+    return FRW.from_int([int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(b)],
+                        device=device)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1), (32, 32), (1000, 33)])
+def test_fr_powers_kernel_matches_plain(cuda, B, n):
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers, powers_plain
+
+    r = _rand_fr_words(B, B + n, cuda)
+    reset_launches()
+    got = powers(r, n)
+    assert LAUNCHES["fr_powers"] == 1
+    want = powers_plain(r, n)
+    torch.cuda.synchronize()
+    assert got.shape == (B, n, 8) and torch.equal(got, want)
+    with pytest.raises(ValueError):
+        powers(r, 0)
+    with pytest.raises(ValueError):
+        powers(torch.stack([r, r], -1)[..., 0], n)
+
+
+def _rand_pairs_words(G, N, seed, device):
+    pts = py_ec.rand_points(2 * G * N, seed=seed)
+    return limbs_to_words(from_affine_int(pts, device=device)).view(G, N, 2, 3, 8)
+
+
+def test_stacked_absorb_and_fold_level_match_plain(cuda):
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import KzgAs, fold_transcript
+
+    pairs = _rand_pairs_words(4, 32, 5, cuda)
+    xy = cuda_ops.affine_xy(pairs.reshape(4, 64, 3, 8))
+    t_k, t_p = fold_transcript(4, cuda), fold_transcript(4, "cpu")
+    t_k.absorb_ec_points(xy)
+    t_p.absorb_ec_points(xy.cpu())
+    reset_launches()
+    r = t_k.squeeze_challenge()
+    assert LAUNCHES["poseidon_absorb"] == 1
+    assert torch.equal(r.cpu(), t_p.squeeze_challenge())
+    reset_launches()
+    lhs, rhs = KzgAs._fold_once(pairs)
+    assert {k: LAUNCHES[k] for k in ("poseidon_absorb", "fr_powers", "msm_windowed")} == {
+        "poseidon_absorb": 1, "fr_powers": 1, "msm_windowed": 1}
+    pl, pr = KzgAs._fold_once(pairs.cpu())
+    for a, b in ((lhs, pl), (rhs, pr)):
+        assert to_affine_int(words_to_limbs(a)) == to_affine_int(words_to_limbs(b))
+
+
+def test_gwc_batch_on_card_matches_oracle(cuda):
+    srs, snarks = _fixtures("gwcsnark", 3)
+    reset_launches()
+    (lhs, rhs), = batch_succinct_verify(snarks, srs, "gwc")
+    assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 2
+    got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
+    assert got == [succinct_verify_native(s, srs, "gwc")[0] for s in snarks]
+    assert batch_verify(snarks, srs, "gwc").tolist() == [True] * 3
+
+
+def test_tree_root_on_card_matches_oracle(cuda):
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import KzgAs
+    from snark_verifier_tpu_torch.sdk.tree_aggregation import tree_aggregate_root
+    from snark_verifier_tpu_torch.transcript.poseidon_transcript import PoseidonTranscriptPy
+
+    srs, base = _fixtures("snark", 4)
+    snarks = [base[i % 4] for i in range(64)]  # 64 accumulators: 2 groups of 32, then the root
+    reset_launches()
+    lhs, rhs, ok = tree_aggregate_root(snarks, srs)
+    assert bool(ok)
+    assert LAUNCHES["fr_powers"] == 3 and LAUNCHES["miller_loop"] == 1
+    accs = [succinct_verify_native(s, srs)[0] for s in base]
+
+    def fold(pairs):
+        return KzgAs.create_proof(None, pairs, PoseidonTranscriptPy())
+
+    group = fold([accs[i % 4] for i in range(32)])
+    want = fold([fold([group, group])])
+    assert (to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))) == want
+    s = base[0]
+    tam = Snark(s.protocol, [list(c) for c in s.instances], s.scalars, s.points)
+    tam.instances[0][0] = (tam.instances[0][0] + 1) % FR.p
+    assert not bool(tree_aggregate_root([tam] + snarks[1:], srs)[2])
+
+
+def _old_acc(name):
+    """A committed snark whose instances carry an old accumulator as 12
+    limbs (tests/test_torch_old_accumulators.py writes them); "plain": the
+    valid one with its protocol naming no accumulator."""
+    d = Path(__file__).resolve().parent.parent / "snark_verifier_tpu_torch" / "fixtures"
+    with open(d / f"old_acc_{'valid' if name == 'plain' else name}.json") as f:
+        raw = json.load(f)
+    if name == "plain":
+        raw["protocol"]["accumulator_indices"] = []
+    return Snark.from_json(raw)
+
+
+def _field_launches():
+    return {k: v for k, v in LAUNCHES.items() if k.startswith("field_") and v}
+
+
+def test_old_accumulators_on_card_match_oracle(cuda):
+    from snark_verifier_tpu_torch.ff import FRW
+    from snark_verifier_tpu_torch.pcs.kzg.accumulator import (
+        accumulator_from_limbs,
+        accumulator_from_limbs_int,
+    )
+    from snark_verifier_tpu_torch.sdk.srs import toy_srs
+
+    srs = toy_srs(32)
+    valid, bogus, plain = (_old_acc(n) for n in ("valid", "bogus", "plain"))
+    old = accumulator_from_limbs_int(valid.instances[0])
+    reset_launches()
+    lhs, rhs = accumulator_from_limbs(FRW.from_int(valid.instances[0], cuda)[:, None].unbind(0))
+    decode = _field_launches()
+    assert decode == {"field_mul": 2, "field_canon": 1}
+    assert list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs)))) == [old]
+    want = succinct_verify_native(valid, srs)
+    assert want[1] == old
+    B = 4
+    reset_launches()
+    fresh_only = batch_succinct_verify([plain] * B, srs)
+    base = _field_launches()
+    reset_launches()
+    accs = batch_succinct_verify([valid] * B, srs)
+    assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 1
+    assert _field_launches() == {k: base.get(k, 0) + decode.get(k, 0) for k in base.keys() | decode}
+    got = [list(zip(to_affine_int(words_to_limbs(l)), to_affine_int(words_to_limbs(r))))
+           for l, r in accs]
+    assert [list(lane) for lane in zip(*got)] == [want] * B
+    assert got[0] == [want[0]] * B == list(zip(*(to_affine_int(words_to_limbs(w))
+                                                 for w in fresh_only[0])))
+    assert batch_verify([valid] * B, srs).tolist() == [True] * B
+    assert batch_verify([bogus] * B, srs).tolist() == [False] * B

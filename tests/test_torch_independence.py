@@ -60,6 +60,9 @@ import snark_verifier_tpu_torch.parallel.batch_verify
 import snark_verifier_tpu_torch.ff.fr_tape
 import snark_verifier_tpu_torch.loader.tape_loader
 import snark_verifier_tpu_torch.verifier.plonk.plan
+import snark_verifier_tpu_torch.pcs.kzg.accumulator
+import snark_verifier_tpu_torch.pcs.kzg.accumulation
+import snark_verifier_tpu_torch.sdk.tree_aggregation
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "snark_verifier_tpu")]
 assert not bad, bad
 print("OK")
