@@ -103,7 +103,22 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    the same protocol naming no accumulator plus exactly those three, with
    one `fr_tape` and one `msm_windowed`; every lane's [fresh, old] equals
    the port's python-int oracle; the valid snark accepts on every lane, the
-   bogus one (on the curve, not a valid accumulator) rejects on every lane.
+   bogus one (on the curve, not a valid accumulator) rejects on every lane;
+16. the keccak verify path: `batch_verify(..., "shplonk", "evm")` at batch
+   1,024 (the 16 committed evmsnark fixtures, each first carried through
+   `proof_to_bytes(fmt="evm")` -> `proof_from_bytes` and equal to its
+   loaded streams, tiled) with its launch counts read around one call;
+   gates: every lane accepts, every lane's accumulator equals the port's
+   python-int oracle (`succinct_verify_native(..., transcript="evm")`), a
+   tampered instance rejects lane 0 alone, a Poseidon read of the batch
+   rejects every lane, exactly 9 `keccak_squeeze` launches, no
+   `poseidon_absorb`, one each of `fr_tape`, `msm_windowed`, `miller_loop`
+   and `final_exp` (the single-op field launches printed); best-of-3 keccak
+   verify proofs/s, the steps of three runs, one traced batch;
+17. `keccak_squeeze` against `squeeze_plain` (exact words) and the python
+   `keccak256` at B = 1,024 for W = 1 ... 30 (all three tags, hash-sized
+   raw words), then on the verify read's own nine inputs, each timed
+   beside its bound, chain floor and ptxas usage.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -157,6 +172,25 @@ PERM_X5_254_3 = [
     7142104613055408817911962100316808866448378443474503659992478482890339429929,
     6549537674122432311777789598043107870002137484850126429160507761192163713804,
 ]
+
+# The keccak permutation's least 32-bit logic instructions, each a LOP3 (up
+# to three inputs and any function of them, so a five-lane XOR is two and
+# chi's x ^ (~y & z) one) or a funnel shift (SHF: half of a 64-bit
+# rotation) per 32-bit half, counted alike at the card's 32-bit integer
+# rate (64 per SM per clock, IMAD_PER_S): theta's column parities
+# 5 x 2 x 2, the rotations of its parities 5 x 2 SHF, and each lane's
+# a ^ C[x-1] ^ rotl(C[x+1], 1) one LOP3 a half, 25 x 2 (D never has to
+# exist on its own); rho's 24 rotations x 2 (lane 0 is not rotated); chi
+# 25 x 2; iota one XOR per nonzero half of the round constant.  A block
+# also XORs its 17 lanes into the state (34); a tagged word's from_mont is
+# a Montgomery reduction (72 multiply-adds), the challenge one product
+# (136).  A lone warp issues an integer instruction every two clocks (32
+# threads on a scheduler's 16 integer lanes): its chain floor per block is
+# 24 rounds of those instructions, the blocks chained.
+KECCAK_OPS_PER_ROUND = 20 + 10 + 50 + 48 + 50
+KECCAK_CLOCKS_PER_OP = 2
+CLOCK_HZ = 1.98e9
+MULADDS_FROM_MONT = 72
 
 
 def log(msg):
@@ -486,6 +520,12 @@ def word_err(got, want):
     """The largest difference between two word tensors' int32 words (0 when
     they are bit-identical)."""
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def word_ints(t):
+    """The (n, 8) little-endian 32-bit words of a tensor as n python ints."""
+    rows = t.cpu().numpy().astype("<u4")
+    return [int.from_bytes(r.tobytes(), "little") for r in rows]
 
 
 def affine_err(a, b):
@@ -1568,6 +1608,225 @@ def accumulation_kernel_checks(dev, kernels, launches, levels):
             row["launches_tree"] = launches[row["name"]]
 
 
+def keccak_permutation_ops():
+    from snark_verifier_tpu_torch.hash.keccak import _ROUND_CONSTANTS
+
+    iota = sum((rc & 0xFFFFFFFF != 0) + (rc >> 32 != 0) for rc in _ROUND_CONSTANTS)
+    return len(_ROUND_CONSTANTS) * KECCAK_OPS_PER_ROUND + iota
+
+
+def keccak_squeeze_work(B, tags):
+    """(bytes, operations, chain floor ms, blocks) of one svt_keccak_squeeze
+    launch over B buffers of len(tags) words."""
+    from snark_verifier_tpu_torch.hash.keccak_device import pad_lanes
+
+    W = len(tags)
+    pad, nblocks = pad_lanes(W)
+    tagged = sum(1 for t in tags if t)
+    n_bytes = B * (32 * W + 64) + 4 * W + pad.nbytes
+    n_ops = B * (nblocks * (keccak_permutation_ops() + 34) + tagged * MULADDS_FROM_MONT + 136)
+    floor = nblocks * keccak_permutation_ops() * KECCAK_CLOCKS_PER_OP / CLOCK_HZ * 1e3
+    return n_bytes, n_ops, floor, nblocks
+
+
+def evm_phase(dev, kernels):
+    """The keccak (EVM) verify path: batch_verify(..., "shplonk", "evm") at
+    batch 1,024 over the 16 committed evmsnark fixtures, tiled, each first
+    carried through its EVM proof bytes.  Returns (proofs/s, its launch
+    counts, the nine squeezes' (words, tags) of one batch)."""
+    import torch
+
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.parallel import batch_verify
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+    from snark_verifier_tpu_torch.sdk.proof_io import proof_from_bytes, proof_to_bytes
+    from snark_verifier_tpu_torch.transcript import evm_transcript
+    from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
+
+    B = VERIFY_BATCH
+    t0 = time.time()
+    srs, loaded = load_fixtures("evmsnark")
+    base = []
+    for s in loaded:
+        back = proof_from_bytes(s.protocol, s.instances, proof_to_bytes(s, "shplonk", "evm"),
+                                "shplonk", "evm")
+        check(back.scalars == s.scalars and back.points == s.points,
+              "an evmsnark fixture did not survive its EVM proof bytes")
+        base.append(back)
+    snarks = [base[i % 16] for i in range(B)]
+    oracle = [pv.succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in base]
+    log(f"# evm inputs: SRS + 16 fixtures through proof_to_bytes(fmt='evm') -> "
+        f"proof_from_bytes, streams equal + 16 oracle runs: {time.time() - t0:.2f}s")
+    reads, real = [], evm_transcript.squeeze
+
+    def capture(words, tags):
+        reads.append((words, tuple(tags)))
+        return real(words, tags)
+
+    evm_transcript.squeeze = capture
+    try:
+        cuda_ops.reset_launches()
+        oks = batch_verify(snarks, srs, "shplonk", "evm")
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+    finally:
+        evm_transcript.squeeze = real
+    field = {k: v for k, v in launches.items() if k.startswith("field_")}
+    path = ("keccak_squeeze", "fr_tape", "msm_windowed", "miller_loop", "final_exp")
+    log(f"# evm path launches per batch of {B}: "
+        f"{ {k: launches[k] for k in path + ('poseidon_absorb', 'add', 'double')} }; "
+        f"single-op field kernels {field} ({sum(field.values())} in all)")
+    check(launches["keccak_squeeze"] == 9,
+          f"the evm batch launched keccak_squeeze {launches['keccak_squeeze']} times, not 9")
+    check(launches["poseidon_absorb"] == 0, "the evm batch launched poseidon_absorb")
+    for k in path[1:]:
+        check(launches[k] == 1, f"the evm batch launched {k} {launches[k]} times, not once")
+    check(launches["add"] == 0 and launches["double"] == 0, "the evm batch launched add/double")
+    check(oks.dtype == torch.bool and tuple(oks.shape) == (B,), "batch_verify's result shape")
+    check(bool(oks.all()), f"{int((~oks).sum())} of {B} valid evm proofs rejected")
+    (lhs, rhs), = agg.batch_succinct_verify(snarks, srs, "shplonk", "evm")
+    got = affine_pairs(lhs, rhs)
+    bad = [b for b in range(B) if got[b] != oracle[b % 16]]
+    check(not bad, f"{len(bad)} evm lanes differ from the native oracle, first {bad[:5]}")
+    oks_t = batch_verify([tampered(base[0])] + snarks[1:], srs, "shplonk", "evm")
+    check(not bool(oks_t[0]) and bool(oks_t[1:].all()),
+          f"evm tampered lane 0: rejected lanes {torch.nonzero(~oks_t).flatten()[:5].tolist()}")
+    oks_p = batch_verify(snarks, srs, "shplonk", "poseidon")
+    check(not bool(oks_p.any()), f"a Poseidon read accepted {int(oks_p.sum())} evmsnark lanes")
+    log(f"# evm gates: all {B} lanes accept, their accumulators == the native oracle of their "
+        f"fixture; the tampered instance rejects lane 0 alone; read through Poseidon every "
+        f"lane rejects")
+    best, runs = best_of_3(lambda: batch_verify(snarks, srs, "shplonk", "evm"))
+    log(f"# evm verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} keccak "
+        f"verify proofs/s (runs {[round(t * 1e3, 2) for t in runs]} ms) on {smi_line()}")
+    steps = ("stack_s", "plan_s", "read_s", "gather_s", "fr_tape_s", "msm_s", "succinct_s",
+             "decide_s")
+    phases = []
+    for _ in range(3):
+        tm = {}
+        batch_verify(snarks, srs, "shplonk", "evm", timings=tm)
+        phases.append(tm)
+    log("# evm steps (ms, the three runs): " + ", ".join(
+        f"{k[:-2]} {[round(tm[k] * 1e3, 3) for tm in phases]}" for k in steps))
+    busy, wall, events = traced(lambda: batch_verify(snarks, srs, "shplonk", "evm"))
+    if busy:
+        kec = [(ms, c) for k, ms, c in events if "keccak" in k]
+        log(f"# evm device time (torch.profiler, one traced batch): {busy:.2f} ms busy of "
+            f"{wall:.2f} ms wall = {busy / wall:.1%} busy; keccak_squeeze "
+            f"{sum(ms for ms, _ in kec):.4f} ms in {sum(c for _, c in kec)} launches; top: "
+            + ", ".join(f"{k[:40]} {ms:.3f} ms x{c}" for k, ms, c in events[:8]))
+    else:
+        log("# evm device time: not measured (the profiler recorded no device events)")
+    check(len(reads) == 9, f"the evm batch squeezed {len(reads)} times, not 9")
+    return B / best, launches, reads[:9]
+
+
+def keccak_kernel_checks(dev, kernels, launches, reads):
+    """svt_keccak_squeeze against squeeze_plain and the python oracle at
+    B = 1,024 for W = 1 ... 30 on random words of all three tags (raw words
+    of hash size, >= 5r), then at the verify read's own nine inputs, timed
+    beside its bound, chain floor and ptxas usage."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FQ, FR
+    from snark_verifier_tpu_torch.hash.keccak import keccak256
+    from snark_verifier_tpu_torch.hash.keccak_device import (
+        TAG_FR, TAG_RAW, squeeze, squeeze_plain)
+
+    B = VERIFY_BATCH
+    rng = np.random.default_rng(17)
+    R = 1 << 256
+    err, past_2r, past_5r = 0, 0, 0
+    t0 = time.time()
+    for W in range(1, 31):
+        tags = [int(t) for t in rng.integers(0, 3, size=W)]
+        tags[0] = W % 3
+        cols = []
+        for t in tags:
+            if t == TAG_RAW:
+                vals = [int.from_bytes(rng.bytes(32), "little") for _ in range(B)]
+                vals[0] = R - 1 - int(rng.integers(0, 1 << 30))  # a hash >= 5r
+            else:
+                p = FR.p if t == TAG_FR else FQ.p
+                vals = [int.from_bytes(rng.bytes(32), "little") % (2 * p + 1) for _ in range(B)]
+                vals[:2] = [p, 2 * p]
+            raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), "<i4")
+            cols.append(torch.from_numpy(raw.reshape(B, 8).copy()))
+        words = torch.stack(cols, 1).contiguous().to(dev)
+        h, c = squeeze(words, tags)
+        hp, cp = squeeze_plain(words, tags)
+        torch.cuda.synchronize()
+        e = max(word_err(h, hp), word_err(c, cp))
+        check(e == 0, f"keccak_squeeze differs from squeeze_plain at W = {W}")
+        err = max(err, e)
+        # every lane's challenge against python ints, the hashes past 2r
+        # and 5r (outside fe_mul's [0, 2r] inputs) counted
+        for hv, cv in zip(word_ints(h), word_ints(c)):
+            check(cv % FR.p == hv * R % FR.p and cv < 2 * FR.p,
+                  f"keccak_squeeze's challenge is not the hash mod r at W = {W}")
+            past_2r += hv >= 2 * FR.p
+            past_5r += hv >= 5 * FR.p
+        host = words[:4].cpu()
+        for b in range(host.shape[0]):
+            data = b""
+            for t, row in zip(tags, host[b]):
+                v = sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(row))
+                if t != TAG_RAW:
+                    p = FR.p if t == TAG_FR else FQ.p
+                    v = v * pow(R, -1, p) % p
+                data += v.to_bytes(32, "big")
+            want = int.from_bytes(keccak256(data + (b"\x01" if W == 1 else b"")), "big")
+            hv = sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(h[b].cpu()))
+            cv = sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(c[b].cpu()))
+            check(hv == want and cv % FR.p == want * R % FR.p and cv < 2 * FR.p,
+                  f"keccak_squeeze lane {b} at W = {W} differs from keccak256")
+    check(past_5r > 0, "no hash of step 17 reached 5r")
+    log(f"# keccak_squeeze == squeeze_plain (words exact) and keccak256 (4 lanes each) at "
+        f"B = {B} for W = 1..30, all three tags, hash-sized raw words; every challenge is "
+        f"its hash mod r, {past_2r} hashes >= 2r and {past_5r} >= 5r among them: "
+        f"{time.time() - t0:.1f}s")
+    use = ptxas_usage("keccak_squeeze_kernel")
+    rows, total_ms, total_bound, total_floor = [], 0.0, 0.0, 0.0
+    for words, tags in reads:
+        words = words.contiguous()
+        h, c = squeeze(words, tags)
+        hp, cp = squeeze_plain(words, tags)
+        torch.cuda.synchronize()
+        err = max(err, word_err(h, hp), word_err(c, cp))
+        check(err == 0, f"keccak_squeeze differs from squeeze_plain on the read's W = {len(tags)}")
+        # 20 launches, all queued within the ~2 ms spin: at 50, one W = 3 read
+        # 0.0193 ms and another 0.0113 (the tail ran at the host's pace)
+        ms = kernel_ms(lambda: squeeze(words, tags), 20)
+        plain = time_ms(lambda: squeeze_plain(words, tags), 2, warmup=1)
+        n_bytes, n_ops, floor, nblocks = keccak_squeeze_work(words.shape[0], tags)
+        bms, by = bound_ms(n_bytes, n_ops)
+        rows.append(dict(W=len(tags), blocks=nblocks, ms=ms, plain_ms=plain, bound_ms=bms,
+                         bound_by=by, chain_floor_ms=floor))
+        total_ms, total_bound, total_floor = total_ms + ms, total_bound + bms, total_floor + floor
+        log(f"# keccak_squeeze read W={len(tags)} ({nblocks} blocks) at {tuple(words.shape)}: "
+            f"{ms:.4f} ms (bound {bms:.6f} ms, {by}; chain floor {floor:.4f} ms = {nblocks} x "
+            f"24 rounds x {keccak_permutation_ops() // 24} instructions, 2 clocks each); plain "
+            f"{plain:.1f} ms; ptxas {use['registers']} registers, {use['spill_bytes']} B spill "
+            f"stores, {use['stack_bytes']} B stack")
+    check(err == 0, "keccak_squeeze differs from its plain version")
+    main = max(rows, key=lambda r: r["W"])
+    log(f"# keccak_squeeze, the read's nine launches: {total_ms:.4f} ms (bound "
+        f"{total_bound:.6f} ms, chain floor {total_floor:.4f} ms)")
+    kernels.append(dict(
+        name="keccak_squeeze", route="cuda",
+        source="snark_verifier_tpu_torch/csrc/keccak_kernels.cu",
+        replaces="snark_verifier_tpu/hash/keccak_device.py:82",
+        also_replaces=["snark_verifier_tpu/hash/keccak_device.py:137"],
+        launches=launches["keccak_squeeze"], max_abs_err=err, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, shape=[reads[0][0].shape[0], main["W"], 8],
+        chain_floor_ms=main["chain_floor_ms"], read=rows, read_ms=total_ms,
+        read_bound_ms=total_bound, read_chain_floor_ms=total_floor,
+        ops_per_permutation=keccak_permutation_ops(), ptxas_registers=use["registers"],
+        ptxas_spill_bytes=use["spill_bytes"], ptxas_stack_bytes=use["stack_bytes"],
+        tolerance="exact, raw and lazy words"))
+
+
 def main() -> int:
     import torch
 
@@ -1924,6 +2183,12 @@ def main() -> int:
     t0 = time.time()
     old_acc_phase(dev)
     log(f"# old accumulator phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    evm_rate, evm_launches, reads = evm_phase(dev, kernels)
+    log(f"# evm phase: {time.time() - t0:.1f}s; {evm_rate:.1f} keccak verify proofs/s")
+    t0 = time.time()
+    keccak_kernel_checks(dev, kernels, evm_launches, reads)
+    log(f"# keccak kernel checks: {time.time() - t0:.1f}s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "svt_fq12_op": [_I, _P, _P, _LL, _P, _P],
     # accumulation_kernels.cu
     "svt_fr_powers": [_P, _I, _P, _LL, _P],
+    # keccak_kernels.cu
+    "svt_keccak_squeeze": [_P, _P, _I, _P, _I, _P, _P, _P, _LL, _P],
 }
 
 _lib = None

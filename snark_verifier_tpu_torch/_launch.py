@@ -28,6 +28,8 @@ LAUNCHES = {
     "miller_loop": 0, "final_exp": 0, "fq12_op": 0,
     # pcs/kzg/accumulation.py
     "fr_powers": 0,
+    # hash/keccak_device.py
+    "keccak_squeeze": 0,
 }
 
 

@@ -27,9 +27,9 @@ def batch_verify(snarks: Sequence, srs, scheme_name: str = "shplonk",
     (B,) bool on that device.  `timings`, when given, gets `succinct_s` and
     `decide_s`: host seconds of each phase, each ended by a synchronize,
     and the succinct phase's steps (`sdk.aggregation.batch_succinct_verify`).
-    Supported: the schemes "shplonk" (SHPLONK) and "gwc" (GWC19) with the
-    transcript "poseidon"; any other pair raises ValueError.  Every
-    accumulator a proof yields (the fresh one and any old ones its
+    Supported: the schemes "shplonk" (SHPLONK) and "gwc" (GWC19), each with
+    the transcripts "poseidon" and "evm" (keccak); anything else raises
+    ValueError.  Every accumulator a proof yields (the fresh one and any old ones its
     instances carry) must pass for the proof to be accepted."""
     dev = resolve_device(device)
     t0 = time.time()

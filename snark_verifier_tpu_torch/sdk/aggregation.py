@@ -4,10 +4,10 @@ counterpart of the JAX package's `sdk/aggregation.py` (`_stack_streams`
 :110, `aggregate_and_decide` :124, `aggregate_heterogeneous` :146).
 
 B snarks of one protocol verify as one batch on one device: their streams
-are stacked on the host and uploaded once per stream, the Poseidon
-transcript reads the proofs (one `svt_poseidon_absorb` launch per
-challenge), the protocol's recorded Fr program (`verifier/plonk/plan.py`)
-runs as one `svt_fr_tape` launch, and the MSM as one `svt_msm_windowed`
+are stacked on the host and uploaded once per stream, the transcript reads
+the proofs (Poseidon: one `svt_poseidon_absorb` launch per challenge;
+keccak, "evm": one `svt_keccak_squeeze` launch per challenge), the
+protocol's recorded Fr program (`verifier/plonk/plan.py`) runs as one `svt_fr_tape` launch, and the MSM as one `svt_msm_windowed`
 launch.  The result is each proof's KZG accumulators (the fresh one, then
 any the instances carry), to be decided by pairings.
 
@@ -32,12 +32,13 @@ from ..loader.base import TorchLoader
 from ..pcs.kzg.accumulation import KzgAs
 from ..pcs.kzg.decider import decide
 from ..pcs.kzg.multiopen import Bdfg21, Gwc19
+from ..transcript.evm_transcript import EvmTranscript
 from ..transcript.poseidon_transcript import PoseidonTranscript
 from ..verifier.plonk.plan import succinct_plan
 from .snark import Snark
 
 SCHEMES = {"shplonk": Bdfg21, "gwc": Gwc19}
-TRANSCRIPTS = {"poseidon": PoseidonTranscript}
+TRANSCRIPTS = {"poseidon": PoseidonTranscript, "evm": EvmTranscript}
 
 
 def _stack_streams(snarks: Sequence[Snark], device):
@@ -96,8 +97,8 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     (the transcript and read_proof), `gather_s`, `fr_tape_s`, `msm_s` (the
     bases and the MSM).
 
-    Supported: the schemes "shplonk" and "gwc" with the transcript
-    "poseidon"; any other pair raises ValueError."""
+    Supported: the schemes "shplonk" and "gwc", each with the transcripts
+    "poseidon" and "evm" (keccak); anything else raises ValueError."""
     if scheme_name not in SCHEMES or transcript not in TRANSCRIPTS:
         raise ValueError(f"unsupported scheme/transcript pair {scheme_name}/{transcript}: "
                          f"the port verifies the schemes {sorted(SCHEMES)} with the "

@@ -1,5 +1,5 @@
 """The Snark container: the counterpart of the JAX package's `sdk/snark.py`
-(`Snark.load`, `validate`, `host_streams`).
+(`Snark.load`, `validate`, `host_streams`, `proof_shape` :149).
 
 A proof is kept as its pre-parsed transcript streams: Fr scalars and affine
 G1 points, python ints in transcript order.  `host_streams` turns them into
@@ -101,3 +101,19 @@ class Snark:
         )
         self._host_streams = (sc, pts)
         return sc, pts
+
+
+def proof_shape(protocol: PlonkProtocol, scheme_name: str) -> Tuple[int, int]:
+    """(num_scalars, num_points) of a proof stream for this protocol and
+    scheme: the witness and quotient points, then the PCS proof's (GWC19 one
+    a query set, SHPLONK W and W'), and one scalar per evaluation."""
+    from ..pcs.kzg.multiopen import gwc_query_sets
+    from ..verifier.plonk.verifier import PlonkProof
+
+    n_points = sum(protocol.num_witness) + protocol.quotient.num_chunk()
+    n_scalars = len(protocol.evaluations)
+    if scheme_name == "gwc":
+        n_points += len(gwc_query_sets(PlonkProof.empty_queries(protocol)))
+    else:
+        n_points += 2
+    return n_scalars, n_points

@@ -16,8 +16,9 @@ The protocol is host data; scalars and points are loader handles.  Under
 verifies a batch of proofs of one protocol on one device, op by op (the
 plan's witness); under `NATIVE` it is the python-int oracle
 (`succinct_verify_native`).  Supported: GWC19 (`Gwc19`) and SHPLONK
-(`Bdfg21`) with the Poseidon transcript, protocols whose instances are
-absorbed as scalars (no instance committing key).
+(`Bdfg21`), each with the Poseidon or the keccak ("evm") transcript,
+protocols whose instances are absorbed as scalars (no instance committing
+key).
 """
 
 from __future__ import annotations
@@ -209,22 +210,25 @@ class PlonkSuccinctVerifier:
 
 
 _SCHEMES = {"shplonk": Bdfg21, "gwc": Gwc19}
+_TRANSCRIPTS = ("poseidon", "evm")
 
 
 def succinct_verify_native(snark, srs, scheme_name: str = "shplonk",
                            transcript: str = "poseidon"):
     """Python-int succinct verification of one `sdk.snark.Snark` ("shplonk"
-    or "gwc", the Poseidon transcript) -> [(lhs, rhs)] affine-int
-    accumulators, the fresh one and the instance-decoded old ones: the
-    port's own oracle, the reference's NativeLoader path.  Any other
-    scheme or transcript raises ValueError."""
+    or "gwc", with the transcript "poseidon" or "evm") -> [(lhs, rhs)]
+    affine-int accumulators, the fresh one and the instance-decoded old
+    ones: the port's own oracle, the reference's NativeLoader path.  Any
+    other scheme or transcript raises ValueError."""
     from ...loader.base import NATIVE
+    from ...transcript.evm_transcript import EvmTranscriptPy
     from ...transcript.poseidon_transcript import PoseidonTranscriptPy
 
-    if scheme_name not in _SCHEMES or transcript != "poseidon":
+    if scheme_name not in _SCHEMES or transcript not in _TRANSCRIPTS:
         raise ValueError(f"unsupported scheme/transcript pair {scheme_name}/{transcript}")
     scheme = _SCHEMES[scheme_name]
-    t = PoseidonTranscriptPy(scalars=snark.scalars, points=snark.points)
+    tcls = PoseidonTranscriptPy if transcript == "poseidon" else EvmTranscriptPy
+    t = tcls(scalars=snark.scalars, points=snark.points)
     instances = [[v % R for v in col] for col in snark.instances]
     proof = PlonkProof.read(snark.protocol, instances, t, scheme, NATIVE)
     return PlonkSuccinctVerifier.verify(srs.g, snark.protocol, instances, proof, scheme, NATIVE)

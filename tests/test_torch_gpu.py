@@ -762,3 +762,67 @@ def test_old_accumulators_on_card_match_oracle(cuda):
                                                  for w in fresh_only[0])))
     assert batch_verify([valid] * B, srs).tolist() == [True] * B
     assert batch_verify([bogus] * B, srs).tolist() == [False] * B
+
+
+# ------------------------------------------------------- keccak (the EVM family)
+
+
+def _keccak_words(n, W, seed, device):
+    """(n, W, 8) words and (W,) tags: all three tags, raw words of hash size."""
+    from snark_verifier_tpu_torch.hash.keccak_device import TAG_FR, TAG_RAW
+
+    rng = np.random.default_rng(seed)
+    tags = [int(t) for t in rng.integers(0, 3, size=W)]
+    cols = []
+    for t in tags:
+        p = FR.p if t == TAG_FR else FQ.p
+        vals = [int.from_bytes(rng.bytes(32), "little") if t == TAG_RAW
+                else int.from_bytes(rng.bytes(32), "little") % (2 * p + 1) for _ in range(n)]
+        raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), "<i4")
+        cols.append(torch.from_numpy(raw.reshape(n, 8).copy()))
+    return torch.stack(cols, 1).contiguous().to(device), tags
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 8, 9, 17, 26, 30])
+def test_keccak_squeeze_kernel_matches_plain(cuda, W):
+    from snark_verifier_tpu_torch.hash.keccak import keccak256
+    from snark_verifier_tpu_torch.hash.keccak_device import squeeze, squeeze_plain
+
+    words, tags = _keccak_words(1000, W, W, cuda)
+    reset_launches()
+    h, c = squeeze(words, tags)
+    assert LAUNCHES["keccak_squeeze"] == 1
+    hp, cp = squeeze_plain(words, tags)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hp) and torch.equal(c, cp)
+    # lane 0 against the oracle: tagged words hashed as their canonical values
+    data = b""
+    for t, row in zip(tags, words[0].cpu()):
+        v = sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(row))
+        if t:
+            p = FR.p if t == 1 else FQ.p
+            v = v * pow(1 << 256, -1, p) % p
+        data += v.to_bytes(32, "big")
+    got = sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(h[0].cpu()))
+    assert got == int.from_bytes(keccak256(data + (b"\x01" if W == 1 else b"")), "big")
+    # every challenge is its hash mod r, hashes past 2r (~60% of them) included
+    for hr, cr in zip(h.cpu().numpy().astype("<u4"), c.cpu().numpy().astype("<u4")):
+        hv, cv = int.from_bytes(hr.tobytes(), "little"), int.from_bytes(cr.tobytes(), "little")
+        assert cv % FR.p == hv * (1 << 256) % FR.p and cv < 2 * FR.p
+    with pytest.raises(ValueError):
+        squeeze(words, tags[:-1] + [3])
+
+
+def test_evm_batch_on_card_matches_oracle(cuda):
+    srs, snarks = _fixtures("evmsnark", 3)
+    reset_launches()
+    (lhs, rhs), = batch_succinct_verify(snarks, srs, "shplonk", "evm")
+    assert LAUNCHES["keccak_squeeze"] == 9 and LAUNCHES["poseidon_absorb"] == 0
+    assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 1
+    got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
+    assert got == [succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in snarks]
+    bad = Snark(snarks[0].protocol, [list(c) for c in snarks[0].instances], snarks[0].scalars,
+                snarks[0].points)
+    bad.instances[0][0] = (bad.instances[0][0] + 1) % FR.p
+    assert batch_verify([bad] + snarks[1:], srs, "shplonk", "evm").tolist() == [False, True, True]
+    assert batch_verify(snarks, srs, "shplonk", "poseidon").tolist() == [False] * 3

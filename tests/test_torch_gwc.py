@@ -76,8 +76,9 @@ def test_gwc_native_oracle_matches_jax(srs_pair):
     s, js = _load(Snark, 4), _load(JSnark, 4)
     assert succinct_verify_native(s, srs, "gwc") == j_native(js, srs_j, "gwc")
     assert succinct_verify_native(s, srs, "gwc") != succinct_verify_native(s, srs, "shplonk")
+    assert succinct_verify_native(s, srs, "gwc", "evm") == j_native(js, srs_j, "gwc", "evm")
     with pytest.raises(ValueError):
-        succinct_verify_native(s, srs, "gwc", "evm")
+        succinct_verify_native(s, srs, "gwc", "blake2b")
 
 
 def test_gwc_plan_shape():

@@ -1,0 +1,321 @@
+"""The keccak kernel's own C++, run on the host: a schedule twin.
+
+g++ compiles csrc/keccak.cuh (every function there is __host__ __device__)
+and holds its permutation and its word <-> lane codec against python ints:
+`hash/keccak.py::_keccak_f` on seeded states and the byte order of the
+32-byte big-endian word.  The challenge is csrc/fq.cuh's fe_mul<FR> with
+the kernel's R^2 table as the multiplicand and a 256-bit hash (up to
+~5.3 r, outside fe_mul's [0, 2r] inputs) as the multiplier: its inline-PTX
+carry chains run through tests/test_torch_mul_schedule.py's interpreter,
+which fails on a dropped carry, for hashes of 0, r - 1, r, 2r, 5r and
+2^256 - 1, against the Montgomery form of the hash mod r.  Then g++
+compiles csrc/keccak_kernels.cu
+with the launch syntax stripped, a stub of the CUDA runtime and a portable
+C++ stand-in for csrc/fq.cuh's multiply and canon (whose inline-PTX carry
+chains tests/test_torch_mul_schedule.py runs word by word), and runs the
+kernel body thread by thread on buffers of W = 1 ... 30 words with all
+three tags against `keccak256` and the plain squeeze.  Skips inside the
+test where no g++ is found.
+
+Tolerance: exact."""
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import test_torch_mul_schedule as mul_schedule
+import torch
+
+from snark_verifier_tpu_torch.ff import FQ, FR, FRW, limbs_to_words
+from snark_verifier_tpu_torch.hash import keccak_device as kd
+from snark_verifier_tpu_torch.hash.keccak import _keccak_f, keccak256
+
+REPO = Path(__file__).resolve().parent.parent
+CSRC = REPO / "snark_verifier_tpu_torch" / "csrc"
+
+RUNTIME_STUB = r"""
+#pragma once
+#include <cstdint>
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __constant__
+#define __restrict__
+#define __launch_bounds__(...)
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct dim3_ { unsigned x, y, z; };
+extern dim3_ threadIdx, blockIdx;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return 0; }
+"""
+
+
+def _words(x: int) -> str:
+    return ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(8))
+
+
+# fq.cuh's fe_mul and fe_canon for both fields, the same numbers, in
+# portable C++ (64-bit columns); tag 0 is Fq, 1 Fr, as in fq.cuh.
+FIELD_STUB = (r"""
+#pragma once
+#include <cstdint>
+namespace svt {
+constexpr int FQ_WORDS = 8;
+constexpr int FQ = 0;
+constexpr int FR = 1;
+static const uint32_t PW[2][8] = {{%(pq)s}, {%(pr)s}};
+static const uint32_t PINV[2] = {%(iq)s, %(ir)s};
+inline uint32_t sub8(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  int64_t c = 0;
+  for (int i = 0; i < 8; i++) { c += (int64_t)a[i] - b[i]; r[i] = (uint32_t)c; c >>= 32; }
+  return c ? 1u : 0u; }
+inline void cond_sub(uint32_t r[8], const uint32_t s[8], const uint32_t m[8]) {
+  uint32_t d[8]; const uint32_t b = sub8(d, s, m);
+  for (int i = 0; i < 8; i++) r[i] = b ? s[i] : d[i]; }
+template <int F> inline void fe_canon(uint32_t r[8], const uint32_t a[8]) {
+  uint32_t m[8]; uint64_t c = 0;
+  for (int i = 0; i < 8; i++) { c += (uint64_t)PW[F][i] * 2; m[i] = (uint32_t)c; c >>= 32; }
+  cond_sub(r, a, m); cond_sub(r, r, PW[F]); }
+template <int F> inline void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  const uint32_t* P = PW[F];
+  uint32_t t[10] = {0};
+  for (int i = 0; i < 8; i++) {
+    uint64_t c = 0;
+    for (int j = 0; j < 8; j++) { c += (uint64_t)a[j] * b[i] + t[j]; t[j] = (uint32_t)c; c >>= 32; }
+    c += t[8]; t[8] = (uint32_t)c; t[9] = (uint32_t)(c >> 32);
+    const uint32_t m = t[0] * PINV[F];
+    c = ((uint64_t)m * P[0] + t[0]) >> 32;
+    for (int j = 1; j < 8; j++) {
+      c += (uint64_t)m * P[j] + t[j]; t[j - 1] = (uint32_t)c; c >>= 32; }
+    c += t[8]; t[7] = (uint32_t)c; t[8] = t[9] + (uint32_t)(c >> 32);
+  }
+  for (int j = 0; j < 8; j++) r[j] = t[j]; }
+}  // namespace svt
+""" % {
+    "pq": _words(FQ.p), "pr": _words(FR.p),
+    "iq": f"0x{(-pow(FQ.p, -1, 1 << 32)) % (1 << 32):08x}u",
+    "ir": f"0x{(-pow(FR.p, -1, 1 << 32)) % (1 << 32):08x}u",
+})
+
+# keccak.cuh alone: "perm" permutes 25-lane states, "codec" maps a value's
+# words to lanes and back; records of uint64 / uint32 from one file into
+# another.
+PIECES = r"""
+#include <cstdio>
+#include <cstring>
+#include <vector>
+#include "cuda_runtime.h"
+#include "keccak.cuh"
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[2], "rb");
+  FILE* o = fopen(argv[3], "wb");
+  if (!strcmp(argv[1], "perm")) {
+    uint64_t st[25];
+    while (fread(st, 8, 25, f) == 25) { svt::kc_permute(st); fwrite(st, 8, 25, o); }
+  } else {
+    uint32_t w[8], back[8]; uint64_t l[4];
+    while (fread(w, 4, 8, f) == 8) {
+      svt::kc_word_to_lanes(w, l); svt::kc_lanes_to_word(l, back);
+      fwrite(l, 8, 4, o); fwrite(back, 4, 8, o); }
+  }
+  fclose(o);
+  return 0; }
+"""
+
+# The kernel body: reads (n, W, L), words (n, W, 8), tags (W,), pad (L, 2);
+# runs every thread; writes hash (n, 8) and challenge (n, 8).
+KERNEL = r"""
+#include <cstdio>
+#include <vector>
+#include "cuda_runtime.h"
+dim3_ threadIdx, blockIdx;
+#include "keccak_kernels.cpp"
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  long long h[3];
+  if (fread(h, 8, 3, f) != 3) return 2;
+  const long long n = h[0], W = h[1], L = h[2];
+  std::vector<uint32_t> words(n * W * 8), pad(L * 2);
+  std::vector<int> tags(W);
+  if (fread(words.data(), 4, words.size(), f) != words.size()) return 3;
+  if (fread(tags.data(), 4, W, f) != (size_t)W) return 3;
+  if (fread(pad.data(), 4, pad.size(), f) != pad.size()) return 3;
+  std::vector<uint64_t> scratch(4 * W * n);
+  std::vector<uint32_t> hash(n * 8), chal(n * 8);
+  for (long long b = 0; b < n; b++) {
+    blockIdx.x = b / svt::KC_THREADS; threadIdx.x = b % svt::KC_THREADS;
+    svt::keccak_squeeze_kernel(words.data(), tags.data(), (int)W, pad.data(), (int)L,
+                               scratch.data(), hash.data(), chal.data(), n);
+  }
+  FILE* o = fopen(argv[2], "wb");
+  fwrite(hash.data(), 4, hash.size(), o);
+  fwrite(chal.data(), 4, chal.size(), o);
+  fclose(o);
+  return 0; }
+"""
+
+
+def _gxx():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to run the kernel's C++ on the host")
+    return gxx
+
+
+def _build(d: Path, main: str, kernel: bool) -> Path:
+    (d / "cuda_runtime.h").write_text(RUNTIME_STUB)
+    (d / "keccak.cuh").write_text((CSRC / "keccak.cuh").read_text())
+    if kernel:
+        (d / "fq.cuh").write_text(FIELD_STUB)
+        src = (CSRC / "keccak_kernels.cu").read_text()
+        (d / "keccak_kernels.cpp").write_text(re.sub(r"<<<.*?>>>", "", src, flags=re.S))
+    (d / "main.cpp").write_text(main)
+    subprocess.run([_gxx(), "-std=c++17", "-O2", "-I", str(d), "-o", str(d / "main"),
+                    str(d / "main.cpp")], check=True, capture_output=True, timeout=300)
+    return d / "main"
+
+
+@pytest.fixture(scope="module")
+def pieces(tmp_path_factory):
+    d = tmp_path_factory.mktemp("keccak_pieces")
+    exe = _build(d, PIECES, kernel=False)
+
+    def run(mode, blob: bytes) -> bytes:
+        (d / "in.bin").write_bytes(blob)
+        subprocess.run([str(exe), mode, str(d / "in.bin"), str(d / "out.bin")], check=True,
+                       timeout=300)
+        return (d / "out.bin").read_bytes()
+
+    return run
+
+
+def _int_words(v: int) -> bytes:
+    return v.to_bytes(32, "little")
+
+
+def test_permutation_matches_python(pieces):
+    rng = np.random.default_rng(0)
+    states = rng.integers(0, 1 << 64, size=(8, 25), dtype=np.uint64)
+    states[0] = 0
+    got = np.frombuffer(pieces("perm", states.tobytes()), np.uint64).reshape(8, 25)
+    for row, g in zip(states, got):
+        host = [[int(row[x + 5 * y]) for y in range(5)] for x in range(5)]
+        want = _keccak_f(host)
+        assert [int(v) for v in g] == [want[x][y] for y in range(5) for x in range(5)]
+
+
+def test_codec_matches_python(pieces):
+    rng = np.random.default_rng(1)
+    vals = [0, (1 << 256) - 1, FQ.p - 1] + [int.from_bytes(rng.bytes(32), "little")
+                                           for _ in range(29)]
+    out = pieces("codec", b"".join(_int_words(v) for v in vals))
+    for k, v in enumerate(vals):
+        rec = out[k * 64 : (k + 1) * 64]
+        # the lanes, as little-endian bytes, are the value's big-endian bytes
+        assert rec[:32] == v.to_bytes(32, "big")
+        assert int.from_bytes(rec[32:], "little") == v
+
+
+def _kernel_r2_words():
+    """The R^2 table the kernel passes to fe_mul<FR> as the multiplicand."""
+    src = (CSRC / "keccak_kernels.cu").read_text()
+    body = re.search(r"const uint32_t r2\[FQ_WORDS\] = \{([^}]*)\}", src).group(1)
+    return [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+
+
+@pytest.mark.parametrize("k", ["0", "r-1", "r", "2r", "5r", "2^256-1", "random"])
+def test_challenge_reduction_matches_python(k):
+    """fe_mul<FR>(c, R^2, h) as the kernel calls it: the real carry chains,
+    no carry dropped for any 256-bit h."""
+    r, R = FR.p, 1 << 256
+    rng = np.random.default_rng(2)
+    h = {"0": 0, "r-1": r - 1, "r": r, "2r": 2 * r, "5r": 5 * r, "2^256-1": R - 1,
+         "random": int.from_bytes(rng.bytes(32), "big")}[k]
+    r2 = R * R % r
+    assert mul_schedule.unwords(_kernel_r2_words()) == r2
+    got = mul_schedule.unwords(mul_schedule.fe_mul("fr", _kernel_r2_words(),
+                                                   mul_schedule.words(h)))
+    m = (-h * r2 * pow(r, -1, R)) % R
+    assert got == (h * r2 + m * r) // R  # the Montgomery product, word for word
+    assert got % r == h * R % r and got < 2 * r
+    # the plain squeeze's reduction is the same function
+    hw = limbs_to_words(torch.tensor([(h >> (16 * i)) & 0xFFFF for i in range(16)]))
+    plain = FRW.plain("mul", hw, FRW.const("R2", "cpu"))
+    assert sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(plain)) == got
+
+
+def _lazy_words(rng, n, p):
+    """(n, 8) words of Montgomery values in [0, 2p], 0, p and 2p among them."""
+    vals = [int.from_bytes(rng.bytes(32), "little") % (2 * p + 1) for _ in range(n)]
+    vals[:3] = [0, p, 2 * p][: min(n, 3)]
+    return torch.tensor(np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals),
+                                      "<i4").reshape(n, 8).copy())
+
+
+@pytest.fixture(scope="module")
+def kernel(tmp_path_factory):
+    d = tmp_path_factory.mktemp("keccak_kernel")
+    exe = _build(d, KERNEL, kernel=True)
+
+    def run(words, tags):
+        n, W = words.shape[:2]
+        halves, _ = kd.pad_lanes(W)
+        with open(d / "in.bin", "wb") as f:
+            f.write(np.array([n, W, halves.shape[0]], np.int64).tobytes())
+            f.write(words.contiguous().numpy().tobytes())
+            f.write(np.array(tags, np.int32).tobytes())
+            f.write(halves.tobytes())
+        subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")], check=True,
+                       timeout=300)
+        out = torch.from_numpy(np.fromfile(d / "out.bin", np.int32).reshape(2, n, 8))
+        return out[0], out[1]
+
+    return run
+
+
+def _value(row) -> int:
+    return sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(row))
+
+
+@pytest.mark.parametrize("W", range(1, 31))
+def test_kernel_body_matches_keccak256_and_plain(kernel, W):
+    """W words of all three tags per buffer, 5 buffers: raw words of
+    hash size (>= 5r), lazy Fr and Fq Montgomery words."""
+    rng = np.random.default_rng(100 + W)
+    n = 5
+    tags = [int(t) for t in rng.integers(0, 3, size=W)]
+    tags[0] = kd.TAG_RAW if W > 1 else int(rng.integers(0, 3))
+    cols = []
+    for t in tags:
+        if t == kd.TAG_RAW:
+            raw = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
+            raw[0] = (1 << 256) - 1 - int(rng.integers(0, 1 << 20))  # >= 5r
+            cols.append(torch.tensor(np.frombuffer(b"".join(v.to_bytes(32, "little")
+                                                            for v in raw), "<i4")
+                                     .reshape(n, 8).copy()))
+        else:
+            cols.append(_lazy_words(rng, n, (FR if t == kd.TAG_FR else FQ).p))
+    words = torch.stack(cols, 1).contiguous()
+    h, c = kernel(words, tags)
+    hp, cp = kd.squeeze_plain(words, tags)
+    assert torch.equal(h, hp) and torch.equal(c, cp)
+    R = 1 << 256
+    for b in range(n):
+        data = b""
+        for w, t in enumerate(tags):
+            v = _value(words[b, w])
+            if t != kd.TAG_RAW:
+                p = (FR if t == kd.TAG_FR else FQ).p
+                v = v * pow(R, -1, p) % p
+            data += v.to_bytes(32, "big")
+        want = keccak256(data + (b"\x01" if W == 1 else b""))
+        assert _value(h[b]) == int.from_bytes(want, "big")
+        assert _value(c[b]) % FR.p == int.from_bytes(want, "big") * R % FR.p
+

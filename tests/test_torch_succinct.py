@@ -112,7 +112,7 @@ def test_host_loaders_match_jax(srs_pair):
 def test_rejects_unsupported_and_malformed_input(srs_pair):
     srs, _ = srs_pair
     s = Snark.load(str(FIXTURES / NAMES[0]))
-    for scheme, transcript in (("kzg", "poseidon"), ("shplonk", "evm"), ("gwc", "evm")):
+    for scheme, transcript in (("kzg", "poseidon"), ("shplonk", "blake2b"), ("gwc", "blake2b")):
         with pytest.raises(ValueError):
             batch_succinct_verify([s], srs, scheme, transcript, device="cpu")
     with pytest.raises(ValueError):

@@ -85,6 +85,6 @@ def test_tampered_scalar_and_swapped_point_match_jax_native():
 def test_batch_verify_rejects_unsupported_pairs():
     srs = load_params(str(FIXTURES / "srs.bin"))
     s = Snark.load(str(FIXTURES / NAMES[0]))
-    for scheme, transcript in (("gwc", "evm"), ("shplonk", "evm")):
+    for scheme, transcript in (("gwc", "blake2b"), ("shplonk", "blake2b")):
         with pytest.raises(ValueError):
             batch_verify([s], srs, scheme, transcript, device="cpu")
