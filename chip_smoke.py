@@ -84,7 +84,8 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 13. the tree (bench.py's bench_tree): `tree_aggregate_root` over 1,024
    leaves (the vanilla-PLONK fixtures tiled) with its launch counts read
    around one call; gates: the root accepts, a tampered leaf 0 makes it
-   reject, one `fr_powers` launch per fold level, each fold level (group 0
+   reject, one `fr_powers` launch and one `field_inv` launch (the affine
+   normalisation) per fold level, each fold level (group 0
    of layer 1, the fold of the 32 group accumulators, the root) equals the
    python-int `create_proof` on the device's own inputs to that level;
    best-of-3 leaves/s, the phases of three runs, one traced tree's device
@@ -111,14 +112,24 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    gates: every lane accepts, every lane's accumulator equals the port's
    python-int oracle (`succinct_verify_native(..., transcript="evm")`), a
    tampered instance rejects lane 0 alone, a Poseidon read of the batch
-   rejects every lane, exactly 9 `keccak_squeeze` launches, no
+   rejects every lane, one launch of `keccak_read` (the whole read, over
+   the plan's recorded schedule) and none of `keccak_squeeze`, no
    `poseidon_absorb`, one each of `fr_tape`, `msm_windowed`, `miller_loop`
    and `final_exp` (the single-op field launches printed); best-of-3 keccak
    verify proofs/s, the steps of three runs, one traced batch;
-17. `keccak_squeeze` against `squeeze_plain` (exact words) and the python
-   `keccak256` at B = 1,024 for W = 1 ... 30 (all three tags, hash-sized
-   raw words), then on the verify read's own nine inputs, each timed
-   beside its bound, chain floor and ptxas usage.
+17. the single squeeze (`svt_keccak_read` with a schedule of one squeeze,
+   on the team permutation) against `squeeze_plain` (exact words) and the
+   python `keccak256` at B = 1,024 for W = 1 ... 30 (all three tags,
+   hash-sized raw words);
+18. `keccak_read` on step 16's own read (its schedule, instance block and
+   streams) against `read_plain` word for word, every challenge against the
+   python-int `EvmTranscriptPy`'s, timed beside its bound, chain floor
+   (the team's round depth) and ptxas usage; the same buffers as nine
+   single squeezes, each against `squeeze_plain`, timed;
+19. `field_inv` (binary GCD, `csrc/fe_inv.cuh`) against the canonical plain
+   Fermat inverse and python ints in both fields at (1,024) and the tree's
+   2,048, 64 and 4 elements (0, 1, p - 1, p, 2p - 1, 2p among them), each
+   shape timed beside its bound and chain floor, with ptxas usage.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -188,9 +199,33 @@ PERM_X5_254_3 = [
 # threads on a scheduler's 16 integer lanes): its chain floor per block is
 # 24 rounds of those instructions, the blocks chained.
 KECCAK_OPS_PER_ROUND = 20 + 10 + 50 + 48 + 50
-KECCAK_CLOCKS_PER_OP = 2
 CLOCK_HZ = 1.98e9
 MULADDS_FROM_MONT = 72
+# svt_keccak_read runs the permutation as a warp a state (csrc/keccak.cuh's
+# team permutation).  A round's critical path there is four dependent
+# shuffle stages (the column's parity, D, pi, chi; a 64-bit shuffle is two
+# independent 32-bit ones), each counted at KECCAK_SHFL_CLOCKS (a typical
+# warp-shuffle latency, not measured on this card), beside ~10 dependent
+# integer instructions at 4 clocks (the parity's two LOP3, D's funnel shift
+# and XOR, a ^ D, the rotation's select and two funnel shifts, chi's LOP3,
+# iota's XOR): a read's chain floor is that round x 24 rounds x its blocks.
+KECCAK_SHFL_CLOCKS = 24
+KECCAK_TEAM_ROUND_CLOCKS = 4 * KECCAK_SHFL_CLOCKS + 10 * 4
+# svt_field_inv is csrc/fe_inv.cuh's binary GCD: rounds of 30 steps on
+# 62-bit approximations, then a 2x2 update of the 256-bit values.  Its
+# least work, at the card's 32-bit integer rate: 12 integer instructions a
+# step (the 64-bit compare, swap, subtract and shift of a~ and b~, each
+# factor row's subtract and doubling as one packed 64-bit word) and the
+# update's 80 multiply-adds (4 combinations of 2 x 8 word products, 2
+# reductions of 8), for the rounds these inputs take (`gcd_rounds`).  Its
+# chain floor a round: 30 steps of 8 dependent integer instructions at 4
+# clocks, then ~200 clocks of the update's carry chains; a warp waits for
+# its slowest lane's rounds.
+INV_STEPS = 30
+INV_STEP_OPS = 12
+INV_ROUND_MULADDS = 80
+INV_STEP_CLOCKS = 8 * 4
+INV_UPDATE_CLOCKS = 200
 
 
 def log(msg):
@@ -753,7 +788,10 @@ def field_checks(dev):
         cases = [(op, (x, y)) for op in ("mul", "add", "sub") for x, y in ((a, b), (a, c))]
         cases += [("neg", (a,)), ("canon", (a,)), ("inv", (a[:8192],))]
         for op, args in cases:
-            e = word_err(getattr(F, op)(*args), F.plain(op, *args))
+            want = F.plain(op, *args)
+            if op == "inv":  # the card's binary GCD is canonical, the plain Fermat lazy
+                want = F.plain("canon", want)
+            e = word_err(getattr(F, op)(*args), want)
             check(e == 0, f"field_{op} ({F.spec.name}) differs from its plain version")
             errs[f"field_{op}"] = max(errs.get(f"field_{op}", 0), e)
     st = rand_lazy_words(rng, (1024, 3), FRW.spec.p, dev)
@@ -915,7 +953,7 @@ def verify_phase(dev, kernels, errs):
     rng = np.random.default_rng(5)
     a = rand_lazy_words(rng, (B,), FRW.spec.p, dev)
     b = rand_lazy_words(rng, (B,), FRW.spec.p, dev)
-    n_inv = 254 + bin(FRW.spec.p - 2).count("1")
+    inv_bytes, inv_ops, _ = inv_work([gcd_rounds(x, FRW.spec.p) for x in word_ints(a)])
     rows = {
         "field_mul": (lambda: FRW.mul(a, b), lambda: FRW.plain("mul", a, b), 3 * 32 * B,
                       MULADDS_PER_FQ_MUL * B, "snark_verifier_tpu/ff/jnp_field.py:145"),
@@ -927,8 +965,8 @@ def verify_phase(dev, kernels, errs):
                       "snark_verifier_tpu/ff/jnp_field.py:141"),
         "field_canon": (lambda: FRW.canon(a), lambda: FRW.plain("canon", a), 2 * 32 * B, 0,
                         "snark_verifier_tpu/ff/jnp_field.py:121"),
-        "field_inv": (lambda: FRW.inv(a), lambda: FRW.plain("inv", a), 2 * 32 * B,
-                      n_inv * MULADDS_PER_FQ_MUL * B, "snark_verifier_tpu/ff/jnp_field.py:211"),
+        "field_inv": (lambda: FRW.inv(a), lambda: FRW.plain("inv", a), inv_bytes, inv_ops,
+                      "snark_verifier_tpu/ff/jnp_field.py:211"),
     }
     st = rand_lazy_words(rng, (B, 3), FRW.spec.p, dev)
     perm_ops = MULS_PER_PERMUTATION * MULADDS_PER_FQ_MUL
@@ -1468,6 +1506,8 @@ def tree_phase(dev):
     check(shapes == want_shapes, f"the tree's fold levels {shapes}, not {want_shapes}")
     check(launches["fr_powers"] == len(shapes), "the tree did not launch fr_powers once per "
                                                 "fold level")
+    check(launches["field_inv"] == len(shapes), "the tree did not launch field_inv (the affine "
+                                                "normalisation) once per fold level")
     check(launches["miller_loop"] == 1 and launches["final_exp"] == 1, "the tree's decide")
     check(launches["add"] == 0 and launches["double"] == 0, "the tree launched add/double")
     check(ok.dtype == torch.bool and ok.shape == () and bool(ok), "the tree's root rejected")
@@ -1616,31 +1656,63 @@ def keccak_permutation_ops():
 
 
 def keccak_squeeze_work(B, tags):
-    """(bytes, operations, chain floor ms, blocks) of one svt_keccak_squeeze
-    launch over B buffers of len(tags) words."""
+    """(bytes, operations, chain floor ms, blocks) of one squeeze over B
+    buffers of len(tags) words on svt_keccak_read's team permutation."""
     from snark_verifier_tpu_torch.hash.keccak_device import pad_lanes
 
     W = len(tags)
     pad, nblocks = pad_lanes(W)
     tagged = sum(1 for t in tags if t)
-    n_bytes = B * (32 * W + 64) + 4 * W + pad.nbytes
+    n_bytes = B * (32 * W + 64) + 12 * W + pad.nbytes
     n_ops = B * (nblocks * (keccak_permutation_ops() + 34) + tagged * MULADDS_FROM_MONT + 136)
-    floor = nblocks * keccak_permutation_ops() * KECCAK_CLOCKS_PER_OP / CLOCK_HZ * 1e3
+    floor = nblocks * 24 * KECCAK_TEAM_ROUND_CLOCKS / CLOCK_HZ * 1e3
     return n_bytes, n_ops, floor, nblocks
+
+
+def gcd_rounds(x, p):
+    """The rounds csrc/fe_inv.cuh's binary GCD takes to invert the word x."""
+    a, b, rounds = x % p, p, 0
+    while a:
+        rounds += 1
+        n = max(a.bit_length(), b.bit_length(), 2 * INV_STEPS + 2)
+        low = (1 << INV_STEPS) - 1
+        xa = (a & low) | ((a >> (n - INV_STEPS - 2)) << INV_STEPS)
+        xb = (b & low) | ((b >> (n - INV_STEPS - 2)) << INV_STEPS)
+        f0, g0, f1, g1 = 1, 0, 0, 1
+        for _ in range(INV_STEPS):
+            if xa & 1:
+                if xa < xb:
+                    xa, xb, f0, g0, f1, g1 = xb, xa, f1, g1, f0, g0
+                xa, f0, g0 = xa - xb, f0 - f1, g0 - g1
+            xa, f1, g1 = xa >> 1, 2 * f1, 2 * g1
+        a, b = abs(f0 * a + g0 * b) >> INV_STEPS, abs(f1 * a + g1 * b) >> INV_STEPS
+    return rounds
+
+
+def inv_work(rounds):
+    """(bytes, operations, chain floor ms) of one svt_field_inv launch whose
+    elements take these rounds (32 lanes a warp)."""
+    n_ops = sum(rounds) * (INV_STEPS * INV_STEP_OPS + INV_ROUND_MULADDS)
+    floor = max(rounds) * (INV_STEPS * INV_STEP_CLOCKS + INV_UPDATE_CLOCKS) / CLOCK_HZ * 1e3
+    return 2 * 32 * len(rounds), n_ops, floor
 
 
 def evm_phase(dev, kernels):
     """The keccak (EVM) verify path: batch_verify(..., "shplonk", "evm") at
     batch 1,024 over the 16 committed evmsnark fixtures, tiled, each first
     carried through its EVM proof bytes.  Returns (proofs/s, its launch
-    counts, the nine squeezes' (words, tags) of one batch)."""
+    counts, the read's (schedule, instances, scalars, points) of one batch,
+    the 16 fixtures' challenges from the python-int transcript)."""
     import torch
 
+    from snark_verifier_tpu_torch.hash import keccak_device
+    from snark_verifier_tpu_torch.loader.base import NATIVE
     from snark_verifier_tpu_torch.msm import cuda_ops
     from snark_verifier_tpu_torch.parallel import batch_verify
+    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
     from snark_verifier_tpu_torch.sdk import aggregation as agg
     from snark_verifier_tpu_torch.sdk.proof_io import proof_from_bytes, proof_to_bytes
-    from snark_verifier_tpu_torch.transcript import evm_transcript
+    from snark_verifier_tpu_torch.transcript import EvmTranscriptPy
     from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
 
     B = VERIFY_BATCH
@@ -1655,33 +1727,39 @@ def evm_phase(dev, kernels):
         base.append(back)
     snarks = [base[i % 16] for i in range(B)]
     oracle = [pv.succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in base]
+    challenges = []
+    for s in base:
+        t = EvmTranscriptPy(s.scalars, s.points)
+        pv.PlonkSuccinctVerifier.read_proof(s.protocol, [list(c) for c in s.instances], t,
+                                            Bdfg21, NATIVE)
+        challenges.append(t.challenges)
     log(f"# evm inputs: SRS + 16 fixtures through proof_to_bytes(fmt='evm') -> "
         f"proof_from_bytes, streams equal + 16 oracle runs: {time.time() - t0:.2f}s")
-    reads, real = [], evm_transcript.squeeze
+    reads, real = [], keccak_device.read
 
-    def capture(words, tags):
-        reads.append((words, tuple(tags)))
-        return real(words, tags)
+    def capture(schedule, inst, scalars, points):
+        reads.append((schedule, inst, scalars, points))
+        return real(schedule, inst, scalars, points)
 
-    evm_transcript.squeeze = capture
+    keccak_device.read = capture
     try:
         cuda_ops.reset_launches()
         oks = batch_verify(snarks, srs, "shplonk", "evm")
         torch.cuda.synchronize()
         launches = dict(cuda_ops.LAUNCHES)
     finally:
-        evm_transcript.squeeze = real
+        keccak_device.read = real
     field = {k: v for k, v in launches.items() if k.startswith("field_")}
-    path = ("keccak_squeeze", "fr_tape", "msm_windowed", "miller_loop", "final_exp")
-    log(f"# evm path launches per batch of {B}: "
-        f"{ {k: launches[k] for k in path + ('poseidon_absorb', 'add', 'double')} }; "
+    path = ("keccak_read", "fr_tape", "msm_windowed", "miller_loop", "final_exp")
+    shown = path + ("keccak_squeeze", "poseidon_absorb", "add", "double")
+    log(f"# evm path launches per batch of {B}: { {k: launches[k] for k in shown} }; "
         f"single-op field kernels {field} ({sum(field.values())} in all)")
-    check(launches["keccak_squeeze"] == 9,
-          f"the evm batch launched keccak_squeeze {launches['keccak_squeeze']} times, not 9")
-    check(launches["poseidon_absorb"] == 0, "the evm batch launched poseidon_absorb")
-    for k in path[1:]:
+    for k in path:
         check(launches[k] == 1, f"the evm batch launched {k} {launches[k]} times, not once")
+    check(launches["keccak_squeeze"] == 0, "the evm batch launched the per-squeeze keccak")
+    check(launches["poseidon_absorb"] == 0, "the evm batch launched poseidon_absorb")
     check(launches["add"] == 0 and launches["double"] == 0, "the evm batch launched add/double")
+    check(len(reads) == 1, f"the evm batch ran {len(reads)} keccak reads, not one")
     check(oks.dtype == torch.bool and tuple(oks.shape) == (B,), "batch_verify's result shape")
     check(bool(oks.all()), f"{int((~oks).sum())} of {B} valid evm proofs rejected")
     (lhs, rhs), = agg.batch_succinct_verify(snarks, srs, "shplonk", "evm")
@@ -1695,7 +1773,7 @@ def evm_phase(dev, kernels):
     check(not bool(oks_p.any()), f"a Poseidon read accepted {int(oks_p.sum())} evmsnark lanes")
     log(f"# evm gates: all {B} lanes accept, their accumulators == the native oracle of their "
         f"fixture; the tampered instance rejects lane 0 alone; read through Poseidon every "
-        f"lane rejects")
+        f"lane rejects; one keccak_read launch, no per-squeeze launch")
     best, runs = best_of_3(lambda: batch_verify(snarks, srs, "shplonk", "evm"))
     log(f"# evm verify at batch {B}: best-of-3 {best * 1e3:.2f} ms = {B / best:.1f} keccak "
         f"verify proofs/s (runs {[round(t * 1e3, 2) for t in runs]} ms) on {smi_line()}")
@@ -1712,32 +1790,32 @@ def evm_phase(dev, kernels):
     if busy:
         kec = [(ms, c) for k, ms, c in events if "keccak" in k]
         log(f"# evm device time (torch.profiler, one traced batch): {busy:.2f} ms busy of "
-            f"{wall:.2f} ms wall = {busy / wall:.1%} busy; keccak_squeeze "
+            f"{wall:.2f} ms wall = {busy / wall:.1%} busy; keccak_read "
             f"{sum(ms for ms, _ in kec):.4f} ms in {sum(c for _, c in kec)} launches; top: "
             + ", ".join(f"{k[:40]} {ms:.3f} ms x{c}" for k, ms, c in events[:8]))
     else:
         log("# evm device time: not measured (the profiler recorded no device events)")
-    check(len(reads) == 9, f"the evm batch squeezed {len(reads)} times, not 9")
-    return B / best, launches, reads[:9]
+    return B / best, launches, reads[0], challenges
 
 
-def keccak_kernel_checks(dev, kernels, launches, reads):
-    """svt_keccak_squeeze against squeeze_plain and the python oracle at
-    B = 1,024 for W = 1 ... 30 on random words of all three tags (raw words
-    of hash size, >= 5r), then at the verify read's own nine inputs, timed
-    beside its bound, chain floor and ptxas usage."""
+def keccak_kernel_checks(dev):
+    """The single squeeze (svt_keccak_read with a schedule of one squeeze)
+    against squeeze_plain and the python oracle at B = 1,024 for W = 1 ...
+    30 on random words of all three tags (raw words of hash size, >= 5r).
+    Returns (the largest word difference, its launches)."""
     import torch
 
     from snark_verifier_tpu_torch.ff import FQ, FR
     from snark_verifier_tpu_torch.hash.keccak import keccak256
-    from snark_verifier_tpu_torch.hash.keccak_device import (
-        TAG_FR, TAG_RAW, squeeze, squeeze_plain)
+    from snark_verifier_tpu_torch.hash.keccak_device import TAG_FR, TAG_RAW, squeeze, squeeze_plain
+    from snark_verifier_tpu_torch.msm import cuda_ops
 
     B = VERIFY_BATCH
     rng = np.random.default_rng(17)
     R = 1 << 256
     err, past_2r, past_5r = 0, 0, 0
     t0 = time.time()
+    cuda_ops.reset_launches()
     for W in range(1, 31):
         tags = [int(t) for t in rng.integers(0, 3, size=W)]
         tags[0] = W % 3
@@ -1785,46 +1863,150 @@ def keccak_kernel_checks(dev, kernels, launches, reads):
         f"B = {B} for W = 1..30, all three tags, hash-sized raw words; every challenge is "
         f"its hash mod r, {past_2r} hashes >= 2r and {past_5r} >= 5r among them: "
         f"{time.time() - t0:.1f}s")
-    use = ptxas_usage("keccak_squeeze_kernel")
-    rows, total_ms, total_bound, total_floor = [], 0.0, 0.0, 0.0
-    for words, tags in reads:
+    return err, cuda_ops.LAUNCHES["keccak_squeeze"]
+
+
+def keccak_read_checks(dev, kernels, launches, read, challenges, squeeze_err, squeeze_kat):
+    """svt_keccak_read on the keccak verify batch's own read (B = 1,024)
+    against read_plain word for word and every challenge against the
+    python-int transcript's; its time beside its bound, chain floor and
+    ptxas usage; then the same kernel as nine single squeezes of that
+    read's buffers (each against squeeze_plain), timed."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.hash import keccak_device as kd
+
+    schedule, inst, sc, pts = read
+    B, R = sc.shape[0], 1 << 256
+    h, c = kd.read(schedule, inst, sc, pts)
+    hp, cp = kd.read_plain(schedule, inst, sc, pts)
+    torch.cuda.synchronize()
+    err = max(word_err(h, hp), word_err(c, cp))
+    check(err == 0, "keccak_read differs from read_plain on the verify batch's read")
+    got = c.cpu().numpy().astype("<u4")  # (n_sq, B, 8)
+    for b in range(B):
+        vals = [int.from_bytes(got[q, b].tobytes(), "little") for q in range(got.shape[0])]
+        want = challenges[b % len(challenges)]
+        check([v % FR.p for v in vals] == [x * R % FR.p for x in want] and
+              max(vals) < 2 * FR.p, f"keccak_read lane {b}'s challenges differ from the "
+                                    f"python-int transcript's")
+    log(f"# keccak_read == read_plain (words exact) on the verify batch's read at B = {B}, "
+        f"{len(schedule.squeezes)} squeezes of {schedule.widths} words; all "
+        f"{B * len(schedule.squeezes)} challenges == the python-int transcript's")
+    ms = kernel_ms(lambda: kd.read(schedule, inst, sc, pts), 20)
+    plain = time_ms(lambda: kd.read_plain(schedule, inst, sc, pts), 1, warmup=1)
+    work = [keccak_squeeze_work(B, [t for _, _, t in sq]) for sq in schedule.squeezes]
+    blocks = sum(w[3] for w in work)  # a proof's
+    bms, by = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+    floor = sum(w[2] for w in work)
+    use = ptxas_usage("keccak_read_kernel")
+    # The same kernel, one squeeze a launch, on the read's own buffers.
+    singles = []
+    for q in range(len(schedule.squeezes)):
+        words, tags = kd.squeeze_words(schedule, q, inst, sc, pts, h)
         words = words.contiguous()
-        h, c = squeeze(words, tags)
-        hp, cp = squeeze_plain(words, tags)
+        hs, cs = kd.squeeze(words, tags)
+        hq, cq = kd.squeeze_plain(words, tags)
         torch.cuda.synchronize()
-        err = max(err, word_err(h, hp), word_err(c, cp))
-        check(err == 0, f"keccak_squeeze differs from squeeze_plain on the read's W = {len(tags)}")
-        # 20 launches, all queued within the ~2 ms spin: at 50, one W = 3 read
-        # 0.0193 ms and another 0.0113 (the tail ran at the host's pace)
-        ms = kernel_ms(lambda: squeeze(words, tags), 20)
-        plain = time_ms(lambda: squeeze_plain(words, tags), 2, warmup=1)
-        n_bytes, n_ops, floor, nblocks = keccak_squeeze_work(words.shape[0], tags)
-        bms, by = bound_ms(n_bytes, n_ops)
-        rows.append(dict(W=len(tags), blocks=nblocks, ms=ms, plain_ms=plain, bound_ms=bms,
-                         bound_by=by, chain_floor_ms=floor))
-        total_ms, total_bound, total_floor = total_ms + ms, total_bound + bms, total_floor + floor
-        log(f"# keccak_squeeze read W={len(tags)} ({nblocks} blocks) at {tuple(words.shape)}: "
-            f"{ms:.4f} ms (bound {bms:.6f} ms, {by}; chain floor {floor:.4f} ms = {nblocks} x "
-            f"24 rounds x {keccak_permutation_ops() // 24} instructions, 2 clocks each); plain "
-            f"{plain:.1f} ms; ptxas {use['registers']} registers, {use['spill_bytes']} B spill "
-            f"stores, {use['stack_bytes']} B stack")
-    check(err == 0, "keccak_squeeze differs from its plain version")
-    main = max(rows, key=lambda r: r["W"])
-    log(f"# keccak_squeeze, the read's nine launches: {total_ms:.4f} ms (bound "
-        f"{total_bound:.6f} ms, chain floor {total_floor:.4f} ms)")
+        squeeze_err = max(squeeze_err, word_err(hs, hq), word_err(cs, cq),
+                          word_err(hs, h[q]), word_err(cs, c[q]))
+        check(squeeze_err == 0, f"the single squeeze of the read's buffer {q} differs")
+        singles.append(dict(W=len(tags), ms=kernel_ms(lambda: kd.squeeze(words, tags), 20),
+                            plain_ms=time_ms(lambda: kd.squeeze_plain(words, tags), 1, warmup=1),
+                            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                                *keccak_squeeze_work(B, tags)[:2]))),
+                            chain_floor_ms=keccak_squeeze_work(B, tags)[2]))
+    nine_ms = sum(r["ms"] for r in singles)
+    log(f"# keccak_read at ({len(schedule.squeezes)}, {B}, 8), {blocks} blocks a proof: "
+        f"{ms:.4f} ms in one launch (bound {bms:.6f} ms, {by}; chain floor {floor:.4f} ms = "
+        f"{blocks} blocks x 24 rounds x {KECCAK_TEAM_ROUND_CLOCKS} clocks); plain "
+        f"{plain:.1f} ms; ptxas {use['registers']} registers, {use['spill_bytes']} B spill "
+        f"stores, {use['stack_bytes']} B stack, {use['smem_bytes']} B smem; the same buffers as "
+        f"{len(singles)} single squeezes {nine_ms:.4f} ms ("
+        + ", ".join(f"W={r['W']} {r['ms']:.4f}" for r in singles) + ")")
+    kernels.append(dict(
+        name="keccak_read", route="cuda", source="snark_verifier_tpu_torch/csrc/keccak_kernels.cu",
+        replaces="snark_verifier_tpu/hash/keccak_device.py:82",
+        also_replaces=["snark_verifier_tpu/hash/keccak_device.py:137",
+                       "snark_verifier_tpu/transcript/evm_transcript.py:114"],
+        launches=launches["keccak_read"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=None, shape=[len(schedule.squeezes), B, 8],
+        widths=schedule.widths, blocks_per_proof=blocks, chain_floor_ms=floor,
+        team_round_clocks=KECCAK_TEAM_ROUND_CLOCKS, ops_per_permutation=keccak_permutation_ops(),
+        nine_single_squeezes_ms=nine_ms, ptxas_registers=use["registers"],
+        ptxas_spill_bytes=use["spill_bytes"], ptxas_stack_bytes=use["stack_bytes"],
+        ptxas_smem_bytes=use["smem_bytes"], tolerance="exact words; challenges == python ints"))
+    main = max(singles, key=lambda r: r["W"])
     kernels.append(dict(
         name="keccak_squeeze", route="cuda",
         source="snark_verifier_tpu_torch/csrc/keccak_kernels.cu",
         replaces="snark_verifier_tpu/hash/keccak_device.py:82",
         also_replaces=["snark_verifier_tpu/hash/keccak_device.py:137"],
-        launches=launches["keccak_squeeze"], max_abs_err=err, ms=main["ms"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=None, shape=[reads[0][0].shape[0], main["W"], 8],
-        chain_floor_ms=main["chain_floor_ms"], read=rows, read_ms=total_ms,
-        read_bound_ms=total_bound, read_chain_floor_ms=total_floor,
-        ops_per_permutation=keccak_permutation_ops(), ptxas_registers=use["registers"],
-        ptxas_spill_bytes=use["spill_bytes"], ptxas_stack_bytes=use["stack_bytes"],
+        launches=launches["keccak_squeeze"], launches_kat=squeeze_kat, max_abs_err=squeeze_err,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None, shape=[B, main["W"], 8],
+        chain_floor_ms=main["chain_floor_ms"], read=singles, read_ms=nine_ms,
+        kernel="svt_keccak_read with a schedule of one squeeze (EvmTranscript's squeeze)",
         tolerance="exact, raw and lazy words"))
+
+
+def inv_kernel_checks(dev, kernels, tree_launches):
+    """svt_field_inv (binary GCD) against the canonical plain Fermat inverse
+    and python ints in both fields at (1,024) and the tree's 2,048, 64 and 4
+    elements: 0, 1, p - 1, p, 2p - 1, 2p and seeded words in [0, 2p); each
+    shape timed beside its bound and chain floor; ptxas usage."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FQW, FRW
+
+    rng = np.random.default_rng(23)
+    R = 1 << 256
+    shapes = (1024, 2048, 64, 4)
+    rows, err = [], 0
+    for name, F in (("fq", FQW), ("fr", FRW)):
+        p = F.spec.p
+        vals = [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p]
+        vals += [int.from_bytes(rng.bytes(32), "little") % (2 * p) for _ in range(2048 - 7)]
+        raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), "<i4")
+        words = torch.from_numpy(raw.reshape(-1, 8).copy()).to(dev)
+        rounds = [gcd_rounds(x, p) for x in vals]
+        for n in shapes:
+            a = words[:n].contiguous()
+            got = F.inv(a)
+            e = word_err(got, F.plain("canon", F.plain("inv", a)))
+            check(e == 0, f"field_inv ({name}) differs from canon(plain) at {n}")
+            check(word_ints(got) == [pow(x, p - 2, p) * R * R % p for x in vals[:n]],
+                  f"field_inv ({name}) at {n}: not the canonical A^-1 R")
+            err = max(err, e)
+            ms = kernel_ms(lambda: F.inv(a), 50)
+            n_bytes, n_ops, floor = inv_work(rounds[:n])
+            bms, by = bound_ms(n_bytes, n_ops)
+            rows.append(dict(field=name, n=n, ms=ms, bound_ms=bms, bound_by=by,
+                             chain_floor_ms=floor, rounds_max=max(rounds[:n]),
+                             rounds_mean=sum(rounds[:n]) / n))
+    plain = time_ms(lambda: FQW.plain("inv", words[:2048]), 1, warmup=1)
+    use = {f: ptxas_usage(f"field_unary_kernelILi{t}ELi4ELi32E") for f, t in (("fq", 0), ("fr", 1))}
+    log("# field_inv (binary GCD) == canon(plain Fermat) and python ints at " + "; ".join(
+        f"{r['field']} {r['n']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.6f} ms, chain floor "
+        f"{r['chain_floor_ms']:.4f} ms, rounds mean {r['rounds_mean']:.2f} max {r['rounds_max']})"
+        for r in rows) + f"; plain (Fq, 2,048) {plain:.1f} ms; ptxas " + ", ".join(
+        f"{f} {u['registers']} registers, {u['spill_bytes']} B spill, {u['stack_bytes']} B stack"
+        for f, u in use.items()) + f"; launches on the tree {tree_launches['field_inv']}")
+    for row in kernels:
+        if row["name"] == "field_inv":
+            fr = next(r for r in rows if r["field"] == "fr" and r["n"] == 1024)
+            # its path is the tree's affine normalisation (the verify batch
+            # launches it no time)
+            row.update(max_abs_err=max(row["max_abs_err"], err),
+                       chain_floor_ms=fr["chain_floor_ms"], shapes=rows,
+                       plain_ms_fq_2048=plain, launches_verify=row["launches"],
+                       launches=tree_launches["field_inv"],
+                       launches_tree=tree_launches["field_inv"],
+                       ptxas_registers=use["fr"]["registers"],
+                       ptxas_spill_bytes=use["fr"]["spill_bytes"],
+                       ptxas_stack_bytes=use["fr"]["stack_bytes"],
+                       tolerance="exact, canonical words (the plain Fermat inverse canonicalized)")
 
 
 def main() -> int:
@@ -2184,11 +2366,15 @@ def main() -> int:
     old_acc_phase(dev)
     log(f"# old accumulator phase: {time.time() - t0:.1f}s")
     t0 = time.time()
-    evm_rate, evm_launches, reads = evm_phase(dev, kernels)
+    evm_rate, evm_launches, read, challenges = evm_phase(dev, kernels)
     log(f"# evm phase: {time.time() - t0:.1f}s; {evm_rate:.1f} keccak verify proofs/s")
     t0 = time.time()
-    keccak_kernel_checks(dev, kernels, evm_launches, reads)
+    squeeze_err, squeeze_kat = keccak_kernel_checks(dev)
+    keccak_read_checks(dev, kernels, evm_launches, read, challenges, squeeze_err, squeeze_kat)
     log(f"# keccak kernel checks: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    inv_kernel_checks(dev, kernels, tree_launches)
+    log(f"# field_inv checks: {time.time() - t0:.1f}s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

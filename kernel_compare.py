@@ -2,7 +2,7 @@
 """Time this checkout's kernels beside another checkout's, in one process on
 one card: the only fair comparison of two versions of a kernel.
 
-    python3 kernel_compare.py --parent DIR [--log2n 20] [--out FILE]
+    python3 kernel_compare.py --parent DIR [--log2n 20] [--out FILE] [--only PARTS]
 
 `DIR` is the csrc/ directory of the other checkout (for example one unpacked
 with `git archive <commit> snark_verifier_tpu_torch/csrc`).  Its
@@ -29,6 +29,14 @@ are called as the port has declared them since the fold took a team size
   that takes `(..., count, team, out, stream)` reads the matrix in place
   with this checkout's team;
 * `svt_poseidon_permute(in, out, n, stream)` at B = 1,024 and 65,536;
+* where the other checkout has them: `svt_field_inv(field, a, out, n,
+  stream)` in both fields at the tree's 2,048, 64 and 4 elements and at
+  1,024 (held to the plain version after `canon`: a Fermat inverse is
+  lazy, the binary GCD's canonical), and `svt_keccak_squeeze(words, tags,
+  W, pad, L, scratch, hash, chal, n, stream)`, a launch a squeeze, over the
+  keccak verify read of the 16 `evmsnark` fixtures tiled to 1,024 (the
+  buffers gathered before the timing) beside this checkout's one
+  `svt_keccak_read` launch of the same read;
 * `svt_g1_add(a, b, out, n, stream)` and `svt_g1_double(a, out, n, stream)`
   driven by the loops that launched them one group operation at a time
   before `svt_msm_windowed` and `svt_bucket_reduce` replaced them: the verify
@@ -68,18 +76,25 @@ PARENT_UNITS = {
                     "svt_g1_double": [_P, _P, _LL, _P]},
     "poseidon_kernels": {"svt_poseidon_load_constants": [_P, _P],
                          "svt_poseidon_permute": [_P, _P, _LL, _P]},
+    # optional: compared where the other checkout exports them
+    "field_kernels": {"svt_field_inv": [_I, _P, _P, _LL, _P]},
+    "keccak_kernels": {"svt_keccak_squeeze": [_P, _P, _I, _P, _I, _P, _P, _P, _LL, _P]},
 }
+OPTIONAL_UNITS = ("field_kernels", "keccak_kernels")
 
 
 def build_parent(csrc: Path, out_dir: Path):
-    """{entry point: ctypes function} of the parent's three units, one nvcc
-    process each, all started together."""
+    """{entry point: ctypes function} of the parent's units, one nvcc
+    process each, all started together (an optional unit or entry point the
+    parent lacks is left out)."""
     from snark_verifier_tpu_torch import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = _build.ARCH_FLAGS + ["-O3", "-shared", "-Xcompiler", "-fPIC"]
     procs = {}
     for unit in PARENT_UNITS:
+        if unit in OPTIONAL_UNITS and not (csrc / f"{unit}.cu").exists():
+            continue
         lib = out_dir / f"libparent_{unit}.so"
         cmd = [_build._nvcc(), *flags, "-o", str(lib), str(csrc / f"{unit}.cu")]
         procs[unit] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -91,6 +106,8 @@ def build_parent(csrc: Path, out_dir: Path):
             raise RuntimeError(f"nvcc failed for the parent's {unit}.cu:\n{out}")
         loaded = ctypes.CDLL(str(lib))
         for name, argtypes in PARENT_UNITS[unit].items():
+            if unit in OPTIONAL_UNITS and not hasattr(loaded, name):
+                continue
             fn = getattr(loaded, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[name] = fn
@@ -164,7 +181,14 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=True, help="csrc/ of the other checkout")
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None, help="also write the rows to this file")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated parts to run: fq_mul_chain, msm (the folds and the "
+                         "point loops), poseidon_permute, field_inv, keccak_read (default all)")
     args = ap.parse_args()
+    only = set(args.only.split(",")) if args.only else None
+
+    def selected(part):
+        return only is None or part in only
     if not torch.cuda.is_available():
         print("kernel_compare: no CUDA device", file=sys.stderr)
         return 2
@@ -209,206 +233,261 @@ def main() -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    # ------------------------------------------------------- multiply chain
-    rng = np.random.default_rng(3)
-    B = 1 << 17
-    a = rand_lazy_words(rng, (B,), FQ.p, dev)
-    b = rand_lazy_words(rng, (B,), FQ.p, dev)
-    for ch in (16, 256):
-        out = torch.empty_like(a)
-        compare("fq_mul_chain",
-                lambda: call(parent["svt_fq_mul_chain"], a.data_ptr(), b.data_ptr(),
-                             out.data_ptr(), B, ch),
-                lambda: cuda_ops.fq_mul_chain(a, b, ch), out, word_err,
-                cuda_ops.fq_mul_chain_plain(a, b, ch), 10, B=B, ch=ch,
-                muls=B * ch)
+    if selected("fq_mul_chain"):
+        # ------------------------------------------------------- multiply chain
+        rng = np.random.default_rng(3)
+        B = 1 << 17
+        a = rand_lazy_words(rng, (B,), FQ.p, dev)
+        b = rand_lazy_words(rng, (B,), FQ.p, dev)
+        for ch in (16, 256):
+            out = torch.empty_like(a)
+            compare("fq_mul_chain",
+                    lambda: call(parent["svt_fq_mul_chain"], a.data_ptr(), b.data_ptr(),
+                                 out.data_ptr(), B, ch),
+                    lambda: cuda_ops.fq_mul_chain(a, b, ch), out, word_err,
+                    cuda_ops.fq_mul_chain_plain(a, b, ch), 10, B=B, ch=ch,
+                    muls=B * ch)
 
-    # ----------------------------------------------------------- bucket fold
-    n = 1 << args.log2n
-    pts = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))
-    pt = py_ec.G1_GEN
-    for _ in range(args.log2n):  # pts[i] = (i+1)·G by a doubling ladder
-        step = limbs_to_words(from_affine_int([pt], device=dev)).expand_as(pts).contiguous()
-        pts = torch.cat([pts, cuda_ops.add(pts, step)], 0)
-        pt = py_ec.double(pt)
-    points_ext = torch.cat([pts, pip._identity(1, dev)], 0)
-    rng_k = np.random.default_rng(42)
-    ks = [int.from_bytes(rng_k.bytes(32), "little") % FR.p for _ in range(n)]
-    digits = pip.extract_digits(scalars_from_int(ks).to(dev), 8)
-    cap = pip.default_capacity(n, 256)
-    tcap = max(cap, pip.top_capacity(n, 8))
-    idx_all, _ = pip._slot_indices(digits[:-1], 256, cap)
-    idx_top, _ = pip._slot_indices(digits[-1:], pip.top_range(8), tcap)
-    idx_main = idx_all[:1]
-    for label, ix in (("one main window", idx_main[0].contiguous()),
-                      ("top window, whole", idx_top[0].contiguous())):
-        out = torch.empty((ix.shape[0], 3, 8), dtype=torch.int32, device=dev)
-        compare("fold_buckets",
-                lambda: call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(),
-                             ix.shape[0], ix.shape[1], n, out.data_ptr(),
-                             cuda_ops._fold_team(ix.shape[0], dev)),
-                lambda: cuda_ops.fold_buckets(points_ext, ix), out, affine_err,
-                cuda_ops.fold_buckets_plain(points_ext, ix), 5, shape=label,
-                rows=ix.shape[0], cap=ix.shape[1])
-    # ------------------------------------------------------------ dense folds
-    fold_src = (args.parent / "fold_kernels.cu").read_text()
-    parent_teams = "int team" in re.search(r"int svt_fold_segments\((.*?)\)", fold_src,
-                                           re.S).group(1)
-    if parent_teams:
-        parent["svt_fold_segments"].argtypes = [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P, _P]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def p_fold(mat, grp):
-        """The parent's kernel on one level of grouping `grp`."""
-        G, CW, S, count, width = grp
-        nb, w = mat.shape[:2]
-        team = ()
+    if selected("msm"):
+        # ----------------------------------------------------------- bucket fold
+        n = 1 << args.log2n
+        pts = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))
+        pt = py_ec.G1_GEN
+        for _ in range(args.log2n):  # pts[i] = (i+1)·G by a doubling ladder
+            step = limbs_to_words(from_affine_int([pt], device=dev)).expand_as(pts).contiguous()
+            pts = torch.cat([pts, cuda_ops.add(pts, step)], 0)
+            pt = py_ec.double(pt)
+        points_ext = torch.cat([pts, pip._identity(1, dev)], 0)
+        rng_k = np.random.default_rng(42)
+        ks = [int.from_bytes(rng_k.bytes(32), "little") % FR.p for _ in range(n)]
+        digits = pip.extract_digits(scalars_from_int(ks).to(dev), 8)
+        cap = pip.default_capacity(n, 256)
+        tcap = max(cap, pip.top_capacity(n, 8))
+        idx_all, _ = pip._slot_indices(digits[:-1], 256, cap)
+        idx_top, _ = pip._slot_indices(digits[-1:], pip.top_range(8), tcap)
+        idx_main = idx_all[:1]
+        for label, ix in (("one main window", idx_main[0].contiguous()),
+                          ("top window, whole", idx_top[0].contiguous())):
+            out = torch.empty((ix.shape[0], 3, 8), dtype=torch.int32, device=dev)
+            compare("fold_buckets",
+                    lambda: call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(),
+                                 ix.shape[0], ix.shape[1], n, out.data_ptr(),
+                                 cuda_ops._fold_team(ix.shape[0], dev)),
+                    lambda: cuda_ops.fold_buckets(points_ext, ix), out, affine_err,
+                    cuda_ops.fold_buckets_plain(points_ext, ix), 5, shape=label,
+                    rows=ix.shape[0], cap=ix.shape[1])
+        # ------------------------------------------------------------ dense folds
+        fold_src = (args.parent / "fold_kernels.cu").read_text()
+        parent_teams = "int team" in re.search(r"int svt_fold_segments\((.*?)\)", fold_src,
+                                               re.S).group(1)
         if parent_teams:
-            team = (cuda_ops.grouping_team(nb, w, grp, sms),)
-        elif width > w:
-            mat = torch.cat([mat, cuda_ops.identity((nb, width - w), dev)], 1)
-            w = width
-        out = torch.empty((nb, width // count, 3, 8), dtype=torch.int32, device=dev)
-        call(parent["svt_fold_segments"], mat.data_ptr(), nb, w, width // count, G, CW, S,
-             count, *team, out.data_ptr())
-        return out
+            parent["svt_fold_segments"].argtypes = [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I,
+                                                    _P, _P]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def p_walk(mat, levels):
-        for grp in levels:
-            mat = p_fold(mat, grp)
-        return mat[:, 0]
+        def p_fold(mat, grp):
+            """The parent's kernel on one level of grouping `grp`."""
+            G, CW, S, count, width = grp
+            nb, w = mat.shape[:2]
+            team = ()
+            if parent_teams:
+                team = (cuda_ops.grouping_team(nb, w, grp, sms),)
+            elif width > w:
+                mat = torch.cat([mat, cuda_ops.identity((nb, width - w), dev)], 1)
+                w = width
+            out = torch.empty((nb, width // count, 3, 8), dtype=torch.int32, device=dev)
+            call(parent["svt_fold_segments"], mat.data_ptr(), nb, w, width // count, G, CW, S,
+                 count, *team, out.data_ptr())
+            return out
 
-    def p_split(ix, split_rows=384):
-        """The parent's fold_buckets_split: its fold over the rows cut into
-        segments, then its fold_segments over each row's partial sums."""
-        nb, cap_x = ix.shape
-        segs = max(1, min(split_rows // nb, cap_x))
-        seg_len = -(-cap_x // segs)
-        ix = torch.cat([ix, ix.new_full((nb, segs * seg_len - cap_x), n)], 1)
-        ix = ix.view(nb * segs, seg_len)
-        parts = torch.empty((nb * segs, 3, 8), dtype=torch.int32, device=dev)
-        call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(), nb * segs,
-             seg_len, n, parts.data_ptr(), cuda_ops._fold_team(nb * segs, dev))
-        return p_fold(parts.view(nb, segs, 3, 8), cuda_ops.level_grouping(segs, segs))[:, 0]
+        def p_walk(mat, levels):
+            for grp in levels:
+                mat = p_fold(mat, grp)
+            return mat[:, 0]
 
-    top = idx_top[0].contiguous()
-    compare("fold_buckets_split", lambda: p_split(top),
-            lambda: cuda_ops.fold_buckets_split(points_ext, top), p_split(top), affine_err,
-            cuda_ops.fold_buckets_plain(points_ext, top), 10, shape=list(top.shape),
-            parent_split_rows=384, this_split_rows=cuda_ops.SPLIT_ROWS)
-    NB, wd = 256, 4624
-    fill = np.random.default_rng(1).integers(0, 2, size=(NB, wd)).astype(bool)
-    g = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))[0]
-    mat = torch.where(torch.from_numpy(fill).to(dev)[..., None, None], g,
-                      cuda_ops.identity((), dev)).contiguous()
-    sums = limbs_to_words(from_affine_int(
-        [py_ec.scalar_mul(py_ec.G1_GEN, int(c)) for c in fill.sum(1)], device=dev))
-    for name, drive, levels in (
-            ("fold_buckets_chunked", lambda m: cuda_ops.fold_buckets_chunked(m, K=8),
-             cuda_ops.chunked_levels(wd, 8)),
-            ("fold_buckets_halving", lambda m: cuda_ops.fold_buckets_halving(m, 4),
-             cuda_ops.halving_levels(wd, 4)),
-            ("fold_buckets_grid_dense", lambda m: cuda_ops.fold_buckets_grid_dense(m, 512, 4),
-             cuda_ops.grid_levels(wd, 512, 4))):
-        compare(name, lambda: p_walk(mat, levels), lambda: drive(mat), p_walk(mat, levels),
-                affine_err, sums, 5, shape=[NB, wd], levels=len(levels))
-        prev = mat
-        for i, grp in enumerate(levels):
-            compare("fold_segments", lambda: p_fold(prev, grp),
-                    lambda: cuda_ops.fold_segments(prev, *grp), p_fold(prev, grp), affine_err,
-                    cuda_ops.fold_segments_plain(prev, *grp), 10, timer=kernel_ms, walk=name,
-                    level=i, shape=list(prev.shape[:2]), grouping=list(grp),
-                    this_team=cuda_ops.grouping_team(NB, prev.shape[1], grp, sms))
-            prev = cuda_ops.fold_segments(prev, *grp)
-    del mat
+        def p_split(ix, split_rows=384):
+            """The parent's fold_buckets_split: its fold over the rows cut into
+            segments, then its fold_segments over each row's partial sums."""
+            nb, cap_x = ix.shape
+            segs = max(1, min(split_rows // nb, cap_x))
+            seg_len = -(-cap_x // segs)
+            ix = torch.cat([ix, ix.new_full((nb, segs * seg_len - cap_x), n)], 1)
+            ix = ix.view(nb * segs, seg_len)
+            parts = torch.empty((nb * segs, 3, 8), dtype=torch.int32, device=dev)
+            call(parent["svt_fold_buckets"], points_ext.data_ptr(), ix.data_ptr(), nb * segs,
+                 seg_len, n, parts.data_ptr(), cuda_ops._fold_team(nb * segs, dev))
+            return p_fold(parts.view(nb, segs, 3, 8), cuda_ops.level_grouping(segs, segs))[:, 0]
 
-    buckets = pip.bucket_sums(points_ext, idx_all, idx_top[0])  # the MSM's (32, 256)
-    del points_ext, pts, digits, idx_all
-    torch.cuda.empty_cache()
+        top = idx_top[0].contiguous()
+        compare("fold_buckets_split", lambda: p_split(top),
+                lambda: cuda_ops.fold_buckets_split(points_ext, top), p_split(top), affine_err,
+                cuda_ops.fold_buckets_plain(points_ext, top), 10, shape=list(top.shape),
+                parent_split_rows=384, this_split_rows=cuda_ops.SPLIT_ROWS)
+        NB, wd = 256, 4624
+        fill = np.random.default_rng(1).integers(0, 2, size=(NB, wd)).astype(bool)
+        g = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))[0]
+        mat = torch.where(torch.from_numpy(fill).to(dev)[..., None, None], g,
+                          cuda_ops.identity((), dev)).contiguous()
+        sums = limbs_to_words(from_affine_int(
+            [py_ec.scalar_mul(py_ec.G1_GEN, int(c)) for c in fill.sum(1)], device=dev))
+        for name, drive, levels in (
+                ("fold_buckets_chunked", lambda m: cuda_ops.fold_buckets_chunked(m, K=8),
+                 cuda_ops.chunked_levels(wd, 8)),
+                ("fold_buckets_halving", lambda m: cuda_ops.fold_buckets_halving(m, 4),
+                 cuda_ops.halving_levels(wd, 4)),
+                ("fold_buckets_grid_dense", lambda m: cuda_ops.fold_buckets_grid_dense(m, 512, 4),
+                 cuda_ops.grid_levels(wd, 512, 4))):
+            compare(name, lambda: p_walk(mat, levels), lambda: drive(mat), p_walk(mat, levels),
+                    affine_err, sums, 5, shape=[NB, wd], levels=len(levels))
+            prev = mat
+            for i, grp in enumerate(levels):
+                compare("fold_segments", lambda: p_fold(prev, grp),
+                        lambda: cuda_ops.fold_segments(prev, *grp), p_fold(prev, grp), affine_err,
+                        cuda_ops.fold_segments_plain(prev, *grp), 10, timer=kernel_ms, walk=name,
+                        level=i, shape=list(prev.shape[:2]), grouping=list(grp),
+                        this_team=cuda_ops.grouping_team(NB, prev.shape[1], grp, sms))
+                prev = cuda_ops.fold_segments(prev, *grp)
+        del mat
 
-    # ------------------------------- the point loops against their kernels
-    def p_add(x, y):
-        shape = x.shape
-        x, y = x.reshape(-1, 3, 8).contiguous(), y.reshape(-1, 3, 8).contiguous()
-        out = torch.empty_like(x)
-        call(parent["svt_g1_add"], x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0])
-        return out.view(shape)
+        buckets = pip.bucket_sums(points_ext, idx_all, idx_top[0])  # the MSM's (32, 256)
+        del points_ext, pts, digits, idx_all
+        torch.cuda.empty_cache()
 
-    def p_double(x):
-        shape = x.shape
-        x = x.reshape(-1, 3, 8).contiguous()
-        out = torch.empty_like(x)
-        call(parent["svt_g1_double"], x.data_ptr(), out.data_ptr(), x.shape[0])
-        return out.view(shape)
+        # ------------------------------- the point loops against their kernels
+        def p_add(x, y):
+            shape = x.shape
+            x, y = x.reshape(-1, 3, 8).contiguous(), y.reshape(-1, 3, 8).contiguous()
+            out = torch.empty_like(x)
+            call(parent["svt_g1_add"], x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0])
+            return out.view(shape)
 
-    def p_tree_sum(x):  # along axis 1
-        x = x.movedim(1, 0)
-        while x.shape[0] > 1:
-            half = x.shape[0] // 2
-            x = torch.cat([p_add(x[:half], x[half : 2 * half]), x[2 * half :]], 0)
-        return x[0]
+        def p_double(x):
+            shape = x.shape
+            x = x.reshape(-1, 3, 8).contiguous()
+            out = torch.empty_like(x)
+            call(parent["svt_g1_double"], x.data_ptr(), out.data_ptr(), x.shape[0])
+            return out.view(shape)
 
-    def p_msm_windowed(bases, scalars):
-        """The parent's verify MSM: its loop over its add/double kernels."""
-        digs = digits4(scalars)
-        tab, acc = [cuda_ops.identity(bases.shape[:2], dev), bases], bases
-        for _ in range(14):
-            acc = p_add(acc, bases)
-            tab.append(acc)
-        tab = torch.stack(tab, dim=2)
-        acc = cuda_ops.identity(bases.shape[:1], dev)
-        for w in range(digs.shape[-1] - 1, -1, -1):
-            for _ in range(4):
-                acc = p_double(acc)
-            idx = digs[..., w][..., None, None, None]
-            sel = torch.take_along_dim(tab, idx, dim=2).squeeze(2)
-            acc = p_add(acc, p_tree_sum(sel))
-        return acc
+        def p_tree_sum(x):  # along axis 1
+            x = x.movedim(1, 0)
+            while x.shape[0] > 1:
+                half = x.shape[0] // 2
+                x = torch.cat([p_add(x[:half], x[half : 2 * half]), x[2 * half :]], 0)
+            return x[0]
 
-    def p_bucket_reduce(b):
-        """The parent's weighted bucket sums and Horner loop."""
-        s = b[:, 1:].flip(1)
-        width, d = s.shape[1], 1
-        while d < width:
-            s = torch.cat([s[:, :d], p_add(s[:, d:], s[:, : width - d])], dim=1)
-            d *= 2
-        while s.shape[1] > 1:
-            half = s.shape[1] // 2
-            s = torch.cat([p_add(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
-        acc = cuda_ops.identity((1,), dev)
-        for w in range(s.shape[0] - 1, -1, -1):
-            for _ in range(8):
-                acc = p_double(acc)
-            acc = p_add(acc, s[w : w + 1, 0])
-        return acc
+        def p_msm_windowed(bases, scalars):
+            """The parent's verify MSM: its loop over its add/double kernels."""
+            digs = digits4(scalars)
+            tab, acc = [cuda_ops.identity(bases.shape[:2], dev), bases], bases
+            for _ in range(14):
+                acc = p_add(acc, bases)
+                tab.append(acc)
+            tab = torch.stack(tab, dim=2)
+            acc = cuda_ops.identity(bases.shape[:1], dev)
+            for w in range(digs.shape[-1] - 1, -1, -1):
+                for _ in range(4):
+                    acc = p_double(acc)
+                idx = digs[..., w][..., None, None, None]
+                sel = torch.take_along_dim(tab, idx, dim=2).squeeze(2)
+                acc = p_add(acc, p_tree_sum(sel))
+            return acc
 
-    rng = np.random.default_rng(6)
-    B, nb = 1024, 26
-    bases = limbs_to_words(from_affine_int(py_ec.rand_points(nb, seed=6), device=dev))
-    bases = bases.expand(B, nb, 3, 8).contiguous()
-    ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(B * nb)]
-    raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks), dtype="<i4")
-    scs = torch.from_numpy(raw.reshape(B, nb, 8).copy()).to(dev)
-    compare("msm_windowed", lambda: p_msm_windowed(bases, scs),
-            lambda: cuda_ops.msm_windowed(bases, scs), p_msm_windowed(bases, scs), affine_err,
-            cuda_ops.msm_windowed_plain(bases, digits4(scs)), 5, shape=[B, nb])
-    compare("bucket_reduce", lambda: p_bucket_reduce(buckets),
-            lambda: pip.bucket_reduce(buckets, 8), p_bucket_reduce(buckets), affine_err,
-            pip.bucket_reduce_plain(buckets, 8), 5, shape=list(buckets.shape[:2]))
-    del buckets, bases, scs
+        def p_bucket_reduce(b):
+            """The parent's weighted bucket sums and Horner loop."""
+            s = b[:, 1:].flip(1)
+            width, d = s.shape[1], 1
+            while d < width:
+                s = torch.cat([s[:, :d], p_add(s[:, d:], s[:, : width - d])], dim=1)
+                d *= 2
+            while s.shape[1] > 1:
+                half = s.shape[1] // 2
+                s = torch.cat([p_add(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
+            acc = cuda_ops.identity((1,), dev)
+            for w in range(s.shape[0] - 1, -1, -1):
+                for _ in range(8):
+                    acc = p_double(acc)
+                acc = p_add(acc, s[w : w + 1, 0])
+            return acc
 
-    # --------------------------------------------------------------- Poseidon
-    rc, md = poseidon._host_constants()
-    err = parent["svt_poseidon_load_constants"](rc.ctypes.data, md.ctypes.data)
-    if err:
-        raise RuntimeError(f"the parent's constants did not load: cudaError {err}")
-    rng = np.random.default_rng(5)
-    for B in (1024, 1 << 16):
-        st = rand_lazy_words(rng, (B, 3), FRW.spec.p, dev)
-        out = torch.empty_like(st)
-        compare("poseidon_permute",
-                lambda: call(parent["svt_poseidon_permute"], st.data_ptr(), out.data_ptr(), B),
-                lambda: permute(st), out, word_err, permute_plain(st), 10, B=B)
+        rng = np.random.default_rng(6)
+        B, nb = 1024, 26
+        bases = limbs_to_words(from_affine_int(py_ec.rand_points(nb, seed=6), device=dev))
+        bases = bases.expand(B, nb, 3, 8).contiguous()
+        ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(B * nb)]
+        raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks), dtype="<i4")
+        scs = torch.from_numpy(raw.reshape(B, nb, 8).copy()).to(dev)
+        compare("msm_windowed", lambda: p_msm_windowed(bases, scs),
+                lambda: cuda_ops.msm_windowed(bases, scs), p_msm_windowed(bases, scs), affine_err,
+                cuda_ops.msm_windowed_plain(bases, digits4(scs)), 5, shape=[B, nb])
+        compare("bucket_reduce", lambda: p_bucket_reduce(buckets),
+                lambda: pip.bucket_reduce(buckets, 8), p_bucket_reduce(buckets), affine_err,
+                pip.bucket_reduce_plain(buckets, 8), 5, shape=list(buckets.shape[:2]))
+        del buckets, bases, scs
+
+    if selected("poseidon_permute"):
+        # --------------------------------------------------------------- Poseidon
+        rc, md = poseidon._host_constants()
+        err = parent["svt_poseidon_load_constants"](rc.ctypes.data, md.ctypes.data)
+        if err:
+            raise RuntimeError(f"the parent's constants did not load: cudaError {err}")
+        rng = np.random.default_rng(5)
+        for B in (1024, 1 << 16):
+            st = rand_lazy_words(rng, (B, 3), FRW.spec.p, dev)
+            out = torch.empty_like(st)
+            compare("poseidon_permute",
+                    lambda: call(parent["svt_poseidon_permute"], st.data_ptr(), out.data_ptr(), B),
+                    lambda: permute(st), out, word_err, permute_plain(st), 10, B=B)
+
+    # ---------------------------------------------------- the field inverse
+    from snark_verifier_tpu_torch.ff import FQW
+
+    if "svt_field_inv" in parent and selected("field_inv"):
+        rng = np.random.default_rng(23)
+        for tag, F in ((0, FQW), (1, FRW)):
+            for n in (2048, 64, 4, 1024):
+                x = rand_lazy_words(rng, (n,), F.spec.p, dev)
+                out = torch.empty_like(x)
+                compare("field_inv",
+                        lambda: call(parent["svt_field_inv"], tag, x.data_ptr(), out.data_ptr(), n),
+                        lambda: F.inv(x), out, lambda got, want: word_err(F.canon(got), want),
+                        F.plain("canon", F.plain("inv", x)), 20, timer=kernel_ms,
+                        field=F.spec.name, n=n)
+
+    # ------------------------------------------------------------ keccak read
+    if "svt_keccak_squeeze" in parent and selected("keccak_read"):
+        from snark_verifier_tpu_torch.hash import keccak_device as kd
+        from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
+        from snark_verifier_tpu_torch.sdk import aggregation as agg
+        from snark_verifier_tpu_torch.sdk.snark import Snark
+        from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
+
+        fx = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
+        base = [Snark.load(str(fx / f"evmsnark_{i:02d}.json")) for i in range(16)]
+        snarks = [base[i % 16] for i in range(1024)]
+        sched = succinct_plan(base[0].protocol, Bdfg21, "shplonk", "evm").keccak
+        inst = agg._instance_block(snarks, dev)
+        sc, pts = agg._stack_streams(snarks, dev)
+        hp, cp = kd.read_plain(sched, inst, sc, pts)
+        bufs = []
+        for q in range(len(sched.squeezes)):
+            words, tags = kd.squeeze_words(sched, q, inst, sc, pts, hp)
+            pad = torch.from_numpy(kd.pad_lanes(len(tags))[0].copy()).to(dev)
+            bufs.append((words.contiguous(), torch.tensor(tags, dtype=torch.int32, device=dev),
+                         len(tags), pad,
+                         torch.empty((4 * len(tags), 1024), dtype=torch.int64, device=dev)))
+        hash_p = torch.empty_like(hp)
+        chal_p = torch.empty_like(cp)
+
+        def p_read():
+            for q, (words, tags, W, pad, scratch) in enumerate(bufs):
+                call(parent["svt_keccak_squeeze"], words.data_ptr(), tags.data_ptr(), W,
+                     pad.data_ptr(), pad.shape[0], scratch.data_ptr(), hash_p[q].data_ptr(),
+                     chal_p[q].data_ptr(), 1024)
+            return chal_p
+
+        compare("keccak_read", p_read, lambda: kd.read(sched, inst, sc, pts)[1], p_read(),
+                word_err, cp, 20, timer=kernel_ms, B=1024, widths=sched.widths,
+                parent_launches=len(bufs), this_launches=1)
 
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -62,7 +62,7 @@ _SIGNATURES = {
     # accumulation_kernels.cu
     "svt_fr_powers": [_P, _I, _P, _LL, _P],
     # keccak_kernels.cu
-    "svt_keccak_squeeze": [_P, _P, _I, _P, _I, _P, _P, _P, _LL, _P],
+    "svt_keccak_read": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
 }
 
 _lib = None

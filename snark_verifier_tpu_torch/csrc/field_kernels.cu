@@ -5,33 +5,45 @@
 // These replace work the JAX package leaves to XLA
 // (ff/jnp_field.py::LimbField.mul :145, add :127, sub :132, neg :141,
 // inv :211, canon :121): on the verify path the transcript's Fq -> Fr map
-// (three launches a batch); the succinct verifier's scalar algebra runs
-// here only under the eager TorchLoader, the witness of the recorded Fr
-// program that the verify path runs as one svt_fr_tape launch
-// (csrc/fr_tape.cu).  Torch has no 256-bit modular arithmetic, and the
-// plain limb twin (ff/limb_field.py) synchronizes the host once per carry
-// pass, so on the card every one of these ops is one launch of a kernel
-// here.
+// (three launches a batch); on the tree the affine normalisation of every
+// fold level (cuda_ops.affine_xy: one inv and one mul launch a level); the
+// succinct verifier's scalar algebra runs here only under the eager
+// TorchLoader, the witness of the recorded Fr program that the verify path
+// runs as one svt_fr_tape launch (csrc/fr_tape.cu).  Torch has no 256-bit
+// modular arithmetic, and the plain limb twin (ff/limb_field.py)
+// synchronizes the host once per carry pass, so on the card every one of
+// these ops is one launch of a kernel here.
 //
 // Each launch applies one op to n elements, one thread per element; either
 // operand may be a single element broadcast over all n (stride 0), which is
 // how the verifier's constants enter.  `field` is the tag of fq.cuh (0 = Fq,
 // 1 = Fr).  Bounds: mul is 136 multiply-adds against 96 bytes moved (0.36
 // bytes per multiply-add, near the H100's ridge of 0.2); add, sub, neg and
-// canon do no multiplies and are bound by bytes; inv is 254 squarings plus
-// popcount(p - 2) multiplies (about 370 products, 50,000 multiply-adds) per
-// element, bound by operations.  At the verifier's shapes (B = 1,024
-// elements) every launch is far below either bound: launch overhead rules.
+// canon do no multiplies and are bound by bytes.  At the verifier's shapes
+// (B = 1,024 elements) every launch is far below either bound: launch
+// overhead rules.
+//
+// inv is fe_inv.cuh's binary GCD (a variable-time inversion: the inputs are
+// public), not fq.cuh's Fermat chain of ~370 dependent products (0.21 ms at
+// any batch, a lone warp's latency): ~12 rounds of 30 cheap 64-bit steps and
+// one 2x2 update by factors of at most 2^30 (80 multiply-adds), and its
+// output is canonical, in [0, p).  A latency-bound thread per element, so
+// it launches 32-thread blocks: the tree's 2,048 elements spread over 64
+// SMs, not 8.  Its bound counts the steps' least integer instructions and
+// the updates' multiply-adds for the rounds the data needs
+// (chip_smoke.py's `inv_work`).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "fe_inv.cuh"
 #include "fq.cuh"
 
 namespace svt {
 
 constexpr int FE_THREADS = 256;
+constexpr int INV_THREADS = 32;  // a block a warp: a small batch spreads over the SMs
 enum { OP_MUL, OP_ADD, OP_SUB, OP_NEG, OP_INV, OP_CANON };
 
 __device__ __forceinline__ void fe_load(uint32_t r[FQ_WORDS], const uint32_t* __restrict__ src) {
@@ -63,20 +75,22 @@ __global__ void __launch_bounds__(FE_THREADS)
   fe_store(out + i * FQ_WORDS, r);
 }
 
-template <int F, int OP>
-__global__ void __launch_bounds__(FE_THREADS)
+template <int F, int OP, int THREADS>
+__global__ void __launch_bounds__(THREADS)
     field_unary_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * FE_THREADS + threadIdx.x;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   uint32_t x[FQ_WORDS], r[FQ_WORDS];
   fe_load(x, a + i * FQ_WORDS);
   if constexpr (OP == OP_NEG) fe_neg<F>(r, x);
-  if constexpr (OP == OP_INV) fe_inv<F>(r, x);
+  if constexpr (OP == OP_INV) fe_inv_gcd<F>(r, x);
   if constexpr (OP == OP_CANON) fe_canon<F>(r, x);
   fe_store(out + i * FQ_WORDS, r);
 }
 
-inline unsigned fe_blocks(long long n) { return (unsigned)((n + FE_THREADS - 1) / FE_THREADS); }
+inline unsigned fe_blocks(long long n, int threads = FE_THREADS) {
+  return (unsigned)((n + threads - 1) / threads);
+}
 
 template <int OP>
 int launch_binary(int field, const void* a, long long sa, const void* b, long long sb, void* out,
@@ -97,13 +111,14 @@ int launch_binary(int field, const void* a, long long sa, const void* b, long lo
 template <int OP>
 int launch_unary(int field, const void* a, void* out, long long n, void* stream) {
   if (field != FQ && field != FR) return (int)cudaErrorInvalidValue;
+  constexpr int T = OP == OP_INV ? INV_THREADS : FE_THREADS;
   if (n > 0) {
     const auto st = (cudaStream_t)stream;
     if (field == FQ)
-      field_unary_kernel<FQ, OP><<<fe_blocks(n), FE_THREADS, 0, st>>>(
+      field_unary_kernel<FQ, OP, T><<<fe_blocks(n, T), T, 0, st>>>(
           (const uint32_t*)a, (uint32_t*)out, n);
     else
-      field_unary_kernel<FR, OP><<<fe_blocks(n), FE_THREADS, 0, st>>>(
+      field_unary_kernel<FR, OP, T><<<fe_blocks(n, T), T, 0, st>>>(
           (const uint32_t*)a, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();

@@ -1,13 +1,12 @@
-// Keccak-256 pieces for the EVM transcript's squeeze (keccak_kernels.cu),
-// every function __host__ __device__: tests/test_torch_keccak_schedule.py
-// compiles this very text with g++ and holds it against python ints.
+// Keccak-256 pieces for the EVM transcript's read (keccak_kernels.cu):
+// tests/test_torch_keccak_schedule.py compiles this very text with g++ (a
+// thread a lane, a shuffle through a barrier) and holds it against python
+// ints.
 //
-// * kc_permute: keccak-f[1600] on 25 64-bit lanes (lane i at x = i % 5,
-//   y = i / 5), its 24 rounds unrolled so that every lane index, rotation
-//   and round constant is a compile-time constant and the state stays in
-//   registers.  nvcc turns each 64-bit rotation into two funnel shifts
-//   (SHF.L.W) and each chi term x ^ (~y & z) into one three-input LOP3 per
-//   32-bit half.
+// * kc_team_permute: keccak-f[1600] by a warp, a 64-bit sponge lane a
+//   thread (lane i at x = i % 5, y = i / 5), its 24 rounds unrolled so that
+//   every round constant is an immediate; the lanes meet by __shfl_sync.
+//   Each chi term x ^ (~y & z) is one three-input LOP3 per 32-bit half.
 // * kc_word_to_lanes / kc_lanes_to_word: a canonical 256-bit value in the
 //   port's 8 little-endian 32-bit words <-> the four sponge lanes of its
 //   32-byte big-endian encoding.  Lane i is the byte-reversed 64-bit chunk
@@ -54,53 +53,91 @@ __host__ __device__ __forceinline__ uint32_t kc_bswap32(uint32_t x) {
 #endif
 }
 
-// keccak-f[1600] in place.
-__host__ __device__ __forceinline__ void kc_permute(uint64_t a[KC_LANES]) {
+// ---- keccak-f[1600] by a team of lanes ----------------------------------
+//
+// One warp holds one state: lane t < 25 holds sponge lane t (x = t % 5,
+// y = t / 5) as a 64-bit value; lanes 25..31 mirror lanes 0..6 (they
+// compute, nobody reads them), so every shuffle runs with the full mask.  A
+// round, for each lane:
+//   theta  C[x] = its column's five lanes (four shuffles of the other rows),
+//          D[x] = C[x-1] ^ rotl(C[x+1], 1) (two shuffles), a ^= D[x];
+//   rho+pi the lane takes its pi source's value (one shuffle) and rotates it
+//          by that source's rho offset (a per-lane amount, fixed for the
+//          kernel: one select of the halves, two funnel shifts);
+//   chi    a ^= ~b[x+1] & b[x+2] of its row (two shuffles);
+//   iota   lane 0 XORs the round constant (an immediate: rounds unrolled).
+// A 64-bit shuffle is two 32-bit ones: 18 shuffles a round, 4 of them on
+// the round's critical path (parities, D, pi, chi) beside ~12 dependent
+// integer instructions.
+
+// rho's offset of lane i (x = i % 5, y = i / 5).
+__host__ __device__ constexpr int kc_rho(int i) {
+  constexpr int rho[KC_LANES] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
+                                 25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
+  return rho[i];
+}
+
+// rotl(hi:lo, m) for 0 <= m < 32, one half at a time: the high 32 bits of
+// (hi:lo) << m.
+__host__ __device__ __forceinline__ uint32_t kc_funnel(uint32_t lo, uint32_t hi, int m) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_l(lo, hi, m);
+#else
+  return m ? (hi << m) | (lo >> (32 - m)) : hi;
+#endif
+}
+
+// A lane's fixed part of the team permutation.
+struct KcTeamLane {
+  int col[4];     // the other four lanes of its column
+  int left;       // lane x - 1 of its row
+  int right;      // lane x + 1 of its row
+  int right2;     // lane x + 2 of its row
+  int src;        // pi: the lane whose value it takes
+  int rot;        // rho's offset of that value, mod 32 ...
+  bool rot_swap;  // ... after swapping the halves when the offset is >= 32
+  bool iota;      // lane 0
+};
+
+__host__ __device__ __forceinline__ KcTeamLane kc_team_lane(int t) {
+  const int i = t < KC_LANES ? t : t - KC_LANES;
+  const int x = i % 5, y = i / 5;
+  KcTeamLane m;
+#pragma unroll
+  for (int k = 1; k < 5; k++) m.col[k - 1] = x + 5 * ((y + k) % 5);
+  m.left = (x + 4) % 5 + 5 * y;
+  m.right = (x + 1) % 5 + 5 * y;
+  m.right2 = (x + 2) % 5 + 5 * y;
+  // b[X + 5Y] = rotl(a[x + 5y], rho) with X = y, Y = 2x + 3y: x = X + 3Y.
+  m.src = (x + 3 * y) % 5 + 5 * x;
+  int r = 0;  // kc_rho(m.src) by selects over immediates: no table in local memory
+#pragma unroll
+  for (int k = 0; k < KC_LANES; k++) r = k == m.src ? kc_rho(k) : r;
+  m.rot = r & 31;
+  m.rot_swap = r >= 32;
+  m.iota = i == 0;
+  return m;
+}
+
+__device__ __forceinline__ uint64_t kc_shfl(uint64_t v, int src) {
+  const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)v, src);
+  const uint32_t hi = __shfl_sync(0xffffffffu, (uint32_t)(v >> 32), src);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// keccak-f[1600] of the warp's state; a is this lane's sponge lane.
+__device__ __forceinline__ void kc_team_permute(uint64_t& a, const KcTeamLane& m) {
 #pragma unroll
   for (int r = 0; r < KC_ROUNDS; r++) {
-    // theta
-    uint64_t c[5], d[5], b[KC_LANES];
-#pragma unroll
-    for (int x = 0; x < 5; x++) c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
-#pragma unroll
-    for (int x = 0; x < 5; x++) d[x] = c[(x + 4) % 5] ^ kc_rotl(c[(x + 1) % 5], 1);
-#pragma unroll
-    for (int i = 0; i < KC_LANES; i++) a[i] ^= d[i % 5];
-    // rho and pi: b[y + 5 ((2x + 3y) % 5)] = rotl(a[x + 5y], ROT[x][y])
-    b[0] = a[0];
-    b[1] = kc_rotl(a[6], 44);
-    b[2] = kc_rotl(a[12], 43);
-    b[3] = kc_rotl(a[18], 21);
-    b[4] = kc_rotl(a[24], 14);
-    b[5] = kc_rotl(a[3], 28);
-    b[6] = kc_rotl(a[9], 20);
-    b[7] = kc_rotl(a[10], 3);
-    b[8] = kc_rotl(a[16], 45);
-    b[9] = kc_rotl(a[22], 61);
-    b[10] = kc_rotl(a[1], 1);
-    b[11] = kc_rotl(a[7], 6);
-    b[12] = kc_rotl(a[13], 25);
-    b[13] = kc_rotl(a[19], 8);
-    b[14] = kc_rotl(a[20], 18);
-    b[15] = kc_rotl(a[4], 27);
-    b[16] = kc_rotl(a[5], 36);
-    b[17] = kc_rotl(a[11], 10);
-    b[18] = kc_rotl(a[17], 15);
-    b[19] = kc_rotl(a[23], 56);
-    b[20] = kc_rotl(a[2], 62);
-    b[21] = kc_rotl(a[8], 55);
-    b[22] = kc_rotl(a[14], 39);
-    b[23] = kc_rotl(a[15], 41);
-    b[24] = kc_rotl(a[21], 2);
-    // chi along each row y, then iota
-#pragma unroll
-    for (int y = 0; y < 25; y += 5) {
-#pragma unroll
-      for (int x = 0; x < 5; x++) {
-        a[y + x] = kc_chi(b[y + x], b[y + (x + 1) % 5], b[y + (x + 2) % 5]);
-      }
-    }
-    a[0] ^= kc_round_constant(r);
+    const uint64_t c = a ^ kc_shfl(a, m.col[0]) ^ kc_shfl(a, m.col[1]) ^ kc_shfl(a, m.col[2]) ^
+                       kc_shfl(a, m.col[3]);
+    const uint64_t d = kc_shfl(c, m.left) ^ kc_rotl(kc_shfl(c, m.right), 1);
+    const uint64_t v = kc_shfl(a ^ d, m.src);
+    const uint32_t vl = (uint32_t)v, vh = (uint32_t)(v >> 32);
+    const uint32_t lo = m.rot_swap ? vh : vl, hi = m.rot_swap ? vl : vh;
+    const uint64_t b = ((uint64_t)kc_funnel(lo, hi, m.rot) << 32) | kc_funnel(hi, lo, m.rot);
+    a = kc_chi(b, kc_shfl(b, m.right), kc_shfl(b, m.right2));
+    a ^= m.iota ? kc_round_constant(r) : 0;
   }
 }
 

@@ -1,6 +1,6 @@
-// svt_keccak_squeeze: the EVM (keccak) transcript's squeeze for a batch of
-// proofs, for Hopper (sm_90a), bound through a plain C interface (ctypes,
-// see _build.py and hash/keccak_device.py::squeeze).
+// svt_keccak_read: a batch's whole EVM (keccak) transcript read in one
+// launch, for Hopper (sm_90a), bound through a plain C interface (ctypes,
+// see _build.py and hash/keccak_device.py::read and ::squeeze).
 //
 // It replaces the JAX package's hash/keccak_device.py::keccak_f (:82) and
 // keccak256_words (:137), which XLA runs as a 24-step lax.scan over (lo, hi)
@@ -8,45 +8,47 @@
 // from_mont (transcript/evm_transcript.py::EvmTranscript, :114-134).  Torch
 // has no 64-bit rotation on unsigned lanes and no 256-bit modular multiply.
 //
-// One squeeze: keccak256 of the transcript's buffer of W 32-byte words,
-// the dup marker 0x01 after a lone word (transcript/evm.rs:88), the keccak
-// pad 0x01 ... 0x80; its hash and its challenge (the hash mod r, Montgomery
-// form).  Word w carries a tag: 0 raw bytes (the previous squeeze's hash,
-// as a value's words), 1 an Fr element and 2 an Fq element in Montgomery
-// form, which leave it through fq.cuh's multiply by plain 1 and fe_canon.
-// The padding lanes after the words are static per W and computed on the
-// host (keccak_device.py::pad_lanes).
+// A read is a schedule recorded once per protocol (verifier/plonk/plan.py):
+// squeeze q hashes rows starts[q] .. starts[q + 1] - 1, each row a word's
+// source (an instance, a constant, a stream scalar, the x or y of a stream
+// point, or the hash of an earlier squeeze), its index there and its tag:
+// 0 raw bytes (hashed as they are), 1 an Fr and 2 an Fq element in
+// Montgomery form (they leave it through fq.cuh's multiply by plain 1 and
+// fe_canon).  Each squeeze is keccak256 of its words, the dup marker 0x01
+// after a lone word (transcript/evm.rs:88) and the keccak pad, whose lanes
+// depend on the word count alone (keccak_device.py::pad_lanes, one table of
+// every squeeze's).  Out: every squeeze's hash (raw words) and challenge
+// (the hash mod r, Montgomery form), (n_sq, B, 8) each.  A single squeeze of
+// given words (EvmTranscript.squeeze_challenge) is a schedule of one.
 //
-// Design: a thread per proof, 32 threads a block so that a batch of 1,024
-// spreads over 32 SMs.  A thread first turns its W words into sponge lanes
-// (from_mont where tagged, the byte-swapping codec of keccak.cuh) and
-// parks them in `scratch` (lane-major, so a warp's loads coalesce); then it
-// XORs block after block of 17 lanes into the 25-lane state held in
-// registers and runs keccak-f[1600] with its 24 rounds unrolled
-// (keccak.cuh).  A simple kernel that is right: nothing is shared between
-// threads.
+// Design: a warp per proof, KR_TEAMS warps a block, so a batch of 1,024
+// is 1,024 warps, ~8 on each of the 132 SMs.  A squeeze's words are gathered
+// and leave Montgomery form one word a lane (32 at a time), into a ring of
+// sponge lanes in shared memory; then the warp absorbs block after block of
+// 17 lanes, lane i XORing sponge lane i, and runs keccak.cuh's team
+// permutation, a 64-bit sponge lane a thread.  Lanes 0..3 hold the hash
+// after the last block and write it out; a later squeeze reads it back as a
+// raw word.  At the end each lane turns one squeeze's hash into its
+// challenge: fq.cuh's fe_mul<FR> with R^2 = 2^512 mod r as the multiplicand
+// and the hash as the multiplier, (R^2 h + m r) / R, the JAX package's
+// `FR_FIELD.mul(h, R2)` word for word (the product is a function of R^2 h
+// alone).  The hash may be any 256-bit value (up to ~5.3 r), outside
+// fe_mul's [0, 2r] inputs, but the carries hold: word-serial Montgomery
+// keeps every row below (a + r) 2^32 for the multiplicand a, whatever the
+// multiplier, and a = R^2 < r gives < 2^288, so the result lies in [0, 2r)
+// (tests/test_torch_keccak_schedule.py runs fe_mul's carry chains on 0,
+// r - 1, r, 2r, 5r and 2^256 - 1).
 //
-// The challenge is fq.cuh's fe_mul<FR> with R^2 = 2^512 mod r as the
-// multiplicand and the hash as the multiplier: (R^2 h + m r) / R, the JAX
-// package's `FR_FIELD.mul(h, R2)` (transcript/evm_transcript.py:131-134)
-// word for word, since the product is a function of R^2 h alone.  The hash
-// may be any 256-bit value (up to ~5.3 r), outside fe_mul's [0, 2r] inputs,
-// but its carries hold: word-serial Montgomery keeps every row's sum below
-// (a + r) 2^32 for the multiplicand a, whatever the multiplier's words, and
-// a = R^2 < r gives < 2^288, so no carry is lost and the result lies in
-// [0, 2r), the lazy contract (tests/test_torch_keccak_schedule.py runs
-// fe_mul's carry chains on 0, r - 1, r, 2r, 5r and 2^256 - 1).
-//
-// Bound.  The bytes are tiny (B (32 W + 64) bytes), so the bound is the
-// operations: a round needs at least 178 32-bit logic instructions, a
-// three-input LOP3 or a funnel shift (SHF) per 32-bit half (theta's column
+// Bound.  The bytes are tiny, so the bound is the operations: a round needs
+// at least 178 32-bit logic instructions for a whole state (theta's column
 // parities 20 LOP3, the rotations of its parities 10 SHF, and
 // a ^ C[x-1] ^ rotl(C[x+1], 1) one LOP3 a half of each of the 25 lanes, 50;
 // rho's 48 SHF; chi's 50 LOP3), iota an XOR per nonzero half of its
-// constant, 24 rounds a block.  At B = 1,024 the card is nearly empty: a
-// warp issues one integer instruction every two clocks on its scheduler's
-// 16 integer lanes, so a block's 24 rounds cost at least ~8,600 clocks of
-// one warp, with the blocks chained (chip_smoke.py's chain floor).
+// constant, 24 rounds a block (chip_smoke.py's KECCAK_OPS_PER_ROUND).  The
+// chain floor is a round's critical path on the team: four dependent
+// shuffles (the column's parity, D, pi, chi) at their latency beside the
+// dependent integer instructions between them, times 24 rounds and the
+// blocks a proof (chip_smoke.py's KECCAK_TEAM_ROUND_CLOCKS).
 
 #include <cuda_runtime.h>
 
@@ -57,80 +59,141 @@
 
 namespace svt {
 
-constexpr int KC_THREADS = 32;
+constexpr int KR_TEAMS = 4;    // warps (proofs) a block
+constexpr int KR_RING = 256;   // sponge lanes a warp buffers (a power of two)
+constexpr int KR_CHUNK = 32;   // words gathered at a time, one a lane
 constexpr int KC_TAG_FR = 1, KC_TAG_FQ = 2;  // tag 0: raw words, hashed as they are
+enum { KC_SRC_INSTANCE, KC_SRC_CONST, KC_SRC_SCALAR, KC_SRC_POINT_X, KC_SRC_POINT_Y,
+       KC_SRC_HASH };
 
-__global__ void __launch_bounds__(KC_THREADS)
-    keccak_squeeze_kernel(const uint32_t* __restrict__ words, const int* __restrict__ tags,
-                          int W, const uint32_t* __restrict__ pad, int L,
-                          uint64_t* __restrict__ scratch, uint32_t* __restrict__ hash,
-                          uint32_t* __restrict__ chal, long long n) {
-  const long long b = (long long)blockIdx.x * KC_THREADS + threadIdx.x;
-  if (b >= n) return;
-  const uint32_t one[FQ_WORDS] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-  const uint32_t r2[FQ_WORDS] = {0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u,
-                                 0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};  // R^2 mod r
-  // The buffer's words as lanes: lane 4w + i of word w at scratch[(4w + i) n + b].
-#pragma unroll 1
-  for (int w = 0; w < W; w++) {
-    const uint4* src = reinterpret_cast<const uint4*>(words + (b * W + w) * FQ_WORDS);
-    const uint4 lo = src[0], hi = src[1];
-    uint32_t x[FQ_WORDS] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}, t[FQ_WORDS];
-    const int tag = tags[w];
+struct KcRead {
+  const uint32_t* inst;     // (B, n_inst, 8) Fr Montgomery words
+  int n_inst;
+  const uint32_t* consts;   // (n_consts, 8)
+  const uint32_t* scalars;  // (B, n_sc, 8) Fr Montgomery words, the proof stream's
+  int n_sc;
+  const uint32_t* points;   // (B, n_pt, 2, 8) affine Fq Montgomery words
+  int n_pt;
+  const int* rows;          // (n_rows, 3): source, index, tag
+  const int* starts;        // (n_sq + 1,): squeeze q's rows
+  const uint32_t* pad;      // (L, 2): (lo, hi) halves of every squeeze's pad lanes
+  const int* pad_starts;    // (n_sq + 1,): squeeze q's pad lanes
+  int n_sq;
+  uint32_t* hash;           // (n_sq, B, 8) raw words
+  uint32_t* chal;           // (n_sq, B, 8) Fr Montgomery words
+  long long B;
+};
+
+__device__ __forceinline__ void kr_load(uint32_t x[FQ_WORDS], const uint32_t* __restrict__ src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const uint4 lo = s[0], hi = s[1];
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+// Row r's word for proof b, out of Montgomery form where tagged.
+__device__ __forceinline__ void kr_word(uint32_t x[FQ_WORDS], const KcRead& s, int r,
+                                        long long b) {
+  const int src = s.rows[3 * r], idx = s.rows[3 * r + 1], tag = s.rows[3 * r + 2];
+  const uint32_t* p =
+      src == KC_SRC_INSTANCE ? s.inst + (b * s.n_inst + idx) * FQ_WORDS
+      : src == KC_SRC_CONST  ? s.consts + (long long)idx * FQ_WORDS
+      : src == KC_SRC_SCALAR ? s.scalars + (b * s.n_sc + idx) * FQ_WORDS
+      : src == KC_SRC_HASH   ? s.hash + (idx * s.B + b) * FQ_WORDS
+                             : s.points + ((b * s.n_pt + idx) * 2 + (src == KC_SRC_POINT_Y))
+                                              * FQ_WORDS;
+  kr_load(x, p);
+  if (tag == KC_TAG_FR || tag == KC_TAG_FQ) {
+    const uint32_t one[FQ_WORDS] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    uint32_t t[FQ_WORDS];
     if (tag == KC_TAG_FR) {
       fe_mul<FR>(t, x, one);  // from_mont
       fe_canon<FR>(x, t);
-    } else if (tag == KC_TAG_FQ) {
+    } else {
       fe_mul<FQ>(t, x, one);
       fe_canon<FQ>(x, t);
     }
-    uint64_t l[4];
-    kc_word_to_lanes(x, l);
-#pragma unroll
-    for (int i = 0; i < 4; i++) scratch[(4LL * w + i) * n + b] = l[i];
   }
-  // The sponge: the word lanes, then the static padding lanes, 17 a block.
-  uint64_t st[KC_LANES];
-#pragma unroll
-  for (int i = 0; i < KC_LANES; i++) st[i] = 0;
-  const int n_word_lanes = 4 * W, n_lanes = 4 * W + L;
+}
+
+__global__ void __launch_bounds__(KR_TEAMS * 32) keccak_read_kernel(const KcRead s) {
+  __shared__ uint64_t ring_all[KR_TEAMS][KR_RING];
+  const int lane = threadIdx.x & 31, team = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * KR_TEAMS + team;
+  if (b >= s.B) return;  // the whole warp
+  uint64_t* ring = ring_all[team];
+  const KcTeamLane me = kc_team_lane(lane);
 #pragma unroll 1
-  for (int g0 = 0; g0 < n_lanes; g0 += KC_RATE) {
+  for (int q = 0; q < s.n_sq; q++) {
+    const int r0 = s.starts[q], W = s.starts[q + 1] - r0;
+    const int p0 = s.pad_starts[q];
+    const int n_word_lanes = 4 * W, n_lanes = n_word_lanes + s.pad_starts[q + 1] - p0;
+    uint64_t st = 0;
+    int blk = 0;
+    // Chunk c's 128 lanes go to ring slots 128c .. 128c + 127 (mod 256);
+    // the unread ones then start at 128c - 16 or later: no overwrite.
+#pragma unroll 1
+    for (int c0 = 0; c0 < W; c0 += KR_CHUNK) {
+      if (c0 + lane < W) {
+        uint32_t x[FQ_WORDS];
+        kr_word(x, s, r0 + c0 + lane, b);
+        uint64_t l[4];
+        kc_word_to_lanes(x, l);
 #pragma unroll
-    for (int k = 0; k < KC_RATE; k++) {
-      const int g = g0 + k;
-      const int p = g - n_word_lanes;
-      st[k] ^= g < n_word_lanes ? scratch[(long long)g * n + b]
-                                : ((uint64_t)pad[2 * p + 1] << 32) | pad[2 * p];
+        for (int i = 0; i < 4; i++) ring[(4 * (c0 + lane) + i) & (KR_RING - 1)] = l[i];
+      }
+      __syncwarp();
+      const int avail = c0 + KR_CHUNK >= W ? n_lanes : 4 * (c0 + KR_CHUNK);
+#pragma unroll 1
+      for (; KC_RATE * (blk + 1) <= avail; blk++) {
+        const int g = KC_RATE * blk + lane;
+        if (lane < KC_RATE) {
+          const int p = p0 + g - n_word_lanes;
+          st ^= g < n_word_lanes ? ring[g & (KR_RING - 1)]
+                                 : ((uint64_t)s.pad[2 * p + 1] << 32) | s.pad[2 * p];
+        }
+        kc_team_permute(st, me);
+      }
+      __syncwarp();
     }
-    kc_permute(st);
+    if (lane < 4) {  // hash lane `lane` is chunk 3 - lane of the value, byte-reversed
+      uint32_t* h = s.hash + (q * s.B + b) * FQ_WORDS + 2 * (3 - lane);
+      h[0] = kc_bswap32((uint32_t)(st >> 32));
+      h[1] = kc_bswap32((uint32_t)st);
+    }
+    __syncwarp();
   }
-  uint32_t h[FQ_WORDS], c[FQ_WORDS];
-  kc_lanes_to_word(st, h);
-  fe_mul<FR>(c, r2, h);  // the challenge: h R mod r, in [0, 2r)
-  uint4* dh = reinterpret_cast<uint4*>(hash + b * FQ_WORDS);
-  uint4* dc = reinterpret_cast<uint4*>(chal + b * FQ_WORDS);
-  dh[0] = make_uint4(h[0], h[1], h[2], h[3]);
-  dh[1] = make_uint4(h[4], h[5], h[6], h[7]);
-  dc[0] = make_uint4(c[0], c[1], c[2], c[3]);
-  dc[1] = make_uint4(c[4], c[5], c[6], c[7]);
+  const uint32_t r2[FQ_WORDS] = {0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u,
+                                 0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};  // R^2 mod r
+#pragma unroll 1
+  for (int q = lane; q < s.n_sq; q += 32) {
+    uint32_t h[FQ_WORDS], c[FQ_WORDS];
+    kr_load(h, s.hash + (q * s.B + b) * FQ_WORDS);
+    fe_mul<FR>(c, r2, h);  // the challenge: h R mod r, in [0, 2r)
+    uint4* dc = reinterpret_cast<uint4*>(s.chal + (q * s.B + b) * FQ_WORDS);
+    dc[0] = make_uint4(c[0], c[1], c[2], c[3]);
+    dc[1] = make_uint4(c[4], c[5], c[6], c[7]);
+  }
 }
 
 }  // namespace svt
 
 // C entry point: launches on the caller's stream, allocates nothing, and
-// returns a cudaError_t (0 = launched).  words (n, W, 8) Montgomery or raw
-// words, tags (W,) int32, pad (L, 2) uint32 (lo, hi) lanes with 4 W + L a
-// multiple of 17, scratch (4 W, n) uint64; out hash (n, 8) raw words, chal
-// (n, 8) Fr Montgomery words.
-extern "C" int svt_keccak_squeeze(const void* words, const void* tags, int W, const void* pad,
-                                  int L, void* scratch, void* hash, void* chal, long long n,
-                                  void* stream) {
-  if (W < 1 || L < 1 || (4 * W + L) % svt::KC_RATE || n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  const unsigned blocks = (unsigned)((n + svt::KC_THREADS - 1) / svt::KC_THREADS);
-  svt::keccak_squeeze_kernel<<<blocks, svt::KC_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, (const int*)tags, W, (const uint32_t*)pad, L,
-      (uint64_t*)scratch, (uint32_t*)hash, (uint32_t*)chal, n);
+// returns a cudaError_t (0 = launched).  The arrays are KcRead's; the host
+// (keccak_device.py::ReadSchedule) checks every row's index against its
+// source and that every squeeze has at least one word.
+extern "C" int svt_keccak_read(const void* inst, int n_inst, const void* consts,
+                               const void* scalars, int n_sc, const void* points, int n_pt,
+                               const void* rows, const void* starts, const void* pad,
+                               const void* pad_starts, int n_sq, void* hash, void* chal,
+                               long long B, void* stream) {
+  if (n_sq < 1 || B < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const svt::KcRead s{(const uint32_t*)inst, n_inst, (const uint32_t*)consts,
+                      (const uint32_t*)scalars, n_sc, (const uint32_t*)points, n_pt,
+                      (const int*)rows, (const int*)starts, (const uint32_t*)pad,
+                      (const int*)pad_starts, n_sq, (uint32_t*)hash, (uint32_t*)chal, B};
+  const unsigned blocks = (unsigned)((B + svt::KR_TEAMS - 1) / svt::KR_TEAMS);
+  svt::keccak_read_kernel<<<blocks, svt::KR_TEAMS * 32, 0, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
 }

@@ -210,7 +210,9 @@ class WordField:
         return self._unary("neg", a)
 
     def inv(self, a):
-        """a^(p-2) (0 maps to 0)."""
+        """The inverse, 0 mapping to 0.  On the card `svt_field_inv`'s binary
+        GCD, canonical in [0, p); on the CPU the plain Fermat a^(p-2), lazy
+        in [0, 2p]: the same value."""
         return self._unary("inv", a)
 
     def canon(self, a):

@@ -10,33 +10,43 @@ byte-reversed 64-bit chunk 3 - i of the value (`words_to_lanes`,
 every buffer of W words (`pad_lanes`): the dup marker 0x01 after a lone
 word (transcript/evm.rs:88), then the keccak pad 0x01 ... 0x80.
 
+* `ReadSchedule` — a transcript read's squeezes word by word, recorded once
+  per protocol (`verifier/plonk/plan.py`): each word's source (an instance,
+  a constant, a stream scalar, the x or y of a stream point, an earlier
+  squeeze's hash), its index there and its tag.
+* `read(schedule, inst, scalars, points)` — every squeeze of a batch's read
+  -> (hashes, challenges), (n_sq, B, 8) each.  On CUDA tensors one launch
+  of `svt_keccak_read` (csrc/keccak_kernels.cu: a warp a proof); on CPU
+  tensors `read_plain`, the same schedule squeeze by squeeze.
 * `squeeze(words, tags)` — one transcript squeeze of (B, W, 8) words, word
   w tagged TAG_RAW (a previous hash), TAG_FR or TAG_FQ (a field element in
   Montgomery form, hashed as its canonical value) -> (hash (B, 8) raw
   words, challenge (B, 8) Fr Montgomery words, the hash mod r).  On a CUDA
-  tensor one launch of `svt_keccak_squeeze` (csrc/keccak_kernels.cu); on a
-  CPU tensor `squeeze_plain`.
-* `keccak_f_plain`, `keccak256_words_plain`, `squeeze_plain` — the plain
-  versions on int64 tensors (lanes as two's-complement int64: torch has no
-  uint64, and `>>` on int64 is arithmetic, so each rotation masks what the
-  right shift drags in).  They run on any device; the checks hold the
-  kernel to them.
+  tensor the same kernel with a schedule of one squeeze; on a CPU tensor
+  `squeeze_plain`.
+* `keccak_f_plain`, `keccak256_words_plain`, `squeeze_plain`, `read_plain`
+  — the plain versions on int64 tensors (lanes as two's-complement int64:
+  torch has no uint64, and `>>` on int64 is arithmetic, so each rotation
+  masks what the right shift drags in).  They run on any device; the checks
+  hold the kernel to them.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._build import load_library
-from .._launch import check, launch
+from .._launch import check, launch, same_device
 from ..ff import FQW, FRW
 from .keccak import _ROTATIONS, _ROUND_CONSTANTS, RATE
 
 TAG_RAW, TAG_FR, TAG_FQ = 0, 1, 2  # the tags of csrc/keccak_kernels.cu
+# A word's source in a read (csrc/keccak_kernels.cu's KC_SRC_*)
+SRC_INSTANCE, SRC_CONST, SRC_SCALAR, SRC_POINT_X, SRC_POINT_Y, SRC_HASH = range(6)
 RATE_LANES = RATE // 8  # 17
 _FIELDS = {TAG_FR: FRW, TAG_FQ: FQW}
 _I64 = torch.int64
@@ -193,33 +203,142 @@ def squeeze_plain(words, tags: Sequence[int]):
     return h, FRW.plain("mul", h, FRW.const("R2", words.device))
 
 
-_static: dict = {}  # (tags, device) -> (tags, pad lanes) on that device
+class ReadSchedule:
+    """The squeezes of a transcript read, word by word.
+
+    `squeezes[q]` is squeeze q's buffer: (source, index, tag) triples, the
+    source one of SRC_*: instance `index` of the batch's instance block, the
+    constant `consts[index]` (a canonical value, hashed raw), stream scalar
+    `index`, the x or y of stream point `index`, or squeeze `index`'s hash
+    (an earlier one).  Every squeeze hashes at least one word."""
+
+    def __init__(self, squeezes: Sequence[Sequence[Tuple[int, int, int]]],
+                 consts: Sequence[int] = ()):
+        self.squeezes = [tuple((int(s), int(i), int(t)) for s, i, t in sq) for sq in squeezes]
+        self.consts = [int(v) for v in consts]
+        if not self.squeezes:
+            raise ValueError("keccak read: no squeeze")
+        for q, sq in enumerate(self.squeezes):
+            if not sq:
+                raise ValueError(f"keccak read: squeeze {q} hashes no word")
+            for src, idx, tag in sq:
+                if tag not in (TAG_RAW, TAG_FR, TAG_FQ) or idx < 0 or not (
+                        SRC_INSTANCE <= src <= SRC_HASH):
+                    raise ValueError(f"keccak read: bad word {(src, idx, tag)} in squeeze {q}")
+                if src == SRC_HASH and idx >= q:
+                    raise ValueError(f"keccak read: squeeze {q} takes the hash of squeeze {idx}")
+                if src == SRC_CONST and idx >= len(self.consts):
+                    raise ValueError(f"keccak read: constant {idx} of {len(self.consts)}")
+        self._tables: dict = {}
+
+    @property
+    def widths(self) -> List[int]:
+        return [len(sq) for sq in self.squeezes]
+
+    def need(self, src: int) -> int:
+        """How many entries of source `src` the read takes (its largest index + 1)."""
+        return 1 + max((i for sq in self.squeezes for s, i, _ in sq if s == src), default=-1)
+
+    def tables(self, device):
+        """(rows (n, 3), starts, pad (L, 2), pad starts, consts (k, 8)) int32
+        on `device`, uploaded once."""
+        key = str(device)
+        if key not in self._tables:
+            rows = np.array([w for sq in self.squeezes for w in sq], np.int32).reshape(-1, 3)
+            starts = np.cumsum([0] + self.widths).astype(np.int32)
+            pads = [pad_lanes(w)[0] for w in self.widths]
+            pad_starts = np.cumsum([0] + [p.shape[0] for p in pads]).astype(np.int32)
+            consts = np.array([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+                               for v in self.consts], np.uint32).reshape(-1, 8).view(np.int32)
+            self._tables[key] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+                                      (rows, starts, np.concatenate(pads), pad_starts, consts))
+        return self._tables[key]
 
 
-def _static_inputs(tags: Tuple[int, ...], device):
-    key = (tags, str(device))
-    if key not in _static:
-        halves, _ = pad_lanes(len(tags))
-        _static[key] = (torch.tensor(tags, dtype=torch.int32).to(device),
-                        torch.from_numpy(halves.copy()).to(device))
-    return _static[key]
+def _read_inputs(schedule: ReadSchedule, inst, scalars, points):
+    """Check a read's inputs against its schedule; -> B."""
+    check("keccak_read", inst, 3, (8,))
+    check("keccak_read", scalars, 3, (8,))
+    check("keccak_read", points, 4, (2, 8))
+    same_device("keccak_read", inst, scalars, points)
+    B = scalars.shape[0]
+    n_pt = max(schedule.need(SRC_POINT_X), schedule.need(SRC_POINT_Y))
+    for name, t, n in (("instances", inst, schedule.need(SRC_INSTANCE)),
+                       ("scalars", scalars, schedule.need(SRC_SCALAR)), ("points", points, n_pt)):
+        if t.shape[0] != B or t.shape[1] < n:
+            raise ValueError(f"keccak_read: {name} {tuple(t.shape)} for a read of {B} proofs "
+                             f"that takes {n}")
+    return B
+
+
+def squeeze_words(schedule: ReadSchedule, q: int, inst, scalars, points, hashes):
+    """Squeeze q's buffer, (B, W, 8) words, and its tags: its words gathered
+    from their sources, `hashes` the earlier squeezes' (q', B, 8)."""
+    B = scalars.shape[0]
+    consts = schedule.tables(scalars.device)[4]
+    cols = [inst[:, idx] if src == SRC_INSTANCE
+            else consts[idx].expand(B, 8) if src == SRC_CONST
+            else scalars[:, idx] if src == SRC_SCALAR
+            else points[:, idx, 0] if src == SRC_POINT_X
+            else points[:, idx, 1] if src == SRC_POINT_Y
+            else hashes[idx]
+            for src, idx, _ in schedule.squeezes[q]]
+    return torch.stack(cols, 1), [t for _, _, t in schedule.squeezes[q]]
+
+
+def read_plain(schedule: ReadSchedule, inst, scalars, points):
+    """The plain read on any device: `squeeze_plain` squeeze by squeeze ->
+    (hashes, challenges), (n_sq, B, 8) each."""
+    _read_inputs(schedule, inst, scalars, points)
+    hashes, chals = [], []
+    for q in range(len(schedule.squeezes)):
+        h, c = squeeze_plain(*squeeze_words(schedule, q, inst, scalars, points, hashes))
+        hashes.append(h)
+        chals.append(c)
+    return torch.stack(hashes, 0), torch.stack(chals, 0)
+
+
+def _launch_read(kernel: str, schedule: ReadSchedule, inst, scalars, points):
+    B, dev = scalars.shape[0], scalars.device
+    rows, starts, pad, pad_starts, consts = schedule.tables(dev)
+    n_sq = len(schedule.squeezes)
+    h = torch.empty((n_sq, B, 8), dtype=torch.int32, device=dev)
+    c = torch.empty((n_sq, B, 8), dtype=torch.int32, device=dev)
+    if B:
+        launch(kernel, load_library().svt_keccak_read, inst.data_ptr(), inst.shape[1],
+               consts.data_ptr(), scalars.data_ptr(), scalars.shape[1], points.data_ptr(),
+               points.shape[1], rows.data_ptr(), starts.data_ptr(), pad.data_ptr(),
+               pad_starts.data_ptr(), n_sq, h.data_ptr(), c.data_ptr(), B, device=dev)
+    return h, c
+
+
+def read(schedule: ReadSchedule, inst, scalars, points):
+    """A batch's whole read: inst (B, n_inst, 8) Fr Montgomery words, the
+    stream's scalars (B, n, 8) and points (B, m, 2, 8) -> (hashes,
+    challenges), (n_sq, B, 8) each.  On CUDA tensors one launch of
+    `svt_keccak_read`; on CPU tensors `read_plain`."""
+    if scalars.device.type == "cpu":
+        return read_plain(schedule, inst, scalars, points)
+    _read_inputs(schedule, inst, scalars, points)
+    return _launch_read("keccak_read", schedule, inst, scalars, points)
+
+
+_single: dict = {}  # tags -> the schedule of one squeeze of those words
 
 
 def squeeze(words, tags: Sequence[int]):
     """One squeeze of B transcript buffers: words (B, W, 8), tags (W,) ->
     (hash (B, 8), challenge (B, 8)).  On a CUDA tensor one launch of
-    `svt_keccak_squeeze`; on a CPU tensor `squeeze_plain`."""
+    `svt_keccak_read` with a schedule of one squeeze (the words as the
+    stream's scalars); on a CPU tensor `squeeze_plain`."""
     check("keccak_squeeze", words, 3, (8,))
     tags = _check_tags(words, tags)
     if words.device.type == "cpu":
         return squeeze_plain(words, tags)
-    B, W = words.shape[:2]
-    tags_t, pad = _static_inputs(tags, words.device)
-    scratch = torch.empty((4 * W, B), dtype=_I64, device=words.device)
-    h = torch.empty((B, 8), dtype=torch.int32, device=words.device)
-    c = torch.empty((B, 8), dtype=torch.int32, device=words.device)
-    if B:
-        launch("keccak_squeeze", load_library().svt_keccak_squeeze, words.data_ptr(),
-               tags_t.data_ptr(), W, pad.data_ptr(), pad.shape[0], scratch.data_ptr(),
-               h.data_ptr(), c.data_ptr(), B, device=words.device)
-    return h, c
+    if tags not in _single:
+        _single[tags] = ReadSchedule([[(SRC_SCALAR, w, t) for w, t in enumerate(tags)]])
+    B, dev = words.shape[0], words.device
+    none = torch.empty((B, 0, 8), dtype=torch.int32, device=dev)
+    pts = torch.empty((B, 0, 2, 8), dtype=torch.int32, device=dev)
+    h, c = _launch_read("keccak_squeeze", _single[tags], none, words, pts)
+    return h[0], c[0]

@@ -244,8 +244,13 @@ class TapeTranscript:
     inputs after the instances.
 
       * recording (`inner` None): each read is a new input symbol of `L`,
-        the j-th point read is StreamPoint(j), and absorbing records nothing
-        (the real transcript runs before the tape, on the card);
+        the j-th point read is StreamPoint(j), and the real transcript runs
+        before the tape, on the card.  What the transcript would hash is
+        kept as `squeezes`: squeeze q's buffer as word sources, ("const",
+        v), ("input", label) for an absorbed input symbol, ("scalar", j)
+        and ("point", j) for the j-th stream read, ("hash", q') for an
+        earlier squeeze's output, ("value", ref) for anything else (which
+        no read schedule takes: `verifier/plonk/plan.py`);
       * running (`inner` a real transcript): every call passes on to it, and
         `values` keeps each labelled read's value."""
 
@@ -256,14 +261,30 @@ class TapeTranscript:
         self.labels: List[tuple] = []
         self.values: List = []
         self.n_points = 0
+        self.n_scalars = 0
+        self.squeezes: List[List[tuple]] = []
+        self._buf: List[tuple] = []
+
+    def _source(self, s) -> tuple:
+        ref = s.ref if isinstance(s, Sym) else None
+        if ref is not None and ref[0] == "c":
+            return ("const", ref[1])
+        if ref is not None and ref[0] == "in":
+            return ("input", self.L.inputs[ref[1]])
+        return ("value", ref)
 
     def common_scalar(self, s):
         if self.inner is not None:
             self.inner.common_scalar(s)
+        else:
+            self._buf.append(self._source(s))
 
     def common_ec_point(self, pt):
         if self.inner is not None:
             self.inner.common_ec_point(pt)
+        else:
+            self._buf.append(("point", pt.index) if isinstance(pt, StreamPoint)
+                             else ("value", None))
 
     def _read(self, kind: str, method: str):
         label = (kind, len(self.labels))
@@ -273,9 +294,15 @@ class TapeTranscript:
         return v
 
     def squeeze_challenge(self):
+        if self.inner is None:
+            self.squeezes.append(self._buf)
+            self._buf = [("hash", len(self.squeezes) - 1)]
         return self._read("challenge", "squeeze_challenge")
 
     def read_scalar(self):
+        if self.inner is None:
+            self._buf.append(("scalar", self.n_scalars))
+        self.n_scalars += 1
         return self._read("scalar", "read_scalar")
 
     def read_n_scalars(self, n: int) -> List:
@@ -283,7 +310,10 @@ class TapeTranscript:
 
     def read_ec_point(self):
         self.n_points += 1
-        return StreamPoint(self.n_points - 1) if self.inner is None else self.inner.read_ec_point()
+        if self.inner is not None:
+            return self.inner.read_ec_point()
+        self._buf.append(("point", self.n_points - 1))
+        return StreamPoint(self.n_points - 1)
 
     def read_n_ec_points(self, n: int) -> List:
         return [self.read_ec_point() for _ in range(n)]

@@ -6,7 +6,8 @@ counterpart of the JAX package's `sdk/aggregation.py` (`_stack_streams`
 B snarks of one protocol verify as one batch on one device: their streams
 are stacked on the host and uploaded once per stream, the transcript reads
 the proofs (Poseidon: one `svt_poseidon_absorb` launch per challenge;
-keccak, "evm": one `svt_keccak_squeeze` launch per challenge), the
+keccak, "evm": one `svt_keccak_read` launch for the whole read, over the
+schedule the plan recorded), the
 protocol's recorded Fr program (`verifier/plonk/plan.py`) runs as one `svt_fr_tape` launch, and the MSM as one `svt_msm_windowed`
 launch.  The result is each proof's KZG accumulators (the fresh one, then
 any the instances carry), to be decided by pairings.
@@ -32,13 +33,12 @@ from ..loader.base import TorchLoader
 from ..pcs.kzg.accumulation import KzgAs
 from ..pcs.kzg.decider import decide
 from ..pcs.kzg.multiopen import Bdfg21, Gwc19
-from ..transcript.evm_transcript import EvmTranscript
 from ..transcript.poseidon_transcript import PoseidonTranscript
 from ..verifier.plonk.plan import succinct_plan
 from .snark import Snark
 
 SCHEMES = {"shplonk": Bdfg21, "gwc": Gwc19}
-TRANSCRIPTS = {"poseidon": PoseidonTranscript, "evm": EvmTranscript}
+TRANSCRIPTS = ("poseidon", "evm")
 
 
 def _stack_streams(snarks: Sequence[Snark], device):
@@ -49,9 +49,9 @@ def _stack_streams(snarks: Sequence[Snark], device):
     return sc, pts
 
 
-def _stack_instances(snarks: Sequence[Snark], device):
-    """-> a list (per instance column) of lists of (B, 8) Fr words, from one
-    host block and one upload."""
+def _instance_block(snarks: Sequence[Snark], device):
+    """-> (B, n_inst, 8) Fr Montgomery words of every lane's instances,
+    column by column: one host block, one upload."""
     p, R = FR.p, 1 << 256
     num_instance = snarks[0].protocol.num_instance
     flat = np.zeros((len(snarks), sum(num_instance), 16), np.uint32)
@@ -59,12 +59,22 @@ def _stack_instances(snarks: Sequence[Snark], device):
         vals = [v for col in s.instances for v in col]
         for k, v in enumerate(vals):
             flat[b, k] = int_to_limbs((v % p) * R % p)
-    flat_dev = torch.from_numpy(np_limbs_to_words(flat)).to(device)
+    return torch.from_numpy(np_limbs_to_words(flat)).to(device)
+
+
+def _instance_columns(block, num_instance):
+    """(B, n_inst, 8) -> a list (per instance column) of lists of (B, 8) views."""
     out, k = [], 0
     for ncol in num_instance:
-        out.append([flat_dev[:, k + i] for i in range(ncol)])
+        out.append([block[:, k + i] for i in range(ncol)])
         k += ncol
     return out
+
+
+def _stack_instances(snarks: Sequence[Snark], device):
+    """-> a list (per instance column) of lists of (B, 8) Fr words, from one
+    host block and one upload."""
+    return _instance_columns(_instance_block(snarks, device), snarks[0].protocol.num_instance)
 
 
 def _step(timings, key: str, device, fn):
@@ -117,10 +127,16 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
                              digest=digests.pop())
 
     plan = _step(timings, "plan_s", dev, lookup)
-    sc, pts, instances = _step(timings, "stack_s", dev, lambda: _stack_streams(snarks, dev)
-                               + (_stack_instances(snarks, dev),))
-    reads = _step(timings, "read_s", dev, lambda: plan.read(
-        instances, TRANSCRIPTS[transcript](sc, pts, dev), TorchLoader(B, dev)))
+    sc, pts, inst = _step(timings, "stack_s", dev, lambda: _stack_streams(snarks, dev)
+                          + (_instance_block(snarks, dev),))
+    instances = _instance_columns(inst, plan.protocol.num_instance)
+
+    def read():
+        if transcript == "evm":
+            return plan.read_keccak(inst, instances, sc, pts, TorchLoader(B, dev))
+        return plan.read(instances, PoseidonTranscript(sc, pts, dev), TorchLoader(B, dev))
+
+    reads = _step(timings, "read_s", dev, read)
     inputs = _step(timings, "gather_s", dev, lambda: plan.gather(instances, reads, B))
     outs = _step(timings, "fr_tape_s", dev, lambda: plan.scalars(inputs))
     return _step(timings, "msm_s", dev,

@@ -14,8 +14,9 @@ package's `transcript/evm_transcript.py` (`EvmTranscriptPy` :30,
 affine Fq words, both Montgomery form.  It buffers (handle, tag) pairs,
 handles of shape (B, 8) or (8,) (a constant such as the protocol's initial
 state, broadcast to the batch), and each squeeze is one
-`hash/keccak_device.py::squeeze`: on the card one `svt_keccak_squeeze`
-launch, which leaves each tagged word's Montgomery form itself.  After a
+`hash/keccak_device.py::squeeze`: on the card one launch of
+`svt_keccak_read` with a schedule of one squeeze, which leaves each tagged
+word's Montgomery form itself.  After a
 squeeze the buffer holds the raw hash alone (tag TAG_RAW), not the
 challenge.  `EvmTranscriptPy` is the python-int oracle.
 """
@@ -27,6 +28,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from .. import errors
+from ..ff import FRW
 from ..ff.spec import FQ, FR
 from ..hash.keccak import keccak256
 from ..hash.keccak_device import TAG_FQ, TAG_FR, TAG_RAW, squeeze
@@ -71,6 +73,55 @@ class EvmTranscript:
         pt = self._points[:, self._pi]
         self._pi += 1
         self.common_ec_point(pt)
+        return pt
+
+    def read_n_ec_points(self, n: int) -> List:
+        return [self.read_ec_point() for _ in range(n)]
+
+
+class PrecomputedChallengeTranscript:
+    """A reading transcript over a batch's stacked streams (scalars (B, n,
+    8), points (B, m, 2, 8), Montgomery words) that hands out a given
+    challenge sequence, one entry per squeeze, and absorbs nothing.  An
+    entry is a (B, 8) or (8,) tensor of Fr Montgomery words, an int, or a
+    list of B ints (one a proof)."""
+
+    def __init__(self, scalars, points, challenges: Sequence):
+        self._scalars = scalars
+        self._points = points
+        self._challenges = list(challenges)
+        self.batch = scalars.shape[0]
+        self._ci = 0
+        self._si = 0
+        self._pi = 0
+
+    def common_scalar(self, s):
+        pass  # the challenges were hashed before
+
+    def common_ec_point(self, xy):
+        pass
+
+    def squeeze_challenge(self):
+        c = self._challenges[self._ci]
+        self._ci += 1
+        if isinstance(c, torch.Tensor):
+            return c
+        dev = self._scalars.device
+        if isinstance(c, (list, tuple)):
+            return FRW.from_int(list(c), dev)
+        return FRW.from_int(c, dev).expand(self.batch, 8)
+
+    def read_scalar(self):
+        s = self._scalars[:, self._si]
+        self._si += 1
+        return s
+
+    def read_n_scalars(self, n: int) -> List:
+        return [self.read_scalar() for _ in range(n)]
+
+    def read_ec_point(self):
+        pt = self._points[:, self._pi]
+        self._pi += 1
         return pt
 
     def read_n_ec_points(self, n: int) -> List:

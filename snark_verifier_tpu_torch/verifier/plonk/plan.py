@@ -14,8 +14,18 @@ tape's inputs.  The plan keeps the tape, each accumulator's
 `MsmRecord`s and the protocol points the MSMs name.  It does not depend on
 the batch size.
 
+The recording also keeps what the transcript hashes at each squeeze
+(`TapeTranscript.squeezes`); for the keccak ("evm") transcript the plan
+turns it into a `hash/keccak_device.py::ReadSchedule`: every squeeze's
+words, each an instance, the protocol's initial state, a stream scalar, the
+x or y of a stream point or the previous hash, with its tag.  The schedule
+depends only on the protocol, so a batch's whole keccak read is one launch
+of `svt_keccak_read` (`read_keccak`), whose challenges a
+`PrecomputedChallengeTranscript` hands to `read_proof`.
+
 A batch then runs (`sdk/aggregation.py::batch_succinct_verify`):
-`read` (the real transcript, its squeezes on the card) -> `gather` (one
+`read` (the real transcript, its squeezes on the card) or `read_keccak`
+(one launch for the whole read) -> `gather` (one
 (n_in, B, 8) input block, its labels checked) -> `scalars` (one `svt_fr_tape` launch on the
 card, `run_plain` on the CPU: the canonical MSM scalars) -> `accumulators`
 (the bases the plan names gathered into (B, n, 3, 8), one
@@ -32,11 +42,14 @@ from typing import Dict, List
 
 import torch
 
+from ... import errors
 from ...ec.g1 import from_affine_int_np
 from ...ff import FQW, fr_tape
+from ...hash import keccak_device as kd
 from ...loader.msm_expr import lower
 from ...loader.tape_loader import GENERATOR, LimbRecord, TapeLoader, TapeTranscript
 from ...pcs.kzg.accumulator import accumulator_from_limbs
+from ...transcript.evm_transcript import PrecomputedChallengeTranscript
 from .verifier import PlonkSuccinctVerifier
 
 _PLANS: Dict[tuple, "SuccinctPlan"] = {}
@@ -48,8 +61,38 @@ def instance_label(c: int, i: int) -> tuple:
     return ("instance", c, i)
 
 
+def keccak_schedule(squeezes, protocol) -> kd.ReadSchedule:
+    """A recording's `TapeTranscript.squeezes` -> the keccak read's
+    schedule: instances (Fr, Montgomery words in the batch's instance block,
+    column by column), constants (hashed as their canonical value), stream
+    scalars (Fr), stream points (x and y, Fq) and earlier hashes (raw)."""
+    flat = {instance_label(c, i): k for k, (c, i) in enumerate(
+        (c, i) for c, n in enumerate(protocol.num_instance) for i in range(n))}
+    consts: List[int] = []
+    out = []
+    for sq in squeezes:
+        rows = []
+        for kind, v in sq:
+            if kind == "const":
+                if v not in consts:
+                    consts.append(v)
+                rows.append((kd.SRC_CONST, consts.index(v), kd.TAG_RAW))
+            elif kind == "input" and v in flat:
+                rows.append((kd.SRC_INSTANCE, flat[v], kd.TAG_FR))
+            elif kind == "scalar":
+                rows.append((kd.SRC_SCALAR, v, kd.TAG_FR))
+            elif kind == "point":
+                rows += [(kd.SRC_POINT_X, v, kd.TAG_FQ), (kd.SRC_POINT_Y, v, kd.TAG_FQ)]
+            elif kind == "hash":
+                rows.append((kd.SRC_HASH, v, kd.TAG_RAW))
+            else:
+                raise errors.InvalidProtocol(f"the keccak read cannot absorb {kind} {v}")
+        out.append(rows)
+    return kd.ReadSchedule(out, consts)
+
+
 class SuccinctPlan:
-    def __init__(self, protocol, scheme):
+    def __init__(self, protocol, scheme, transcript: str = "poseidon"):
         t0 = time.perf_counter()
         L = TapeLoader()
         instances = [[L.input(instance_label(c, i)) for i in range(n)]
@@ -62,6 +105,7 @@ class SuccinctPlan:
         self.accs = accs  # [(lhs MsmRecord, rhs MsmRecord)] then old accumulators' LimbRecords
         self.const_points = list(L.const_points)
         self.n_points = tr.n_points
+        self.keccak = keccak_schedule(tr.squeezes, protocol) if transcript == "evm" else None
         self._bases: Dict[str, torch.Tensor] = {}
         self.record_s = time.perf_counter() - t0
 
@@ -75,6 +119,17 @@ class SuccinctPlan:
         tr = TapeTranscript(inner=transcript)
         PlonkSuccinctVerifier.read_proof(self.protocol, instances, tr, self.scheme, _ReadLoader(L))
         return tr
+
+    def read_keccak(self, inst, instances, scalars, points, L) -> TapeTranscript:
+        """The keccak read of one batch: every squeeze in one launch of
+        `svt_keccak_read` (`read_plain` on CPU tensors) over the instance
+        block inst (B, n_inst, 8) and the streams, then `read` over a
+        transcript that replays its challenges."""
+        if self.keccak is None:
+            raise ValueError("plan: recorded for another transcript than keccak")
+        _, chals = kd.read(self.keccak, inst, scalars, points)
+        return self.read(instances, PrecomputedChallengeTranscript(scalars, points, list(chals)),
+                         L)
 
     def gather(self, instances, tr: TapeTranscript, batch: int):
         """-> the tape's (n_in, B, 8) input block.  Raises ValueError unless
@@ -168,5 +223,5 @@ def succinct_plan(protocol, scheme, scheme_name: str, transcript: str,
     key = (digest or protocol.content_hash(), scheme_name, transcript)
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = SuccinctPlan(protocol, scheme)
+        plan = _PLANS[key] = SuccinctPlan(protocol, scheme, transcript)
     return plan

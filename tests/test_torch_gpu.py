@@ -345,6 +345,35 @@ def test_chain_kernels_match_twins(cuda):
     assert cuda_ops.LAUNCHES["fq_mul_chain"] == 1
 
 
+def _word_vals(t):
+    return [int.from_bytes(r.tobytes(), "little") for r in t.cpu().numpy().astype("<u4")]
+
+
+@pytest.mark.parametrize("fname", ["fq", "fr"])
+@pytest.mark.parametrize("n", [1024, 2048, 64, 4])
+def test_field_inv_kernel_matches_canon_plain(cuda, fname, n):
+    """svt_field_inv (binary GCD) at the tree's shapes and the verify row's:
+    the canonical word of the plain Fermat inverse, and A^-1 R for x = A R
+    in python ints; 0, 1, p - 1 and lazy words in [p, 2p] among the inputs."""
+    from snark_verifier_tpu_torch.ff import FQW, FRW
+
+    F = FQW if fname == "fq" else FRW
+    p = F.spec.p
+    rng = np.random.default_rng(n + (fname == "fr"))
+    vals = [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p]
+    vals += [p + int.from_bytes(rng.bytes(32), "little") % p for _ in range(n // 4)]
+    vals += [int.from_bytes(rng.bytes(32), "little") % (2 * p) for _ in range(n)]
+    vals = vals[:n]
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), "<i4")
+    a = torch.from_numpy(raw.reshape(n, 8).copy()).to(cuda)
+    reset_launches()
+    got = F.inv(a)
+    assert LAUNCHES["field_inv"] == 1
+    assert torch.equal(got, F.plain("canon", F.plain("inv", a)))
+    R = 1 << 256
+    assert _word_vals(got) == [pow(x, p - 2, p) * R * R % p for x in vals]
+
+
 @pytest.mark.parametrize("fname", ["fq", "fr"])
 def test_field_kernels_match_twins(cuda, fname):
     from snark_verifier_tpu_torch.ff import FQW, FRW
@@ -362,9 +391,11 @@ def test_field_kernels_match_twins(cuda, fname):
         for x, y in ((a, b), (a, c), (c, b)):
             got = getattr(F, op)(x, y)
             assert torch.equal(got, getattr(F, op)(x.cpu(), y.cpu()).to(cuda)), op
-    for op in ("neg", "canon", "inv"):
-        src = a if op != "inv" else a[:64]
-        assert torch.equal(getattr(F, op)(src), getattr(F, op)(src.cpu()).to(cuda)), op
+    for op in ("neg", "canon"):
+        assert torch.equal(getattr(F, op)(a), getattr(F, op)(a.cpu()).to(cuda)), op
+    # the card's inverse (binary GCD) is canonical, the plain one (Fermat) lazy
+    src = a[:64]
+    assert torch.equal(F.inv(src), F.canon(F.inv(src.cpu())).to(cuda)), "inv"
     got = F.batch_inv(a[:40].view(5, 8, 8))
     want = F.batch_inv(a[:40].view(5, 8, 8).cpu())
     assert torch.equal(F.canon(got).cpu(), F.canon(want))
@@ -817,7 +848,8 @@ def test_evm_batch_on_card_matches_oracle(cuda):
     srs, snarks = _fixtures("evmsnark", 3)
     reset_launches()
     (lhs, rhs), = batch_succinct_verify(snarks, srs, "shplonk", "evm")
-    assert LAUNCHES["keccak_squeeze"] == 9 and LAUNCHES["poseidon_absorb"] == 0
+    assert LAUNCHES["keccak_read"] == 1 and LAUNCHES["keccak_squeeze"] == 0
+    assert LAUNCHES["poseidon_absorb"] == 0
     assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 1
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     assert got == [succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in snarks]
@@ -826,3 +858,66 @@ def test_evm_batch_on_card_matches_oracle(cuda):
     bad.instances[0][0] = (bad.instances[0][0] + 1) % FR.p
     assert batch_verify([bad] + snarks[1:], srs, "shplonk", "evm").tolist() == [False, True, True]
     assert batch_verify(snarks, srs, "shplonk", "poseidon").tolist() == [False] * 3
+
+
+def test_keccak_read_kernel_matches_read_plain(cuda):
+    """svt_keccak_read over the evmsnark protocol's recorded read at 16
+    lanes, one launch: equal to read_plain word for word, every challenge
+    the python-int transcript's."""
+    from snark_verifier_tpu_torch.hash import keccak_device as kd
+    from snark_verifier_tpu_torch.loader.base import NATIVE
+    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+    from snark_verifier_tpu_torch.transcript import EvmTranscriptPy
+    from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
+    from snark_verifier_tpu_torch.verifier.plonk.verifier import PlonkSuccinctVerifier
+
+    _, snarks = _fixtures("evmsnark", 16)
+    plan = succinct_plan(snarks[0].protocol, Bdfg21, "shplonk", "evm")
+    inst = agg._instance_block(snarks, cuda)
+    sc, pts = agg._stack_streams(snarks, cuda)
+    reset_launches()
+    h, c = kd.read(plan.keccak, inst, sc, pts)
+    assert LAUNCHES["keccak_read"] == 1 and LAUNCHES["keccak_squeeze"] == 0
+    hp, cp = kd.read_plain(plan.keccak, inst, sc, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hp) and torch.equal(c, cp)
+    for b, s in enumerate(snarks):
+        t = EvmTranscriptPy(s.scalars, s.points)
+        PlonkSuccinctVerifier.read_proof(s.protocol, [list(v) for v in s.instances], t, Bdfg21,
+                                         NATIVE)
+        assert [v % FR.p for v in _word_vals(c[:, b])] == [
+            x * (1 << 256) % FR.p for x in t.challenges]
+
+
+def test_keccak_read_kernel_long_buffers(cuda):
+    """A schedule of every source with buffers past one chunk of 32 words
+    (the ring of sponge lanes wraps) at B = 50, against read_plain."""
+    from snark_verifier_tpu_torch.hash import keccak_device as kd
+
+    B = 50
+    rng = np.random.default_rng(3)
+
+    def words(*shape):  # values in [0, 2r]: lazy in either field, whatever a row's tag
+        n = int(np.prod(shape))
+        vals = [int.from_bytes(rng.bytes(32), "little") % (2 * FR.p + 1) for _ in range(n)]
+        raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), "<i4")
+        return torch.from_numpy(raw.reshape(*shape, 8).copy()).to(cuda)
+
+    inst, sc, pts = words(B, 5), words(B, 80), words(B, 10, 2)
+    srcs = [(kd.SRC_INSTANCE, 5), (kd.SRC_SCALAR, 80), (kd.SRC_POINT_X, 10),
+            (kd.SRC_POINT_Y, 10), (kd.SRC_CONST, 2)]
+    squeezes = []
+    for q, W in enumerate([40, 1, 70, 33, 3]):
+        sq = [(kd.SRC_HASH, q - 1, kd.TAG_RAW)] if q else []
+        while len(sq) < W:
+            src, n = srcs[int(rng.integers(0, len(srcs)))]
+            sq.append((src, int(rng.integers(0, n)), int(rng.integers(0, 3))))
+        squeezes.append(sq)
+    sched = kd.ReadSchedule(squeezes, [FR.p - 1, 12345])
+    reset_launches()
+    h, c = kd.read(sched, inst, sc, pts)
+    assert LAUNCHES["keccak_read"] == 1
+    hp, cp = kd.read_plain(sched, inst, sc, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hp) and torch.equal(c, cp)

@@ -1,21 +1,25 @@
 """The keccak kernel's own C++, run on the host: a schedule twin.
 
-g++ compiles csrc/keccak.cuh (every function there is __host__ __device__)
-and holds its permutation and its word <-> lane codec against python ints:
-`hash/keccak.py::_keccak_f` on seeded states and the byte order of the
-32-byte big-endian word.  The challenge is csrc/fq.cuh's fe_mul<FR> with
-the kernel's R^2 table as the multiplicand and a 256-bit hash (up to
-~5.3 r, outside fe_mul's [0, 2r] inputs) as the multiplier: its inline-PTX
-carry chains run through tests/test_torch_mul_schedule.py's interpreter,
-which fails on a dropped carry, for hashes of 0, r - 1, r, 2r, 5r and
-2^256 - 1, against the Montgomery form of the hash mod r.  Then g++
-compiles csrc/keccak_kernels.cu
+g++ compiles csrc/keccak.cuh and holds its team permutation and its word
+<-> lane codec against python ints: `hash/keccak.py::_keccak_f` on seeded
+states and the byte order of the 32-byte big-endian word.  The permutation
+runs as the kernel runs it, a warp a state: one std::thread per lane, a
+64-bit sponge lane each, `__shfl_sync` an exchange through the warp's slots
+between two barriers (a lane that reads the wrong lane or a stale value
+shows as a wrong state) and `__syncwarp` a barrier.  The challenge is
+csrc/fq.cuh's fe_mul<FR> with the kernel's R^2 table as the multiplicand
+and a 256-bit hash (up to ~5.3 r, outside fe_mul's [0, 2r] inputs) as the
+multiplier: its inline-PTX carry chains run through
+tests/test_torch_mul_schedule.py's interpreter, which fails on a dropped
+carry, for hashes of 0, r - 1, r, 2r, 5r and 2^256 - 1, against the
+Montgomery form of the hash mod r.  Then g++ compiles csrc/keccak_kernels.cu
 with the launch syntax stripped, a stub of the CUDA runtime and a portable
 C++ stand-in for csrc/fq.cuh's multiply and canon (whose inline-PTX carry
 chains tests/test_torch_mul_schedule.py runs word by word), and runs the
-kernel body thread by thread on buffers of W = 1 ... 30 words with all
-three tags against `keccak256` and the plain squeeze.  Skips inside the
-test where no g++ is found.
+read kernel warp by warp (`__shared__` its function-static storage) on a
+schedule of one squeeze of W = 1 ... 30 words with all three tags against
+`keccak256` and the plain squeeze; tests/test_torch_keccak_read.py runs it
+on whole reads.  Skips inside the test where no g++ is found.
 
 Tolerance: exact."""
 
@@ -38,6 +42,7 @@ CSRC = REPO / "snark_verifier_tpu_torch" / "csrc"
 
 RUNTIME_STUB = r"""
 #pragma once
+#include <barrier>
 #include <cstdint>
 #define __device__
 #define __global__
@@ -46,16 +51,46 @@ RUNTIME_STUB = r"""
 #define __constant__
 #define __restrict__
 #define __launch_bounds__(...)
+#define __shared__ static
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct dim3_ { unsigned x, y, z; };
-extern dim3_ threadIdx, blockIdx;
+extern thread_local dim3_ threadIdx, blockIdx;
+// A warp's lanes are threads: __syncwarp is their barrier, and a shuffle
+// leaves each lane's value in the warp's slot, then reads the source's.
+extern thread_local std::barrier<>* svt_warp_barrier;
+extern thread_local uint32_t* svt_warp_slots;
+inline void __syncwarp(unsigned = 0xffffffffu) { svt_warp_barrier->arrive_and_wait(); }
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
+  svt_warp_slots[threadIdx.x & 31] = v;
+  svt_warp_barrier->arrive_and_wait();
+  const uint32_t r = svt_warp_slots[src & 31];
+  svt_warp_barrier->arrive_and_wait();
+  return r; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return 0; }
 """
 
+# Runs fn(lane) on the 32 lanes of one warp, a std::thread each.
+WARP = r"""
+#include <thread>
+#include <vector>
+thread_local dim3_ threadIdx, blockIdx;
+thread_local std::barrier<>* svt_warp_barrier;
+thread_local uint32_t* svt_warp_slots;
+template <class Fn> void run_warp(unsigned block, unsigned warp, Fn fn) {
+  std::barrier<> bar(32);
+  uint32_t slots[32];
+  std::vector<std::thread> th;
+  for (unsigned t = 0; t < 32; t++)
+    th.emplace_back([&, t] {
+      blockIdx.x = block; threadIdx.x = 32 * warp + t;
+      svt_warp_barrier = &bar; svt_warp_slots = slots;
+      fn(t); });
+  for (auto& x : th) x.join(); }
+"""
 
 def _words(x: int) -> str:
     return ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(8))
@@ -104,21 +139,26 @@ template <int F> inline void fe_mul(uint32_t r[8], const uint32_t a[8], const ui
     "ir": f"0x{(-pow(FR.p, -1, 1 << 32)) % (1 << 32):08x}u",
 })
 
-# keccak.cuh alone: "perm" permutes 25-lane states, "codec" maps a value's
-# words to lanes and back; records of uint64 / uint32 from one file into
-# another.
+# keccak.cuh alone: "perm" permutes 25-lane states by a warp, "codec" maps
+# a value's words to lanes and back; records of uint64 / uint32 from one
+# file into another.
 PIECES = r"""
 #include <cstdio>
 #include <cstring>
-#include <vector>
 #include "cuda_runtime.h"
 #include "keccak.cuh"
+#include "warp.h"
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[2], "rb");
   FILE* o = fopen(argv[3], "wb");
   if (!strcmp(argv[1], "perm")) {
-    uint64_t st[25];
-    while (fread(st, 8, 25, f) == 25) { svt::kc_permute(st); fwrite(st, 8, 25, o); }
+    uint64_t st[25], out[32];
+    while (fread(st, 8, 25, f) == 25) {
+      run_warp(0, 0, [&](unsigned t) {
+        uint64_t a = st[t < 25 ? t : t - 25];
+        svt::kc_team_permute(a, svt::kc_team_lane(t));
+        out[t] = a; });
+      fwrite(out, 8, 25, o); }
   } else {
     uint32_t w[8], back[8]; uint64_t l[4];
     while (fread(w, 4, 8, f) == 8) {
@@ -129,31 +169,38 @@ int main(int argc, char** argv) {
   return 0; }
 """
 
-# The kernel body: reads (n, W, L), words (n, W, 8), tags (W,), pad (L, 2);
-# runs every thread; writes hash (n, 8) and challenge (n, 8).
+# The read kernel: reads a header (B, n_inst, n_sc, n_pt, n_consts, n_rows,
+# n_sq, n_pad) and KcRead's arrays; runs every warp of the grid; writes the
+# hashes (n_sq, B, 8) and the challenges (n_sq, B, 8).
 KERNEL = r"""
 #include <cstdio>
+#include <cstdlib>
 #include <vector>
 #include "cuda_runtime.h"
-dim3_ threadIdx, blockIdx;
+#include "warp.h"
 #include "keccak_kernels.cpp"
+template <class T> static std::vector<T> rd(FILE* f, size_t n) {
+  std::vector<T> v(n ? n : 1);
+  if (n && fread(v.data(), sizeof(T), n, f) != n) exit(3);
+  return v; }
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
-  long long h[3];
-  if (fread(h, 8, 3, f) != 3) return 2;
-  const long long n = h[0], W = h[1], L = h[2];
-  std::vector<uint32_t> words(n * W * 8), pad(L * 2);
-  std::vector<int> tags(W);
-  if (fread(words.data(), 4, words.size(), f) != words.size()) return 3;
-  if (fread(tags.data(), 4, W, f) != (size_t)W) return 3;
-  if (fread(pad.data(), 4, pad.size(), f) != pad.size()) return 3;
-  std::vector<uint64_t> scratch(4 * W * n);
-  std::vector<uint32_t> hash(n * 8), chal(n * 8);
-  for (long long b = 0; b < n; b++) {
-    blockIdx.x = b / svt::KC_THREADS; threadIdx.x = b % svt::KC_THREADS;
-    svt::keccak_squeeze_kernel(words.data(), tags.data(), (int)W, pad.data(), (int)L,
-                               scratch.data(), hash.data(), chal.data(), n);
-  }
+  long long h[8];
+  if (fread(h, 8, 8, f) != 8) return 2;
+  const long long B = h[0], n_inst = h[1], n_sc = h[2], n_pt = h[3], n_consts = h[4];
+  const long long n_rows = h[5], n_sq = h[6], n_pad = h[7];
+  auto inst = rd<uint32_t>(f, B * n_inst * 8), consts = rd<uint32_t>(f, n_consts * 8);
+  auto scalars = rd<uint32_t>(f, B * n_sc * 8), points = rd<uint32_t>(f, B * n_pt * 16);
+  auto rows = rd<int>(f, n_rows * 3), starts = rd<int>(f, n_sq + 1);
+  auto pad = rd<uint32_t>(f, n_pad * 2);
+  auto pad_starts = rd<int>(f, n_sq + 1);
+  std::vector<uint32_t> hash(n_sq * B * 8), chal(n_sq * B * 8);
+  const svt::KcRead s{inst.data(), (int)n_inst, consts.data(), scalars.data(), (int)n_sc,
+                      points.data(), (int)n_pt, rows.data(), starts.data(), pad.data(),
+                      pad_starts.data(), (int)n_sq, hash.data(), chal.data(), B};
+  for (long long b = 0; b < B; b++)
+    run_warp((unsigned)(b / svt::KR_TEAMS), (unsigned)(b % svt::KR_TEAMS),
+             [&](unsigned) { svt::keccak_read_kernel(s); });
   FILE* o = fopen(argv[2], "wb");
   fwrite(hash.data(), 4, hash.size(), o);
   fwrite(chal.data(), 4, chal.size(), o);
@@ -171,15 +218,40 @@ def _gxx():
 
 def _build(d: Path, main: str, kernel: bool) -> Path:
     (d / "cuda_runtime.h").write_text(RUNTIME_STUB)
+    (d / "warp.h").write_text(WARP)
     (d / "keccak.cuh").write_text((CSRC / "keccak.cuh").read_text())
     if kernel:
         (d / "fq.cuh").write_text(FIELD_STUB)
         src = (CSRC / "keccak_kernels.cu").read_text()
         (d / "keccak_kernels.cpp").write_text(re.sub(r"<<<.*?>>>", "", src, flags=re.S))
     (d / "main.cpp").write_text(main)
-    subprocess.run([_gxx(), "-std=c++17", "-O2", "-I", str(d), "-o", str(d / "main"),
-                    str(d / "main.cpp")], check=True, capture_output=True, timeout=300)
+    subprocess.run([_gxx(), "-std=c++20", "-O2", "-pthread", "-I", str(d), "-o",
+                    str(d / "main"), str(d / "main.cpp")], check=True, capture_output=True,
+                   timeout=300)
     return d / "main"
+
+
+def read_kernel(d: Path):
+    """The read kernel built under g++ in `d` -> run(schedule, inst, scalars,
+    points) -> (hashes, challenges), (n_sq, B, 8) int32 each."""
+    exe = _build(d, KERNEL, kernel=True)
+
+    def run(schedule, inst, scalars, points):
+        rows, starts, pad, pad_starts, consts = (t.numpy() for t in schedule.tables("cpu"))
+        B = scalars.shape[0]
+        n_sq = len(schedule.squeezes)
+        with open(d / "in.bin", "wb") as f:
+            f.write(np.array([B, inst.shape[1], scalars.shape[1], points.shape[1],
+                              consts.shape[0], rows.shape[0], n_sq, pad.shape[0]],
+                             np.int64).tobytes())
+            for a in (inst, consts, scalars, points, rows, starts, pad, pad_starts):
+                f.write(np.ascontiguousarray(a).astype(np.int32).tobytes())
+        subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")], check=True,
+                       timeout=600)
+        out = torch.from_numpy(np.fromfile(d / "out.bin", np.int32).reshape(2, n_sq, B, 8))
+        return out[0], out[1]
+
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -261,23 +333,16 @@ def _lazy_words(rng, n, p):
 
 @pytest.fixture(scope="module")
 def kernel(tmp_path_factory):
-    d = tmp_path_factory.mktemp("keccak_kernel")
-    exe = _build(d, KERNEL, kernel=True)
+    run = read_kernel(tmp_path_factory.mktemp("keccak_kernel"))
 
-    def run(words, tags):
-        n, W = words.shape[:2]
-        halves, _ = kd.pad_lanes(W)
-        with open(d / "in.bin", "wb") as f:
-            f.write(np.array([n, W, halves.shape[0]], np.int64).tobytes())
-            f.write(words.contiguous().numpy().tobytes())
-            f.write(np.array(tags, np.int32).tobytes())
-            f.write(halves.tobytes())
-        subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")], check=True,
-                       timeout=300)
-        out = torch.from_numpy(np.fromfile(d / "out.bin", np.int32).reshape(2, n, 8))
-        return out[0], out[1]
+    def squeeze(words, tags):
+        n = words.shape[0]
+        schedule = kd.ReadSchedule([[(kd.SRC_SCALAR, w, t) for w, t in enumerate(tags)]])
+        h, c = run(schedule, torch.zeros((n, 0, 8), dtype=torch.int32), words,
+                   torch.zeros((n, 0, 2, 8), dtype=torch.int32))
+        return h[0], c[0]
 
-    return run
+    return squeeze
 
 
 def _value(row) -> int:
@@ -319,3 +384,17 @@ def test_kernel_body_matches_keccak256_and_plain(kernel, W):
         assert _value(h[b]) == int.from_bytes(want, "big")
         assert _value(c[b]) % FR.p == int.from_bytes(want, "big") * R % FR.p
 
+
+
+@pytest.mark.parametrize("W", [32, 33, 40, 64, 70])
+def test_kernel_body_long_buffers(kernel, W):
+    """Buffers past one chunk of 32 words: the ring of sponge lanes wraps
+    (64 and 70 words fill it more than once) and blocks straddle chunks."""
+    rng = np.random.default_rng(200 + W)
+    n = 2
+    tags = [int(t) for t in rng.integers(0, 3, size=W)]
+    cols = [_lazy_words(rng, n, (FR if t == kd.TAG_FR else FQ).p) for t in tags]
+    words = torch.stack(cols, 1).contiguous()
+    h, c = kernel(words, tags)
+    hp, cp = kd.squeeze_plain(words, tags)
+    assert torch.equal(h, hp) and torch.equal(c, cp)
