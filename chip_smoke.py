@@ -51,9 +51,10 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    python-int oracle for its fixture, a tampered instance in lane 0 rejects
    lane 0 alone (and moves its accumulator alone), one launch each of
    `fr_tape` (the recorded Fr program of `verifier/plonk/plan.py`),
-   `msm_windowed`, `miller_loop` and `final_exp`, at most 3 single-op field
-   launches (the transcript's batched Fq -> Fr map) and none of `add` or
-   `double`; then best-of-3 verify proofs/s, and from three more runs the
+   `msm_windowed`, `miller_loop`, `final_exp` and `points_to_fr` (the
+   transcript's batched Fq -> Fr map), no single-op field launch and none
+   of `add` or `double`; then best-of-3 verify proofs/s,
+   and from three more runs the
    succinct and decide phases and the succinct phase's steps as
    `batch_verify` records them in its `timings`; `fr_tape`
    (on the batch's own gathered inputs and on the tampered batch's, exact
@@ -77,23 +78,28 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    16 committed gwcsnark fixtures tiled) with its launch counts read around
    one call; gates: every lane accepts, every lane's accumulator equals the
    port's python-int oracle for its fixture, a tampered instance rejects
-   lane 0 alone, one launch each of `fr_tape`, `miller_loop` and
-   `final_exp`, two of `msm_windowed` (a side each); best-of-3 proofs/s, the
+   lane 0 alone, one launch each of `fr_tape`, `miller_loop`, `final_exp`
+   and `points_to_fr`, two of `msm_windowed` (a side each), no single-op
+   field launch; best-of-3 proofs/s, the
    steps of three runs, and the two MSM sides as launched beside one
    stacked launch;
 13. the tree (bench.py's bench_tree): `tree_aggregate_root` over 1,024
    leaves (the vanilla-PLONK fixtures tiled) with its launch counts read
    around one call; gates: the root accepts, a tampered leaf 0 makes it
-   reject, one `fr_powers` launch and one `field_inv` launch (the affine
-   normalisation) per fold level, each fold level (group 0
+   reject, one `fr_powers` launch per fold level, one `points_to_fr`
+   launch in the succinct phase and one per fold level (the affine
+   normalisation and the Fq -> Fr map: 4 a tree) and no single-op field
+   launch, each fold level (group 0
    of layer 1, the fold of the 32 group accumulators, the root) equals the
    python-int `create_proof` on the device's own inputs to that level;
    best-of-3 leaves/s, the phases of three runs, one traced tree's device
    time; then `aggregate_and_decide` on the same leaves (accepts; the
    tampered batch rejects);
-14. `fr_powers` against `powers_plain` at the tree's shapes (32, 32),
-   (1, 32), (1, 1) and at (1,024, 33), its times, bound, chain floor and
-   ptxas usage; `poseidon_absorb` at the fold's 32 states × 128 elements and
+14. `fr_powers` (a warp-scan a transcript) against `powers_plain` at the
+   tree's shapes (32, 32), (1, 32), (1, 1), at (1,024, 33) and at n = 31,
+   33, 64 and 65 (32 transcripts), its times, bound, chain floor (the
+   scan's least depth, ceil(log2 n) + 1 products) and ptxas usage;
+   `poseidon_absorb` at the fold's 32 states × 128 elements and
    `msm_windowed` at the fold's shapes, each against its plain version on
    random inputs and timed beside its chain floor;
 15. instance-encoded old accumulators (the committed
@@ -101,8 +107,9 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    toy_srs(32)) on the card at batch 1,024: the limb decode alone equals
    the host codec with one launch each of `field_mul` (Fr), `field_canon`
    and `field_mul` (Fq); a batch's single-op field launches are those of
-   the same protocol naming no accumulator plus exactly those three, with
-   one `fr_tape` and one `msm_windowed`; every lane's [fresh, old] equals
+   the same protocol naming no accumulator (none: its map is one
+   `points_to_fr`) plus exactly those three, with one `fr_tape` and one
+   `msm_windowed`; every lane's [fresh, old] equals
    the port's python-int oracle; the valid snark accepts on every lane, the
    bogus one (on the curve, not a valid accumulator) rejects on every lane;
 16. the keccak verify path: `batch_verify(..., "shplonk", "evm")` at batch
@@ -115,7 +122,8 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    rejects every lane, one launch of `keccak_read` (the whole read, over
    the plan's recorded schedule) and none of `keccak_squeeze`, no
    `poseidon_absorb`, one each of `fr_tape`, `msm_windowed`, `miller_loop`
-   and `final_exp` (the single-op field launches printed); best-of-3 keccak
+   and `final_exp`, no single-op field launch and no `points_to_fr` (the
+   keccak read maps no point); best-of-3 keccak
    verify proofs/s, the steps of three runs, one traced batch;
 17. the single squeeze (`svt_keccak_read` with a schedule of one squeeze,
    on the team permutation) against `squeeze_plain` (exact words) and the
@@ -129,7 +137,16 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 19. `field_inv` (binary GCD, `csrc/fe_inv.cuh`) against the canonical plain
    Fermat inverse and python ints in both fields at (1,024) and the tree's
    2,048, 64 and 4 elements (0, 1, p - 1, p, 2p - 1, 2p among them), each
-   shape timed beside its bound and chain floor, with ptxas usage.
+   shape timed beside its bound and chain floor, with ptxas usage (no path
+   launches it: `points_to_fr` inverts in its own launch);
+20. `points_to_fr` against `points_to_fr_plain` word for word: affine mode
+   on step 9's own (1,024, m, 2, 8) stream points and on lazy words,
+   projective mode on each fold level's own points from step 13 and at the
+   tree's 2,048, 64 and 4 points (Z = 1, random Z, identity lanes with
+   Z = 0, p and 2p), each equal to the launches it replaced (affine: mul,
+   canon, mul; projective: inv, mul, then the three) on the same inputs;
+   each shape timed beside its bound, its chain floor and those launches,
+   with ptxas usage.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -869,17 +886,18 @@ def verify_phase(dev, kernels, errs):
         oks_t = batch_verify([tam] + snarks[1:], srs)
     finally:
         fr_tape.run, pairing.miller_loop, pairing.final_exponentiation = real_tape, real_ml, real_fe
-    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "miller_loop", "final_exp")
+    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "miller_loop", "final_exp",
+            "points_to_fr")
     field = {k: v for k, v in launches.items() if k.startswith("field_")}
     log(f"# verify path launches per batch of {B}: "
         f"{ {k: launches[k] for k in path + ('add', 'double', 'fq12_op')} }; single-op field "
         f"kernels {field}")
     for k in path:
         check(launches[k] > 0, f"kernel {k} was not launched on the verify path")
-    for k in ("fr_tape", "msm_windowed", "miller_loop", "final_exp"):
+    for k in ("fr_tape", "msm_windowed", "miller_loop", "final_exp", "points_to_fr"):
         check(launches[k] == 1, f"the verify batch launched {k} {launches[k]} times, not once")
-    check(sum(field.values()) <= 3,
-          f"the verify batch launched {sum(field.values())} single-op field kernels, not at most 3")
+    check(sum(field.values()) == 0,
+          f"the verify batch launched {sum(field.values())} single-op field kernels, not 0")
     check(launches["add"] == 0 and launches["double"] == 0,
           "the verify batch launched the add or double kernel")
     check(len(seen_tape) == 2, "the Fr program did not run once per batch")
@@ -1320,12 +1338,15 @@ def gwc_phase(dev, kernels):
     oks = batch_verify(snarks, srs, "gwc")
     torch.cuda.synchronize()
     launches = dict(cuda_ops.LAUNCHES)
-    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "miller_loop", "final_exp")
+    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "miller_loop", "final_exp",
+            "points_to_fr")
+    field = {k: v for k, v in launches.items() if k.startswith("field_") and v}
     log(f"# gwc path launches per batch of {B}: "
         f"{ {k: launches[k] for k in path + ('add', 'double')} }; single-op field kernels "
-        f"{ {k: v for k, v in launches.items() if k.startswith('field_') and v} }")
-    for k in ("fr_tape", "miller_loop", "final_exp"):
+        f"{field}")
+    for k in ("fr_tape", "miller_loop", "final_exp", "points_to_fr"):
         check(launches[k] == 1, f"the gwc batch launched {k} {launches[k]} times, not once")
+    check(not field, f"the gwc batch launched single-op field kernels {field}")
     check(launches["msm_windowed"] == 2,
           f"the gwc batch launched msm_windowed {launches['msm_windowed']} times, not twice")
     check(launches["poseidon_absorb"] > 0, "the gwc batch launched no poseidon_absorb")
@@ -1390,7 +1411,7 @@ def gwc_phase(dev, kernels):
                        launches_gwc=launches["msm_windowed"])
         if row["name"] == "fr_tape":
             row["launches_gwc"] = launches["fr_tape"]
-    return B / best
+    return B / best, launches
 
 
 def old_acc_phase(dev):
@@ -1439,6 +1460,9 @@ def old_acc_phase(dev):
     fresh_only = batch_succinct_verify([plain] * B, srs)
     torch.cuda.synchronize()
     base = field_launches()
+    check(base == {} and cuda_ops.LAUNCHES["points_to_fr"] == 1,
+          f"the batch naming no accumulator launched {base} and points_to_fr "
+          f"{cuda_ops.LAUNCHES['points_to_fr']} times, not only points_to_fr once")
     cuda_ops.reset_launches()
     accs = batch_succinct_verify([valid] * B, srs)
     torch.cuda.synchronize()
@@ -1495,7 +1519,8 @@ def tree_phase(dev):
         launches = dict(cuda_ops.LAUNCHES)
     finally:
         KzgAs._fold_once = real
-    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "fr_powers", "miller_loop", "final_exp")
+    path = ("fr_tape", "msm_windowed", "poseidon_absorb", "fr_powers", "miller_loop", "final_exp",
+            "points_to_fr")
     log(f"# tree launches per tree of {B} leaves: "
         f"{ {k: v for k, v in launches.items() if v} }")
     for k in path:
@@ -1506,8 +1531,11 @@ def tree_phase(dev):
     check(shapes == want_shapes, f"the tree's fold levels {shapes}, not {want_shapes}")
     check(launches["fr_powers"] == len(shapes), "the tree did not launch fr_powers once per "
                                                 "fold level")
-    check(launches["field_inv"] == len(shapes), "the tree did not launch field_inv (the affine "
-                                                "normalisation) once per fold level")
+    check(launches["points_to_fr"] == len(shapes) + 1,
+          f"the tree launched points_to_fr {launches['points_to_fr']} times, not once in the "
+          f"succinct phase and once per fold level ({len(shapes) + 1})")
+    field = {k: v for k, v in launches.items() if k.startswith("field_") and v}
+    check(not field, f"the tree launched single-op field kernels {field}")
     check(launches["miller_loop"] == 1 and launches["final_exp"] == 1, "the tree's decide")
     check(launches["add"] == 0 and launches["double"] == 0, "the tree launched add/double")
     check(ok.dtype == torch.bool and ok.shape == () and bool(ok), "the tree's root rejected")
@@ -1576,7 +1604,7 @@ def accumulation_kernel_checks(dev, kernels, launches, levels):
     from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers, powers_plain
 
     rng = np.random.default_rng(11)
-    shapes = [(32, 32), (1, 32), (1, 1), (1024, 33)]
+    shapes = [(32, 32), (1, 32), (1, 1), (1024, 33), (32, 31), (32, 33), (32, 64), (32, 65)]
     rs = {B: rand_lazy_words(rng, (B,), FRW.spec.p, dev) for B, _ in shapes}
     err = 0
     for B, n in shapes:
@@ -1585,29 +1613,30 @@ def accumulation_kernel_checks(dev, kernels, launches, levels):
         err = max(err, e)
     ms = {(B, n): kernel_ms(lambda B=B, n=n: powers(rs[B], n), 50) for B, n in shapes}
     plain_ms = time_ms(lambda: powers_plain(rs[32], 32), 1, warmup=1)
-
-    def bound(B, n):
-        return bound_ms(B * 32 + B * n * 32, (n - 1) * B * MULADDS_PER_FQ_MUL)
-
-    floors = {(B, n): (n - 1) * CHAIN_FLOOR_MS_PER_MUL for B, n in shapes}
+    bounds = {(B, n): fr_powers_bound(B, n) for B, n in shapes}
+    floors = {(B, n): fr_powers_depth(n) * CHAIN_FLOOR_MS_PER_MUL for B, n in shapes}
     use = ptxas_usage("fr_powers_kernel")
-    bms, by = bound(32, 32)
-    log("# fr_powers: " + "; ".join(
-        f"({B}, {n}) {ms[(B, n)]:.4f} ms (bound {bound(B, n)[0]:.6f} ms, chain floor "
-        f"{floors[(B, n)]:.4f} ms)" for B, n in shapes)
+    bms, by = bounds[(32, 32)]
+    log("# fr_powers (a warp-scan a transcript): " + "; ".join(
+        f"({B}, {n}) {ms[(B, n)]:.4f} ms (bound {bounds[(B, n)][0]:.6f} ms, chain floor "
+        f"{floors[(B, n)]:.4f} ms = {fr_powers_depth(n)} products)" for B, n in shapes)
         + f"; plain at (32, 32) {plain_ms:.1f} ms; ptxas {use['registers']} registers, "
-          f"{use['stack_bytes']} B stack; == powers_plain word for word")
+          f"{use['spill_bytes']} B spill, {use['stack_bytes']} B stack; == powers_plain word "
+          f"for word")
     kernels.append(dict(
         name="fr_powers", route="cuda",
         source="snark_verifier_tpu_torch/csrc/accumulation_kernels.cu",
         replaces="snark_verifier_tpu/pcs/kzg/accumulation.py:196", launches=launches["fr_powers"],
         max_abs_err=err, ms=ms[(32, 32)], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None, shape=[32, 32, 8], chain_floor_ms=floors[(32, 32)],
+        shapes=[dict(B=B, n=n, ms=ms[(B, n)], bound_ms=bounds[(B, n)][0],
+                     bound_by=bounds[(B, n)][1], chain_floor_ms=floors[(B, n)],
+                     depth_products=fr_powers_depth(n)) for B, n in shapes],
         ms_1x32=ms[(1, 32)], ms_1x1=ms[(1, 1)], ms_1024x33=ms[(1024, 33)],
-        bound_ms_1x32=bound(1, 32)[0], bound_ms_1x1=bound(1, 1)[0],
+        bound_ms_1x32=bounds[(1, 32)][0], bound_ms_1x1=bounds[(1, 1)][0],
         chain_floor_ms_1x32=floors[(1, 32)], chain_floor_ms_1x1=floors[(1, 1)],
-        ptxas_registers=use["registers"], ptxas_stack_bytes=use["stack_bytes"],
-        tolerance="exact, canonical words"))
+        ptxas_registers=use["registers"], ptxas_spill_bytes=use["spill_bytes"],
+        ptxas_stack_bytes=use["stack_bytes"], tolerance="exact, canonical words"))
     # The fold's absorb: 32 transcripts of 128 elements, 65 chained
     # permutations each; its chain floor is 65 permutations of 390
     # multiplies a lane.
@@ -1644,8 +1673,21 @@ def accumulation_kernel_checks(dev, kernels, launches, levels):
                        fold_ms=[t for _, t in msm_ms.values()],
                        launches_tree=launches["msm_windowed"])
         if row["name"] in ("fr_tape", "miller_loop", "final_exp", "field_inv", "field_mul",
-                           "field_canon"):
+                           "field_canon", "points_to_fr"):
             row["launches_tree"] = launches[row["name"]]
+
+
+def fr_powers_bound(B, n):
+    """svt_fr_powers' least work: n - 1 products and n from_mont reductions
+    a transcript; r read and the powers written once."""
+    return bound_ms(B * 32 + B * n * 32,
+                    B * ((n - 1) * MULADDS_PER_FQ_MUL + n * MULADDS_FROM_MONT))
+
+
+def fr_powers_depth(n):
+    """The least depth of [1, r, ..., r^(n-1)] in dependent products: a
+    scan of ceil(log2 n) rounds, then the from_mont product."""
+    return (n - 1).bit_length() + 1
 
 
 def keccak_permutation_ops():
@@ -1757,6 +1799,8 @@ def evm_phase(dev, kernels):
     for k in path:
         check(launches[k] == 1, f"the evm batch launched {k} {launches[k]} times, not once")
     check(launches["keccak_squeeze"] == 0, "the evm batch launched the per-squeeze keccak")
+    check(sum(field.values()) == 0 and launches["points_to_fr"] == 0,
+          "the evm batch launched a single-op field kernel or points_to_fr")
     check(launches["poseidon_absorb"] == 0, "the evm batch launched poseidon_absorb")
     check(launches["add"] == 0 and launches["double"] == 0, "the evm batch launched add/double")
     check(len(reads) == 1, f"the evm batch ran {len(reads)} keccak reads, not one")
@@ -1996,8 +2040,8 @@ def inv_kernel_checks(dev, kernels, tree_launches):
     for row in kernels:
         if row["name"] == "field_inv":
             fr = next(r for r in rows if r["field"] == "fr" and r["n"] == 1024)
-            # its path is the tree's affine normalisation (the verify batch
-            # launches it no time)
+            # no path launches it (the tree's affine normalisation
+            # inverts inside svt_points_to_fr)
             row.update(max_abs_err=max(row["max_abs_err"], err),
                        chain_floor_ms=fr["chain_floor_ms"], shapes=rows,
                        plain_ms_fq_2048=plain, launches_verify=row["launches"],
@@ -2007,6 +2051,142 @@ def inv_kernel_checks(dev, kernels, tree_launches):
                        ptxas_spill_bytes=use["fr"]["spill_bytes"],
                        ptxas_stack_bytes=use["fr"]["stack_bytes"],
                        tolerance="exact, canonical words (the plain Fermat inverse canonicalized)")
+
+
+def points_to_fr_work(n, rounds=None):
+    """(bytes, operations, chain floor ms) of one svt_points_to_fr launch:
+    n elements in affine mode (rounds None), or in projective mode points
+    whose Z take these GCD rounds.  The map's least work an element is a
+    from_mont reduction and one Fr product, its chain two dependent
+    products; projective mode adds the inversion (`inv_work`) and the two
+    products by Z^-1, its chain the inversion's, then three products."""
+    per_map = MULADDS_FROM_MONT + MULADDS_PER_FQ_MUL
+    if rounds is None:
+        return 64 * n, n * per_map, 2 * CHAIN_FLOOR_MS_PER_MUL
+    _, inv_ops, inv_floor = inv_work(rounds)
+    m = len(rounds)
+    return (160 * m, inv_ops + m * (2 * MULADDS_PER_FQ_MUL + 2 * per_map),
+            inv_floor + 3 * CHAIN_FLOOR_MS_PER_MUL)
+
+
+def rand_projective(rng, pairs, n, dev):
+    """(n, 3, 8) projective words: the affine points of the fold level's
+    own `pairs`, with Z = 1 on every fourth and a random Z elsewhere, and
+    identity lanes (Z = 0, p and 2p as words, random X and Y) every
+    sixteenth from lane 1."""
+    import torch
+    from snark_verifier_tpu_torch.ff import FQ
+
+    q, R = FQ.p, 1 << 256
+    aff = [pt for pair in affine_pairs(pairs[..., 0, :, :].reshape(-1, 3, 8)[: n // 2 + 1],
+                                       pairs[..., 1, :, :].reshape(-1, 3, 8)[: n // 2 + 1])
+           for pt in pair]
+    aff = (aff * (n // len(aff) + 1))[:n]
+    rows = []
+    for k, pt in enumerate(aff):
+        if k % 16 in (1, 2, 3) or pt is None:
+            rows += [int.from_bytes(rng.bytes(32), "little") % (2 * q + 1) for _ in range(2)]
+            rows.append((0, q, 2 * q)[k % 3])
+            continue
+        lam = 1 if k % 4 == 0 else int.from_bytes(rng.bytes(32), "little") % (q - 1) + 1
+        rows += [pt[0] * lam % q * R % q, pt[1] * lam % q * R % q, lam * R % q]
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in rows), "<i4")
+    return torch.from_numpy(raw.reshape(n, 3, 8).copy()).to(dev)
+
+
+def points_to_fr_checks(dev, kernels, verify_launches, gwc_launches, tree_launches, levels):
+    """svt_points_to_fr against points_to_fr_plain and the launches it
+    replaced, word for word: affine mode on the verify batch's own stream
+    points and on lazy words, projective mode on each fold level's own
+    points and at the tree's 2,048, 64 and 4 points with identity lanes;
+    each timed beside its bound, chain floor and the replaced launches."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FQW, FRW, points_to_fr, points_to_fr_plain
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+
+    def replaced(x, projective):
+        """The launches points_to_fr replaced: (inv, mul,) mul, canon, mul."""
+        return FRW.to_mont(FQW.from_mont(cuda_ops.affine_xy(x) if projective else x))
+
+    rng = np.random.default_rng(29)
+    _, base = load_fixtures("snark")
+    _, stream = agg._stack_streams([base[i % 16] for i in range(VERIFY_BATCH)], dev)
+    cases = [("verify stream points", stream, False),
+             ("lazy words", rand_lazy_words(rng, tuple(stream.shape[:-1]), FQW.spec.p, dev),
+              False)]
+    cases += [(f"fold level {k} {tuple(p.shape[:2])}", p.reshape(-1, 3, 8).contiguous(), True)
+              for k, (p, _) in enumerate(levels)]
+    cases += [(f"synthetic {n}", rand_projective(rng, levels[0][0], n, dev), True)
+              for n in (2048, 64, 4)]
+    err, rows = 0, []
+    for label, x, proj in cases:
+        cuda_ops.reset_launches()
+        got = points_to_fr(x, proj)
+        torch.cuda.synchronize()
+        field = {k: v for k, v in cuda_ops.LAUNCHES.items() if k.startswith("field_") and v}
+        check(cuda_ops.LAUNCHES["points_to_fr"] == 1 and not field,
+              f"points_to_fr on the {label} launched "
+              f"{ {k: v for k, v in cuda_ops.LAUNCHES.items() if v} }")
+        e = word_err(got, points_to_fr_plain(x, proj))
+        check(e == 0, f"points_to_fr differs from its plain version on the {label}")
+        check(word_err(got, replaced(x, proj)) == 0,
+              f"points_to_fr differs from the launches it replaced on the {label}")
+        err = max(err, e)
+        if proj:
+            z = x[:, 2].contiguous()
+            idle = FQW.is_zero(z)
+            check(not bool(got[idle].any()), f"an identity of the {label} did not map to (0, 0)")
+            rounds = [gcd_rounds(v, FQW.spec.p) for v in word_ints(z)]
+            n_bytes, n_ops, floor = points_to_fr_work(len(rounds), rounds)
+            n_old = 5
+        else:
+            n_bytes, n_ops, floor = points_to_fr_work(x.numel() // 8)
+            n_old = 3
+        bms, by = bound_ms(n_bytes, n_ops)
+        # kernel_ms's spin (~2 ms) must outlast the host's calls for the
+        # device's own time: ~0.04 ms a wrapper call, so 20 calls of one
+        # launch and 5 of the replaced three or five.
+        rows.append(dict(
+            label=label, mode="projective" if proj else "affine", shape=list(x.shape),
+            ms=kernel_ms(lambda: points_to_fr(x, proj), 20),
+            host_ms=time_ms(lambda: points_to_fr(x, proj), 50),
+            replaced_launches=n_old,
+            replaced_ms=kernel_ms(lambda: replaced(x, proj), 5),
+            replaced_host_ms=time_ms(lambda: replaced(x, proj), 50),
+            bound_ms=bms, bound_by=by, chain_floor_ms=floor,
+            identities=int(idle.sum()) if proj else 0))
+    main = rows[0]
+    x = cases[0][1]
+    plain_ms = time_ms(lambda: points_to_fr_plain(x), 1, warmup=1)
+    use = {m: ptxas_usage(f"points_to_fr_{m}_kernel") for m in ("affine", "projective")}
+    log("# points_to_fr == its plain version and the replaced launches, word for word: "
+        + "; ".join(f"{r['label']} {tuple(r['shape'])} ({r['mode']}, {r['identities']} "
+                    f"identities): {r['ms']:.4f} ms (with the host's time {r['host_ms']:.4f}) "
+                    f"against the {r['replaced_launches']} launches it replaced "
+                    f"{r['replaced_ms']:.4f} ms (with the host's {r['replaced_host_ms']:.4f}); "
+                    f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), chain floor "
+                    f"{r['chain_floor_ms']:.4f} ms" for r in rows)
+        + f"; plain at {tuple(x.shape)} {plain_ms:.1f} ms; ptxas " + ", ".join(
+            f"{m} {u['registers']} registers, {u['spill_bytes']} B spill, {u['stack_bytes']} B "
+            f"stack" for m, u in use.items())
+        + f"; launches: verify {verify_launches['points_to_fr']}, gwc "
+          f"{gwc_launches['points_to_fr']}, tree {tree_launches['points_to_fr']}")
+    kernels.append(dict(
+        name="points_to_fr", route="cuda", source="snark_verifier_tpu_torch/csrc/field_kernels.cu",
+        replaces="snark_verifier_tpu/transcript/poseidon_transcript.py:31",
+        also_replaces=["snark_verifier_tpu/ec/curve.py:261",
+                       "snark_verifier_tpu/pcs/kzg/accumulation.py:88"],
+        launches=verify_launches["points_to_fr"], launches_gwc=gwc_launches["points_to_fr"],
+        launches_tree=tree_launches["points_to_fr"], max_abs_err=err, ms=main["ms"],
+        plain_ms=plain_ms, bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, shape=main["shape"], chain_floor_ms=main["chain_floor_ms"],
+        replaced_ms=main["replaced_ms"], shapes=rows,
+        ptxas_registers={m: u["registers"] for m, u in use.items()},
+        ptxas_spill_bytes={m: u["spill_bytes"] for m, u in use.items()},
+        ptxas_stack_bytes={m: u["stack_bytes"] for m, u in use.items()},
+        tolerance="exact, Fr Montgomery words"))
 
 
 def main() -> int:
@@ -2354,7 +2534,7 @@ def main() -> int:
     pairing_kernel_checks(dev, kernels, decide_inputs, verify_launches)
     log(f"# pairing kernel checks: {time.time() - t0:.1f}s")
     t0 = time.time()
-    gwc_rate = gwc_phase(dev, kernels)
+    gwc_rate, gwc_launches = gwc_phase(dev, kernels)
     log(f"# gwc phase: {time.time() - t0:.1f}s; {gwc_rate:.1f} gwc verify proofs/s")
     t0 = time.time()
     leaves, tree_launches, levels = tree_phase(dev)
@@ -2375,6 +2555,9 @@ def main() -> int:
     t0 = time.time()
     inv_kernel_checks(dev, kernels, tree_launches)
     log(f"# field_inv checks: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    points_to_fr_checks(dev, kernels, verify_launches, gwc_launches, tree_launches, levels)
+    log(f"# points_to_fr checks: {time.time() - t0:.1f}s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

@@ -37,6 +37,18 @@ are called as the port has declared them since the fold took a team size
   keccak verify read of the 16 `evmsnark` fixtures tiled to 1,024 (the
   buffers gathered before the timing) beside this checkout's one
   `svt_keccak_read` launch of the same read;
+* where the other checkout has them: `svt_fr_powers(r, n, out, B, stream)`
+  at the tree's (32, 32), (1, 32), (1, 1) and at (1,024, 33) beside this
+  checkout's (held to `powers_plain`); and the Poseidon transcript's Fq ->
+  Fr map as the launches the other checkout made -- `svt_field_mul` by
+  plain 1, `svt_field_canon`, `svt_field_mul` by R^2 (Fr), after
+  `svt_field_inv` of Z and `svt_field_mul` of (X, Y) by Z^-1 (its wrapper's
+  copy of Z^-1 beside each coordinate included) in projective mode -- beside
+  this checkout's one `svt_points_to_fr` launch: projective at the tree's
+  2,048, 64 and 4 points (identity lanes among them), affine at the verify
+  batch's (1,024, 16, 2) (held to `points_to_fr_plain`), each timed once
+  queued behind a spin of the card (`kernel_ms`: the kernels' own time) and
+  once as called (`time_ms`: the host's time per launch included);
 * `svt_g1_add(a, b, out, n, stream)` and `svt_g1_double(a, out, n, stream)`
   driven by the loops that launched them one group operation at a time
   before `svt_msm_windowed` and `svt_bucket_reduce` replaced them: the verify
@@ -77,10 +89,13 @@ PARENT_UNITS = {
     "poseidon_kernels": {"svt_poseidon_load_constants": [_P, _P],
                          "svt_poseidon_permute": [_P, _P, _LL, _P]},
     # optional: compared where the other checkout exports them
-    "field_kernels": {"svt_field_inv": [_I, _P, _P, _LL, _P]},
+    "field_kernels": {"svt_field_inv": [_I, _P, _P, _LL, _P],
+                      "svt_field_mul": [_I, _P, _LL, _P, _LL, _P, _LL, _P],
+                      "svt_field_canon": [_I, _P, _P, _LL, _P]},
     "keccak_kernels": {"svt_keccak_squeeze": [_P, _P, _I, _P, _I, _P, _P, _P, _LL, _P]},
+    "accumulation_kernels": {"svt_fr_powers": [_P, _I, _P, _LL, _P]},
 }
-OPTIONAL_UNITS = ("field_kernels", "keccak_kernels")
+OPTIONAL_UNITS = ("field_kernels", "keccak_kernels", "accumulation_kernels")
 
 
 def build_parent(csrc: Path, out_dir: Path):
@@ -169,7 +184,7 @@ def rand_lazy_words(rng, shape, p, device):
 
     n = int(np.prod(shape))
     vals = [int.from_bytes(rng.bytes(32), "little") % (2 * p + 1) for _ in range(n)]
-    vals[:3] = [0, p, 2 * p]
+    vals[: min(n, 3)] = [0, p, 2 * p][: min(n, 3)]
     raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), dtype="<u2")
     return limbs_to_words(torch.from_numpy(raw.astype(np.int64).reshape(*shape, 16))).to(device)
 
@@ -183,7 +198,8 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None, help="also write the rows to this file")
     ap.add_argument("--only", default=None,
                     help="comma-separated parts to run: fq_mul_chain, msm (the folds and the "
-                         "point loops), poseidon_permute, field_inv, keccak_read (default all)")
+                         "point loops), poseidon_permute, field_inv, keccak_read, fr_powers, "
+                         "points_to_fr (default all)")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -488,6 +504,68 @@ def main() -> int:
         compare("keccak_read", p_read, lambda: kd.read(sched, inst, sc, pts)[1], p_read(),
                 word_err, cp, 20, timer=kernel_ms, B=1024, widths=sched.widths,
                 parent_launches=len(bufs), this_launches=1)
+
+    # ------------------------------------------------------------ fold powers
+    if "svt_fr_powers" in parent and selected("fr_powers"):
+        from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers, powers_plain
+
+        rng = np.random.default_rng(11)
+        for B, n in ((32, 32), (1, 32), (1, 1), (1024, 33)):
+            r = rand_lazy_words(rng, (B,), FR.p, dev)
+            out = torch.empty((B, n, 8), dtype=torch.int32, device=dev)
+            compare("fr_powers",
+                    lambda: call(parent["svt_fr_powers"], r.data_ptr(), n, out.data_ptr(), B),
+                    lambda: powers(r, n), out, word_err, powers_plain(r, n), 50,
+                    timer=kernel_ms, B=B, n=n)
+
+    # ----------------------------------------------- the Fq -> Fr map, fused
+    if {"svt_field_mul", "svt_field_canon", "svt_field_inv"} <= set(parent) and \
+            selected("points_to_fr"):
+        from snark_verifier_tpu_torch.ff import points_to_fr, points_to_fr_plain
+
+        one_plain, r2 = FQW.const("ONE_PLAIN", dev), FRW.const("R2", dev)
+
+        def parent_map(x, proj, bufs):
+            """The other checkout's launches: (inv, mul,) mul, canon, mul."""
+            zinv, zrep, xy, t, c, out = bufs
+            if proj:
+                n = x.shape[0]
+                call(parent["svt_field_inv"], 0, x[:, 2].contiguous().data_ptr(),
+                     zinv.data_ptr(), n)
+                zrep.copy_(zinv[:, None].expand(n, 2, 8))  # its wrapper's broadcast copy
+                call(parent["svt_field_mul"], 0, x[:, :2].contiguous().data_ptr(), 8,
+                     zrep.data_ptr(), 8, xy.data_ptr(), 2 * n)
+                x = xy
+            m = x.numel() // 8
+            call(parent["svt_field_mul"], 0, x.data_ptr(), 8, one_plain.data_ptr(), 0,
+                 t.data_ptr(), m)
+            call(parent["svt_field_canon"], 0, t.data_ptr(), c.data_ptr(), m)
+            call(parent["svt_field_mul"], 1, c.data_ptr(), 8, r2.data_ptr(), 0, out.data_ptr(), m)
+            return out
+
+        rng = np.random.default_rng(29)
+        cases = []
+        for n in (2048, 64, 4):
+            pts = rand_lazy_words(rng, (n, 3), FQ.p, dev)  # random X, Y, Z: Z = 0, p, 2p first
+            pts[:, 2] = rand_lazy_words(rng, (n,), FQ.p, dev)
+            cases.append((pts, True))
+        cases.append((rand_lazy_words(rng, (1024, 16, 2), FQ.p, dev), False))
+        for x, proj in cases:
+            n = x.shape[0]
+            m = 2 * n if proj else x.numel() // 8
+            bufs = (torch.empty((n, 8), dtype=torch.int32, device=dev),
+                    torch.empty((n, 2, 8), dtype=torch.int32, device=dev),
+                    torch.empty((n, 2, 8), dtype=torch.int32, device=dev),
+                    *(torch.empty(((n, 2, 8) if proj else x.shape), dtype=torch.int32,
+                                  device=dev) for _ in range(3)))
+            want = points_to_fr_plain(x, proj)
+            for timer, label in ((kernel_ms, "kernel"), (time_ms, "as called")):
+                # 10 calls: kernel_ms's ~2 ms spin outlasts the host's calls
+                compare("points_to_fr", lambda: parent_map(x, proj, bufs),
+                        lambda: points_to_fr(x, proj), parent_map(x, proj, bufs), word_err,
+                        want, 10, timer=timer, mode="projective" if proj else "affine",
+                        shape=list(x.shape), timed=label, parent_launches=5 if proj else 3,
+                        this_launches=1, elements=m)
 
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

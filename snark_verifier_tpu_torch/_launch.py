@@ -19,7 +19,7 @@ LAUNCHES = {
     "bucket_reduce": 0,
     # ff/word_field.py
     "field_mul": 0, "field_add": 0, "field_sub": 0, "field_neg": 0,
-    "field_inv": 0, "field_canon": 0,
+    "field_inv": 0, "field_canon": 0, "points_to_fr": 0,
     # ff/fr_tape.py
     "fr_tape": 0,
     # hash/poseidon.py

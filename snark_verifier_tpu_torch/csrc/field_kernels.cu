@@ -4,33 +4,50 @@
 //
 // These replace work the JAX package leaves to XLA
 // (ff/jnp_field.py::LimbField.mul :145, add :127, sub :132, neg :141,
-// inv :211, canon :121): on the verify path the transcript's Fq -> Fr map
-// (three launches a batch); on the tree the affine normalisation of every
-// fold level (cuda_ops.affine_xy: one inv and one mul launch a level); the
-// succinct verifier's scalar algebra runs here only under the eager
-// TorchLoader, the witness of the recorded Fr program that the verify path
-// runs as one svt_fr_tape launch (csrc/fr_tape.cu).  Torch has no 256-bit
-// modular arithmetic, and the plain limb twin (ff/limb_field.py)
-// synchronizes the host once per carry pass, so on the card every one of
-// these ops is one launch of a kernel here.
+// inv :211, canon :121).  Torch has no 256-bit modular arithmetic, and the
+// plain limb twin (ff/limb_field.py) synchronizes the host once per carry
+// pass, so on the card every op is one launch of a kernel here.
 //
-// Each launch applies one op to n elements, one thread per element; either
-// operand may be a single element broadcast over all n (stride 0), which is
-// how the verifier's constants enter.  `field` is the tag of fq.cuh (0 = Fq,
-// 1 = Fr).  Bounds: mul is 136 multiply-adds against 96 bytes moved (0.36
-// bytes per multiply-add, near the H100's ridge of 0.2); add, sub, neg and
-// canon do no multiplies and are bound by bytes.  At the verifier's shapes
-// (B = 1,024 elements) every launch is far below either bound: launch
-// overhead rules.
+// svt_points_to_fr is the one launch the paths make: the Poseidon
+// transcript's Fq -> Fr map (the JAX package's
+// transcript/poseidon_transcript.py::fq_to_fr :31: from_mont, then Fr's
+// to_mont, relying on q < 2r) over a verify batch's stream points, and, in
+// projective mode, the fold's affine normalisation before that map
+// (ec/curve.py::to_affine :261 under pcs/kzg/accumulation.py::
+// read_proof_stacked :80-92): Z^-1 by fe_inv.cuh's binary GCD, x Z^-1 and
+// y Z^-1, then the map of each.  It runs the fq.cuh / fe_inv.cuh functions
+// in the order of the five single-op launches it replaced (inv, mul, then
+// mul by plain 1, canon, and Fr's mul by R^2), so its words equal theirs:
+// after the canon every word is a function of the value alone.  The
+// identity (Z = 0, p or 2p) inverts to 0 and maps to (0, 0), as the JAX
+// package's to_affine + fq_to_fr.  Affine mode is a thread an element in
+// 256-thread blocks; projective mode a thread a point in 32-thread blocks,
+// as the inversion (latency-bound: the tree's 2,048 points spread over 64
+// SMs, not 8).  Bounds: affine 272 multiply-adds against 64 bytes an
+// element; projective the inversion's steps and update rows for the rounds
+// the data needs, plus 6 products, against 160 bytes a point.  At the
+// paths' shapes both sit at their chain: the inversion's rounds, then three
+// dependent products (chip_smoke.py's `points_to_fr_work`).
+//
+// The single-op launches (mul, add, sub, neg, inv, canon) apply one op to
+// n elements, one thread per element; either operand may be a single
+// element broadcast over all n (stride 0).  `field` is the tag of fq.cuh
+// (0 = Fq, 1 = Fr).  No path launches them any more except the
+// old-accumulator limb decode (pcs/kzg/accumulator.py: Fr from_mont, Fq
+// to_mont); the succinct verifier's scalar algebra runs them only under
+// the eager TorchLoader, the witness of the recorded Fr program that the
+// verify path runs as one svt_fr_tape launch (csrc/fr_tape.cu).  Bounds:
+// mul is 136 multiply-adds against 96 bytes moved (0.36 bytes per
+// multiply-add, near the H100's ridge of 0.2); add, sub, neg and canon do
+// no multiplies and are bound by bytes.
 //
 // inv is fe_inv.cuh's binary GCD (a variable-time inversion: the inputs are
 // public), not fq.cuh's Fermat chain of ~370 dependent products (0.21 ms at
 // any batch, a lone warp's latency): ~12 rounds of 30 cheap 64-bit steps and
 // one 2x2 update by factors of at most 2^30 (80 multiply-adds), and its
 // output is canonical, in [0, p).  A latency-bound thread per element, so
-// it launches 32-thread blocks: the tree's 2,048 elements spread over 64
-// SMs, not 8.  Its bound counts the steps' least integer instructions and
-// the updates' multiply-adds for the rounds the data needs
+// it launches 32-thread blocks.  Its bound counts the steps' least integer
+// instructions and the updates' multiply-adds for the rounds the data needs
 // (chip_smoke.py's `inv_work`).
 
 #include <cuda_runtime.h>
@@ -86,6 +103,51 @@ __global__ void __launch_bounds__(THREADS)
   if constexpr (OP == OP_INV) fe_inv_gcd<F>(r, x);
   if constexpr (OP == OP_CANON) fe_canon<F>(r, x);
   fe_store(out + i * FQ_WORDS, r);
+}
+
+// The canonical-value map Fq -> Fr on Montgomery words: from_mont (the
+// product by plain 1), canon (< q < 2r, so a lazy Fr input), then Fr's
+// to_mont (the product by R^2 mod r, fe_inv.cuh's table).
+__device__ __forceinline__ void fq_to_fr(uint32_t r[FQ_WORDS], const uint32_t x[FQ_WORDS]) {
+  const uint32_t one[FQ_WORDS] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  uint32_t r2[FQ_WORDS], t[FQ_WORDS], c[FQ_WORDS];
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) r2[k] = inv_r2<FR>(k);
+  fe_mul<FQ>(t, x, one);
+  fe_canon<FQ>(c, t);
+  fe_mul<FR>(r, c, r2);
+}
+
+// Affine mode: in (n, 8) Fq words -> out (n, 8) Fr words.
+__global__ void __launch_bounds__(FE_THREADS)
+    points_to_fr_affine_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                               long long n) {
+  const long long i = (long long)blockIdx.x * FE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[FQ_WORDS], r[FQ_WORDS];
+  fe_load(x, in + i * FQ_WORDS);
+  fq_to_fr(r, x);
+  fe_store(out + i * FQ_WORDS, r);
+}
+
+// Projective mode: in (n, 3, 8) Fq words (X, Y, Z) -> out (n, 2, 8) Fr words
+// of the affine (X/Z, Y/Z); Z^-1 is canonical, 0 for the identity.
+__global__ void __launch_bounds__(INV_THREADS)
+    points_to_fr_projective_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                                   long long n) {
+  const long long i = (long long)blockIdx.x * INV_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t* pt = in + i * 3 * FQ_WORDS;
+  uint32_t z[FQ_WORDS], zinv[FQ_WORDS], x[FQ_WORDS], t[FQ_WORDS], r[FQ_WORDS];
+  fe_load(z, pt + 2 * FQ_WORDS);
+  fe_inv_gcd<FQ>(zinv, z);
+#pragma unroll
+  for (int c = 0; c < 2; c++) {
+    fe_load(x, pt + c * FQ_WORDS);
+    fe_mul<FQ>(t, x, zinv);
+    fq_to_fr(r, t);
+    fe_store(out + (i * 2 + c) * FQ_WORDS, r);
+  }
 }
 
 inline unsigned fe_blocks(long long n, int threads = FE_THREADS) {
@@ -155,4 +217,22 @@ extern "C" int svt_field_inv(int field, const void* a, void* out, long long n, v
 
 extern "C" int svt_field_canon(int field, const void* a, void* out, long long n, void* stream) {
   return svt::launch_unary<svt::OP_CANON>(field, a, out, n, stream);
+}
+
+// in: (n, 8) Fq Montgomery words (projective = 0) or (n, 3, 8) projective
+// points (projective = 1); out: (n, 8) or (n, 2, 8) Fr Montgomery words.
+extern "C" int svt_points_to_fr(const void* in, int projective, void* out, long long n,
+                                void* stream) {
+  if (n < 0 || (projective != 0 && projective != 1)) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const auto st = (cudaStream_t)stream;
+    if (projective)
+      svt::points_to_fr_projective_kernel<<<svt::fe_blocks(n, svt::INV_THREADS),
+                                            svt::INV_THREADS, 0, st>>>(
+          (const uint32_t*)in, (uint32_t*)out, n);
+    else
+      svt::points_to_fr_affine_kernel<<<svt::fe_blocks(n), svt::FE_THREADS, 0, st>>>(
+          (const uint32_t*)in, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@ from .word_field import (
     from_jax_elems,
     limbs_to_words,
     np_limbs_to_words,
+    points_to_fr,
+    points_to_fr_plain,
     to_jax_elems,
     words_to_limbs,
 )
@@ -35,6 +37,8 @@ __all__ = [
     "from_jax_elems",
     "limbs_to_words",
     "np_limbs_to_words",
+    "points_to_fr",
+    "points_to_fr_plain",
     "to_jax_elems",
     "words_to_limbs",
 ]

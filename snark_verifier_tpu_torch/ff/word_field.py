@@ -24,6 +24,13 @@ to_mont / from_mont :273-279) and the 4-bit digit split of canonical words
 | `neg`    | `svt_field_neg`   | `LimbField.neg` :141                   |
 | `inv`    | `svt_field_inv`   | `LimbField.inv` :211                   |
 | `canon`  | `svt_field_canon` | `LimbField.canon` :121                 |
+
+`points_to_fr` is the one field launch the Poseidon paths make: the
+transcript's canonical-value map Fq -> Fr (the JAX package's
+`transcript/poseidon_transcript.py::fq_to_fr` :31), and in projective mode
+the affine normalisation before it (`ec/curve.py::to_affine` :261), as one
+launch of `svt_points_to_fr`; `points_to_fr_plain` runs the same primitive
+ops one by one.
 """
 
 from __future__ import annotations
@@ -289,3 +296,46 @@ class WordField:
 
 FQW = WordField(FQ)
 FRW = WordField(FR)
+
+
+# ---------------------------------------------------------- Fq -> Fr map
+
+
+def points_to_fr_plain(x, projective: bool = False):
+    """The plain version of `svt_points_to_fr` on any device: the primitive
+    ops' plain twins in the kernel's order.  Affine mode: (..., 8) Fq
+    Montgomery words -> (..., 8) Fr Montgomery words of the value mod r
+    (from_mont, canon, then Fr's to_mont; q < 2r, so the canonical Fq
+    value is a lazy Fr input).  Projective mode: (..., 3, 8) points ->
+    (..., 2, 8), the map of the affine (X/Z, Y/Z); the identity (Z ≡ 0)
+    maps to (0, 0)."""
+    if projective:
+        zinv = FQW.plain("inv", x[..., 2, :])
+        x = FQW.plain("mul", x[..., :2, :], zinv[..., None, :])
+    c = FQW.plain("canon", FQW.plain("mul", x, FQW.const("ONE_PLAIN", x.device)))
+    return FRW.plain("mul", c, FRW.const("R2", x.device))
+
+
+def points_to_fr(x, projective: bool = False):
+    """`points_to_fr_plain`'s function: on a CUDA tensor one launch of
+    `svt_points_to_fr` (csrc/field_kernels.cu), on a CPU tensor the plain
+    version.  The words are the same: each leaves a canonical value through
+    the same Fr product."""
+    name = "points_to_fr"
+    WordField._check(name, x)
+    tail = (3, NWORDS) if projective else (NWORDS,)
+    if tuple(x.shape[x.dim() - len(tail):]) != tail:
+        raise ValueError(f"{name}: bad shape {tuple(x.shape)} for "
+                         f"{'projective' if projective else 'affine'} mode")
+    if x.device.type == "cpu":
+        return points_to_fr_plain(x, projective)
+    x2 = x.contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    shape = (*x.shape[:-2], 2, NWORDS) if projective else tuple(x.shape)
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    n = x.numel() // (3 * NWORDS if projective else NWORDS)
+    if n:
+        launch(name, load_library().svt_points_to_fr, x2.data_ptr(), int(projective),
+               out.data_ptr(), n, device=x.device)
+    return out

@@ -8,11 +8,12 @@ every accumulator point's affine coordinates into a Poseidon transcript
 (lhs₀, rhs₀, lhs₁, rhs₁, …), optionally reads a ZK blind pair, squeezes r
 and returns (Σ rⁱ·lhsᵢ, Σ rⁱ·rhsᵢ).  On the card one fold level is:
 
-  * the affine normalisation of all 2N points (`cuda_ops.affine_xy`: one
-    `svt_field_inv`, one `svt_field_mul`);
-  * the transcript's stacked absorb (`PoseidonTranscript.absorb_ec_points`:
-    the Fq → Fr map, three field launches, then 2N + 1 chained permutations
-    in one `svt_poseidon_absorb` launch per transcript batch);
+  * the affine normalisation of all 2N points and their Fq → Fr map
+    (`PoseidonTranscript.absorb_projective_points`: one `svt_points_to_fr`
+    launch in projective mode, replacing the JAX package's `G1.to_affine`
+    and `fq_to_fr`);
+  * the transcript's stacked absorb: 2N + 1 chained permutations in one
+    `svt_poseidon_absorb` launch per transcript batch;
   * the weights [1, r, …, r^(N−1)] (`powers`: one `svt_fr_powers` launch,
     csrc/accumulation_kernels.cu, replacing the JAX package's
     `_powers_stack` :196);
@@ -141,7 +142,7 @@ class KzgAs:
 
     @staticmethod
     def _read(zk: bool, flat, transcript):
-        transcript.absorb_ec_points(cuda_ops.affine_xy(flat))
+        transcript.absorb_projective_points(flat)
         blind = None
         if zk:
             blind = (_to_proj(transcript.read_ec_point()), _to_proj(transcript.read_ec_point()))

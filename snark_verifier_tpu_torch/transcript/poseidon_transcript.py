@@ -12,12 +12,14 @@
 scalars (B, n, 8) Fr words, points (B, m, 2, 8) affine Fq words, both
 Montgomery form.  Stream points were checked on the host
 (`Snark.validate`), so none is the identity.  Their coordinates are mapped
-Fq -> Fr once for the whole stream (three field launches per batch on the
-card), and each read absorbs its slice.  `absorb_ec_points` takes a whole
-stack of points at once (the accumulation fold's M accumulator points):
-one Fq -> Fr pass, and the next squeeze absorbs all 2M coordinates in one
-`svt_poseidon_absorb` launch, the same sponge as M `common_ec_point`
-calls.  `PoseidonTranscriptPy` is the python-int oracle.
+Fq -> Fr once for the whole stream (one `svt_points_to_fr` launch per batch
+on the card), and each read absorbs its slice.  `absorb_ec_points` takes a
+whole stack of affine points at once, `absorb_projective_points` a stack of
+projective ones (the accumulation fold's M accumulator points: the affine
+normalisation and the map in one `svt_points_to_fr` launch); the next
+squeeze absorbs all 2M coordinates in one `svt_poseidon_absorb` launch, the
+same sponge as M `common_ec_point` calls.  `PoseidonTranscriptPy` is the
+python-int oracle.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 from .. import errors
-from ..ff import FQW, FRW
+from ..ff import points_to_fr
 from ..ff.spec import FR
 from ..hash.poseidon import PoseidonPy, PoseidonSponge
 
@@ -35,8 +37,9 @@ def fq_to_fr(x_fq_mont):
 
     q < 2r, so a canonical Fq value already is an Fr value in the lazy
     [0, 2r] contract, and the map is one to-Montgomery multiply (the Fr
-    multiply takes inputs up to 2r)."""
-    return FRW.to_mont(FQW.from_mont(x_fq_mont))
+    multiply takes inputs up to 2r): one `svt_points_to_fr` launch on the
+    card."""
+    return points_to_fr(x_fq_mont)
 
 
 class PoseidonTranscript:
@@ -63,6 +66,16 @@ class PoseidonTranscript:
         affine form (0, 0) is absorbed as it is, as the JAX package's device
         transcript does (`absorb_ec_points_scanned`)."""
         fr = fq_to_fr(xy)
+        self.h.update_block(fr.reshape(fr.shape[0], -1, 8))
+
+    def absorb_projective_points(self, pts):
+        """pts: (B, M, 3, 8) projective points, Fq Montgomery words -> the
+        2M coordinates of their affine forms buffered as `absorb_ec_points`
+        buffers them, normalised and mapped Fq -> Fr in one
+        `points_to_fr(pts, projective=True)`; the identity is absorbed as
+        (0, 0), as the JAX package's `G1.to_affine` +
+        `absorb_ec_points_scanned`."""
+        fr = points_to_fr(pts, projective=True)
         self.h.update_block(fr.reshape(fr.shape[0], -1, 8))
 
     def _absorb_fr(self, fr):

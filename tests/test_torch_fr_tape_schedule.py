@@ -4,8 +4,12 @@ squares where both operands are one value, reads its operands from a
 [slot][word][lane] slot file, and picks its ops by row; this test runs that
 code, lane by lane.
 
-`svt_fr_powers` (csrc/accumulation_kernels.cu) runs the same way, thread by
-thread, against `pcs/kzg/accumulation.py::powers_plain`.
+`svt_fr_powers` (csrc/accumulation_kernels.cu) runs as the kernel runs it,
+a warp a transcript: one std::thread per lane, `__shfl_up_sync` and
+`__shfl_sync` an exchange through the warp's slots between two barriers (a
+lane that reads the wrong lane or a stale value shows as a wrong power),
+against `pcs/kzg/accumulation.py::powers_plain` and python ints, for N on
+both sides of the warp's 32 lanes and of its chunk carries.
 
 g++ compiles the sources with the launch syntax stripped, a stub of the CUDA
 runtime, and a portable C++ stand-in for csrc/fq.cuh's field functions for
@@ -275,12 +279,35 @@ def test_kernel_body_squares_and_selects(harness):
     assert bool(want[2, :2].any(-1).all())
 
 
+# The runtime stub with a warp's primitives: lanes are threads, and a
+# shuffle leaves each lane's value in the warp's slot, then reads the
+# source lane's (its own where the source is out of range, as the card's).
+WARP_RUNTIME_STUB = RUNTIME_STUB.replace("extern dim3_ threadIdx, blockIdx;", r"""
+extern thread_local dim3_ threadIdx, blockIdx;
+#include <barrier>
+extern thread_local std::barrier<>* svt_warp_barrier;
+extern thread_local uint32_t* svt_warp_slots;
+inline uint32_t svt_exchange(uint32_t v, int src) {
+  const int lane = threadIdx.x & 31;
+  svt_warp_slots[lane] = v;
+  svt_warp_barrier->arrive_and_wait();
+  const uint32_t r = src >= 0 && src < 32 ? svt_warp_slots[src] : v;
+  svt_warp_barrier->arrive_and_wait();
+  return r; }
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) { return svt_exchange(v, src & 31); }
+inline uint32_t __shfl_up_sync(unsigned, uint32_t v, unsigned k) {
+  return svt_exchange(v, (int)(threadIdx.x & 31) - (int)k); }
+""")
+
 POWERS_HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <thread>
 #include <vector>
 #include "cuda_runtime.h"
-dim3_ threadIdx, blockIdx;
+thread_local dim3_ threadIdx, blockIdx;
+thread_local std::barrier<>* svt_warp_barrier;
+thread_local uint32_t* svt_warp_slots;
 #include "accumulation_kernels.cpp"
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
@@ -289,9 +316,16 @@ int main(int argc, char** argv) {
   const long long B = h[0], n = h[1];
   std::vector<uint32_t> r(B * 8), out(B * n * 8);
   if (fread(r.data(), 4, r.size(), f) != r.size()) return 3;
-  for (long long b = 0; b < B; b++) {
-    blockIdx.x = b / svt::POW_THREADS; threadIdx.x = b % svt::POW_THREADS;
-    svt::fr_powers_kernel(r.data(), (int)n, out.data(), B);
+  for (long long b = 0; b < B; b++) {  // a block a warp a transcript
+    std::barrier<> bar(svt::POW_THREADS);
+    uint32_t slots[32];
+    std::vector<std::thread> lanes;
+    for (unsigned t = 0; t < (unsigned)svt::POW_THREADS; t++)
+      lanes.emplace_back([&, t] {
+        blockIdx.x = (unsigned)b; threadIdx.x = t;
+        svt_warp_barrier = &bar; svt_warp_slots = slots;
+        svt::fr_powers_kernel(r.data(), (int)n, out.data(), B); });
+    for (auto& th : lanes) th.join();
   }
   FILE* o = fopen(argv[2], "wb");
   fwrite(out.data(), 4, out.size(), o);
@@ -300,27 +334,42 @@ int main(int argc, char** argv) {
 """
 
 
-@pytest.mark.parametrize("n", [1, 2, 33])
-def test_powers_kernel_body_matches_powers_plain(tmp_path, n):
+@pytest.fixture(scope="module")
+def powers_harness(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to run the kernel's C++ on the host")
-    (tmp_path / "cuda_runtime.h").write_text(RUNTIME_STUB)
-    (tmp_path / "fq.cuh").write_text(FIELD_STUB)
+    d = tmp_path_factory.mktemp("fr_powers_schedule")
+    (d / "cuda_runtime.h").write_text(WARP_RUNTIME_STUB)
+    (d / "fq.cuh").write_text(FIELD_STUB)
     src = (CSRC / "accumulation_kernels.cu").read_text()
-    (tmp_path / "accumulation_kernels.cpp").write_text(re.sub(r"<<<.*?>>>", "", src, flags=re.S))
-    (tmp_path / "harness.cpp").write_text(POWERS_HARNESS)
-    subprocess.run([gxx, "-std=c++17", "-O2", "-I", str(tmp_path), "-o", str(tmp_path / "h"),
-                    str(tmp_path / "harness.cpp")], check=True, capture_output=True, timeout=300)
-    # lazy words in [0, 2r] over more than one block, and zero as 0, r and 2r
-    # (r^1 = r then leaves from_mont as r itself, which only canon maps to 0)
+    (d / "accumulation_kernels.cpp").write_text(re.sub(r"<<<.*?>>>", "", src, flags=re.S))
+    (d / "harness.cpp").write_text(POWERS_HARNESS)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-I", str(d), "-o", str(d / "h"),
+                    str(d / "harness.cpp")], check=True, capture_output=True, timeout=300)
+
+    def run(r, n):
+        inp, out = d / f"in_{n}.bin", d / f"out_{n}.bin"
+        with open(inp, "wb") as f:
+            f.write(np.array([r.shape[0], n], np.int64).tobytes())
+            f.write(r.numpy().tobytes())
+        subprocess.run([str(d / "h"), str(inp), str(out)], check=True, timeout=300)
+        return torch.from_numpy(np.fromfile(out, np.int32).reshape(r.shape[0], n, 8))
+
+    return run
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 65])
+def test_powers_kernel_body_matches_powers_plain(powers_harness, n):
+    # lazy words in [0, 2r], and zero as 0, r and 2r (r^1 = r then leaves
+    # from_mont as r itself, which only canon maps to 0)
     zeros = limbs_to_words(torch.tensor([[(k * FR.p >> (16 * i)) & 0xFFFF for i in range(16)]
                                          for k in (0, 1, 2)]))
-    r = torch.cat([_lazy_words(np.random.default_rng(n), 129), zeros]).contiguous()
-    inp, out = tmp_path / "in.bin", tmp_path / "out.bin"
-    with open(inp, "wb") as f:
-        f.write(np.array([r.shape[0], n], np.int64).tobytes())
-        f.write(r.numpy().tobytes())
-    subprocess.run([str(tmp_path / "h"), str(inp), str(out)], check=True, timeout=300)
-    got = torch.from_numpy(np.fromfile(out, np.int32).reshape(r.shape[0], n, 8))
+    r = torch.cat([_lazy_words(np.random.default_rng(n), 13), zeros]).contiguous()
+    got = powers_harness(r, n)
     assert torch.equal(got, powers_plain(r, n))
+    rinv = pow(1 << 256, -1, FR.p)
+    vals = [sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(row)) for row in r.tolist()]
+    ints = [[sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(word)) for word in row]
+            for row in got.tolist()]
+    assert ints == [[pow(v * rinv % FR.p, i, FR.p) for i in range(n)] for v in vals]

@@ -453,7 +453,8 @@ def test_batch_succinct_verify_on_card_matches_oracle(cuda):
     (lhs, rhs), = batch_succinct_verify(snarks, srs)
     assert LAUNCHES["poseidon_absorb"] > 0
     assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 1
-    assert sum(v for k, v in LAUNCHES.items() if k.startswith("field_")) <= 3
+    assert LAUNCHES["points_to_fr"] == 1  # the stream's Fq -> Fr map
+    assert sum(v for k, v in LAUNCHES.items() if k.startswith("field_")) == 0
     assert LAUNCHES["add"] == 0 and LAUNCHES["double"] == 0
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     assert got == [succinct_verify_native(s, srs)[0] for s in snarks]
@@ -613,7 +614,8 @@ def test_batch_verify_on_card_matches_oracle(cuda):
     reset_launches()
     oks = batch_verify(snarks, srs)
     assert LAUNCHES["miller_loop"] == 1 and LAUNCHES["final_exp"] == 1
-    assert LAUNCHES["msm_windowed"] == 1
+    assert LAUNCHES["msm_windowed"] == 1 and LAUNCHES["points_to_fr"] == 1
+    assert not _field_launches()
     want = [pp.pairing_check([(lhs, srs.g2), (rhs, pp.g2_neg(srs.s_g2))])
             for (lhs, rhs), in (succinct_verify_native(s, srs) for s in snarks)]
     assert want == [False, True, True]
@@ -666,7 +668,8 @@ def _rand_fr_words(b, seed, device):
                         device=device)
 
 
-@pytest.mark.parametrize("B,n", [(1, 1), (32, 32), (1000, 33)])
+@pytest.mark.parametrize("B,n", [(1, 1), (32, 32), (1000, 33), (1, 32), (1024, 33), (3, 2),
+                                 (3, 31), (3, 64), (3, 65), (5, 200)])
 def test_fr_powers_kernel_matches_plain(cuda, B, n):
     from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers, powers_plain
 
@@ -700,10 +703,17 @@ def test_stacked_absorb_and_fold_level_match_plain(cuda):
     r = t_k.squeeze_challenge()
     assert LAUNCHES["poseidon_absorb"] == 1
     assert torch.equal(r.cpu(), t_p.squeeze_challenge())
+    t_j = fold_transcript(4, cuda)
+    reset_launches()
+    t_j.absorb_projective_points(pairs.reshape(4, 64, 3, 8))
+    assert LAUNCHES["points_to_fr"] == 1 and not _field_launches()
+    assert torch.equal(t_j.squeeze_challenge(), r)
     reset_launches()
     lhs, rhs = KzgAs._fold_once(pairs)
-    assert {k: LAUNCHES[k] for k in ("poseidon_absorb", "fr_powers", "msm_windowed")} == {
-        "poseidon_absorb": 1, "fr_powers": 1, "msm_windowed": 1}
+    assert {k: LAUNCHES[k] for k in ("poseidon_absorb", "fr_powers", "msm_windowed",
+                                     "points_to_fr")} == {
+        "poseidon_absorb": 1, "fr_powers": 1, "msm_windowed": 1, "points_to_fr": 1}
+    assert not _field_launches()
     pl, pr = KzgAs._fold_once(pairs.cpu())
     for a, b in ((lhs, pl), (rhs, pr)):
         assert to_affine_int(words_to_limbs(a)) == to_affine_int(words_to_limbs(b))
@@ -730,6 +740,7 @@ def test_tree_root_on_card_matches_oracle(cuda):
     lhs, rhs, ok = tree_aggregate_root(snarks, srs)
     assert bool(ok)
     assert LAUNCHES["fr_powers"] == 3 and LAUNCHES["miller_loop"] == 1
+    assert LAUNCHES["points_to_fr"] == 4 and not _field_launches()
     accs = [succinct_verify_native(s, srs)[0] for s in base]
 
     def fold(pairs):
@@ -742,6 +753,93 @@ def test_tree_root_on_card_matches_oracle(cuda):
     tam = Snark(s.protocol, [list(c) for c in s.instances], s.scalars, s.points)
     tam.instances[0][0] = (tam.instances[0][0] + 1) % FR.p
     assert not bool(tree_aggregate_root([tam] + snarks[1:], srs)[2])
+
+
+def test_four_leaf_tree_launches(cuda):
+    """A 4-leaf tree folds once, then the root: one points_to_fr launch in
+    the succinct phase and one a fold level, no single-op field launch."""
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import KzgAs
+    from snark_verifier_tpu_torch.sdk.tree_aggregation import tree_aggregate_root
+    from snark_verifier_tpu_torch.transcript.poseidon_transcript import PoseidonTranscriptPy
+
+    srs, base = _fixtures("snark", 4)
+    reset_launches()
+    lhs, rhs, ok = tree_aggregate_root(base, srs)
+    assert bool(ok)
+    assert {k: v for k, v in LAUNCHES.items() if v and k in (
+        "points_to_fr", "fr_powers", "fr_tape", "miller_loop", "final_exp")} == {
+        "points_to_fr": 3, "fr_powers": 2, "fr_tape": 1, "miller_loop": 1, "final_exp": 1}
+    assert not _field_launches()
+    accs = [succinct_verify_native(s, srs)[0] for s in base]
+    want = KzgAs.create_proof(None, [KzgAs.create_proof(None, accs, PoseidonTranscriptPy())],
+                              PoseidonTranscriptPy())
+    assert (to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))) == want
+
+
+def _fq_words(vals, device):
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), "<i4")
+    return torch.from_numpy(raw.reshape(-1, 8).copy()).to(device)
+
+
+@pytest.mark.parametrize("shape", [(1024, 16, 2), (3, 1)])
+def test_points_to_fr_affine_matches_plain(cuda, shape):
+    from snark_verifier_tpu_torch.ff import FQ, points_to_fr, points_to_fr_plain
+
+    rng = np.random.default_rng(sum(shape))
+    n = int(np.prod(shape))
+    vals = [0, 1, FR.p - 1, FR.p, FQ.p - 1, FQ.p, 2 * FQ.p]
+    vals = (vals + [int.from_bytes(rng.bytes(32), "little") % (2 * FQ.p + 1)
+                    for _ in range(n)])[:n]
+    x = _fq_words(vals, cuda).view(*shape, 8)
+    reset_launches()
+    got = points_to_fr(x)
+    assert LAUNCHES["points_to_fr"] == 1 and not _field_launches()
+    assert got.shape == x.shape
+    assert torch.equal(got.cpu(), points_to_fr_plain(x.cpu()))
+    R = 1 << 256
+    assert [w % FR.p for w in _word_vals(got.view(-1, 8))] == [  # lazy Fr words
+        v * pow(R, -1, FQ.p) % FQ.p % FR.p * R % FR.p for v in vals]
+
+
+@pytest.mark.parametrize("n", [2048, 64, 4, 37])
+def test_points_to_fr_projective_matches_plain(cuda, n):
+    """The fold levels' shapes: valid points with Z = 1 and random Z, and
+    identity lanes with Z = 0, p and 2p under random X and Y."""
+    from snark_verifier_tpu_torch.ff import FQ, points_to_fr, points_to_fr_plain
+
+    rng = np.random.default_rng(n)
+    q, R = FQ.p, 1 << 256
+    aff = py_ec.rand_points(n, seed=n)
+    rows, want = [], []
+    for k, (x, y) in enumerate(aff):
+        lam = 1 if k % 4 == 0 else int.from_bytes(rng.bytes(32), "little") % (q - 1) + 1
+        if k % 16 in (1, 2, 3):  # the identity, Z = 0, p, 2p
+            z = (0, q, 2 * q)[k % 16 - 1]
+            rows += [int.from_bytes(rng.bytes(32), "little") % (2 * q + 1) for _ in range(2)]
+            rows.append(z)
+            want += [0, 0]
+            continue
+        rows += [x * lam % q * R % q, y * lam % q * R % q, lam * R % q]
+        want += [x % FR.p * R % FR.p, y % FR.p * R % FR.p]
+    pts = _fq_words(rows, cuda).view(n, 3, 8)
+    reset_launches()
+    got = points_to_fr(pts, projective=True)
+    assert LAUNCHES["points_to_fr"] == 1 and not _field_launches()
+    assert got.shape == (n, 2, 8)
+    assert torch.equal(got.cpu(), points_to_fr_plain(pts.cpu(), projective=True))
+    assert [w % FR.p for w in _word_vals(got.view(-1, 8))] == want  # lazy Fr words
+
+
+def test_points_to_fr_rejects_on_card(cuda):
+    from snark_verifier_tpu_torch.ff import points_to_fr
+
+    x = torch.zeros((4, 3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        points_to_fr(x[:, :2], projective=True)
+    with pytest.raises(TypeError):
+        points_to_fr(x.long())
+    assert torch.equal(points_to_fr(x[:, :, :8].transpose(0, 1)), points_to_fr(
+        x.transpose(0, 1).contiguous()))  # a strided operand is made contiguous
 
 
 def _old_acc(name):
@@ -782,6 +880,7 @@ def test_old_accumulators_on_card_match_oracle(cuda):
     reset_launches()
     fresh_only = batch_succinct_verify([plain] * B, srs)
     base = _field_launches()
+    assert base == {} and LAUNCHES["points_to_fr"] == 1
     reset_launches()
     accs = batch_succinct_verify([valid] * B, srs)
     assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 1
