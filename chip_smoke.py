@@ -146,7 +146,35 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    Z = 0, p and 2p), each equal to the launches it replaced (affine: mul,
    canon, mul; projective: inv, mul, then the three) on the same inputs;
    each shape timed beside its bound, its chain floor and those launches,
-   with ptxas usage.
+   with ptxas usage;
+21. the instance-committing-key read (the stub protocol of
+   tests/test_instance_committing_key.py with 16 bases and a constant, 16
+   instance sets tiled to batch 1,024): the plan's commitment before the
+   read (`commit_instances`, one `msm_windowed` launch) absorbed as a lane
+   point (one `points_to_fr`); gates: every lane's committed point equals
+   `py_ec.msm` + constant, z and the next squeeze equal
+   `PoseidonTranscriptPy`'s, exactly those launches and two
+   `poseidon_absorb`;
+22. IPA openings at k = 11 (the committed
+   `snark_verifier_tpu_torch/fixtures/ipa_openings_k11.json`): the 16
+   without zk tiled to 1,024 and the 16 with zk tiled to 256 through
+   `batch_ipa_verify`; gates: every lane accepts with the prover's ξ and U,
+   eval + 1 on lane 0 rejects lane 0 alone, one `fr_tape`, one
+   `msm_windowed` (lhs − rhs), one `points_to_fr`, k + 1 (+1 with zk)
+   `poseidon_absorb`, no single-op field launch; best-of-3 IPA succinct
+   proofs/s and the steps of three runs; the path's `fr_tape` and
+   `msm_windowed` against their plain versions on their own inputs, timed;
+23. BGH19 (the 4 committed multiopens tiled to 1,024: all accept with the
+   prover's ξ, a tampered query eval rejects its lane alone), IpaAs (both
+   committed folds, of 16 and of 4 zk accumulators: accept, the prover's
+   ξ, the read timed) and `decide_all` at 2^11 points (the 16 opening
+   accumulators and both folded ones accept, U = H rejects);
+24. the decide at 2^20 points over step 4's [1..2^20]·G: `svt_ipa_h_coeffs`
+   equals `h_coeffs_plain` word for word at k = 5, 11 and 20 and python
+   ints (all at k = 5 and 11, a sample at 20); ξ from default_rng(24) and
+   U = (Σ_j h_j·(j+1))·G by python ints: `decide` accepts U and rejects
+   U + G with one `ipa_h_coeffs` launch and one MSM; best-of-3 ms beside
+   the MSM alone; the kernel timed beside its bound.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -2189,6 +2217,444 @@ def points_to_fr_checks(dev, kernels, verify_launches, gwc_launches, tree_launch
         tolerance="exact, Fr Montgomery words"))
 
 
+# ------------------------------------------------------ steps 21-24: the IPA
+# family and instance-committing-key protocols
+
+ICK_BASES = 16  # the stub protocol's committing key: 16 bases and a constant
+IPA_ZK_BATCH = 256
+IPA_DECIDE_LOG2N = LOG2N  # the decide at 2^20 points runs over step 4's [1..2^20]·G
+
+
+class IckStub:
+    """The stub protocol of tests/test_instance_committing_key.py: just what
+    `PlonkProof.read` touches before the PCS, with an instance committing
+    key of ICK_BASES bases and a constant point."""
+
+    def __init__(self, bases, constant):
+        self.transcript_initial_state = 7
+        self.num_instance = [len(bases)]
+        self.num_witness, self.num_challenge = [], []
+        self.evaluations, self.queries, self.accumulator_indices = [], [], []
+        self.instance_committing_key = {"bases": bases, "constant": constant}
+
+        class _Quotient:
+            @staticmethod
+            def num_chunk():
+                return 0
+
+        self.quotient = _Quotient()
+
+    class domain:
+        @staticmethod
+        def rotate(r):
+            return 1
+
+
+class NullPcs:
+    @staticmethod
+    def read_proof(queries, transcript):
+        return {}
+
+
+def fr_words(values, mont, device):
+    """python ints -> (n, 8) Fr words on `device`: Montgomery or plain."""
+    import torch
+    from snark_verifier_tpu_torch.ff import FR, int_to_limbs, np_limbs_to_words
+
+    f = (lambda v: v % FR.p * (1 << 256) % FR.p) if mont else (lambda v: v % FR.p)
+    arr = np.stack([int_to_limbs(f(v)) for v in values]).astype(np.uint32)
+    return torch.from_numpy(np_limbs_to_words(arr)).to(device)
+
+
+def launch_gate(launches, want, label):
+    """Every kernel in `want` launched exactly as many times; no single-op
+    field launch and no add or double unless `want` names it."""
+    for k, n in want.items():
+        check(launches[k] == n, f"{label}: {k} launched {launches[k]} times, not {n}")
+    others = {k: v for k, v in launches.items() if v and k not in want
+              and (k.startswith("field_") or k in ("add", "double"))}
+    check(not others, f"{label}: unexpected launches {others}")
+
+
+def ick_phase(dev):
+    """Step 21: the instance commitment before the read, at batch 1,024."""
+    import torch
+
+    from snark_verifier_tpu_torch.ec import py_ec, to_affine_int, words_to_limbs
+    from snark_verifier_tpu_torch.ff import FR, FRW
+    from snark_verifier_tpu_torch.loader.base import TorchLoader
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.transcript import PoseidonTranscript, PoseidonTranscriptPy
+    from snark_verifier_tpu_torch.verifier.plonk.plan import commit_instances, read_proof
+
+    B = VERIFY_BATCH
+    t0 = time.time()
+    bases = py_ec.rand_points(ICK_BASES, seed=21)
+    const = py_ec.rand_points(1, seed=22)[0]
+    stub = IckStub(bases, const)
+    rng = np.random.default_rng(21)
+    sets = [[int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(ICK_BASES)]
+            for _ in range(16)]
+    want_pts, want_z, want_next = [], [], []
+    for vals in sets:  # the python-int oracle of each distinct lane
+        pt = py_ec.add(py_ec.msm(bases, vals), const)
+        tr = PoseidonTranscriptPy()
+        tr.common_scalar(7)
+        tr.common_ec_point(pt)
+        want_pts.append(pt)
+        want_z.append(tr.squeeze_challenge())
+        want_next.append(tr.squeeze_challenge())
+    flat = [v for b in range(B) for v in sets[b % 16]]
+    mont = fr_words(flat, True, dev).view(B, ICK_BASES, 8)
+    plain = fr_words(flat, False, dev).view(B, ICK_BASES, 8)
+    cols = [[mont[:, i] for i in range(ICK_BASES)]]
+    empty_sc = torch.zeros((B, 0, 8), dtype=torch.int32, device=dev)
+    empty_pts = torch.zeros((B, 0, 2, 8), dtype=torch.int32, device=dev)
+    log(f"# ick inputs: {ICK_BASES} bases + a constant, 16 instance sets tiled to {B}, "
+        f"16 oracle reads: {time.time() - t0:.2f}s")
+
+    def read():
+        lanes = commit_instances(stub, plain)
+        tr = PoseidonTranscript(empty_sc, empty_pts, dev, lanes=lanes)
+        reads = read_proof(stub, NullPcs, cols, tr, TorchLoader(B, dev))
+        return lanes, reads.values[0], tr.squeeze_challenge()
+
+    cuda_ops.reset_launches()
+    lanes, z, nxt = read()
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"# ick read launches at batch {B}: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    launch_gate(launches, {"msm_windowed": 1, "points_to_fr": 1, "poseidon_absorb": 2}, "ick")
+    got = to_affine_int(words_to_limbs(lanes[:, 0]))
+    bad = [b for b in range(B) if got[b] != want_pts[b % 16]]
+    check(not bad, f"ick: {len(bad)} committed points differ from py_ec.msm + constant, "
+                   f"first {bad[:5]}")
+    zs, nexts = FRW.to_int(z), FRW.to_int(nxt)
+    bad = [b for b in range(B) if int(zs[b]) != want_z[b % 16]
+           or int(nexts[b]) != want_next[b % 16]]
+    check(not bad, f"ick: {len(bad)} lanes' squeezes differ from PoseidonTranscriptPy's")
+    best, times = best_of_3(read)
+    commit_ms = time_ms(lambda: commit_instances(stub, plain), 20)
+    log(f"# ick gates: every lane's committed point == py_ec.msm + constant, z and the next "
+        f"squeeze == PoseidonTranscriptPy's; launches: one msm_windowed (the commitment, "
+        f"({B}, {ICK_BASES + 1}) terms), one points_to_fr, two poseidon_absorb; the "
+        f"commitment and read {best * 1e3:.3f} ms best of 3 (runs "
+        f"{[round(t * 1e3, 3) for t in times]}), the commitment alone {commit_ms:.4f} ms "
+        f"(CUDA events) on {smi_line()}")
+    return launches
+
+
+def ipa_openings_phase(dev, kernels):
+    """Step 22: IPA openings at k = 11, batch 1,024 (and zk at 256)."""
+    import torch
+
+    from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
+    from snark_verifier_tpu_torch.ff import FRW, digits4, fr_tape
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pcs.ipa import IpaOpening, batch_ipa_verify, ipa_plan
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as fx
+
+    B = VERIFY_BATCH
+    k = fx.K
+    t0 = time.time()
+    rates = {}
+    seen_tape, seen_msm = [], []
+    real_tape, real_msm = fr_tape.run, cuda_ops.msm_windowed
+
+    def capture_tape(tape, inputs):
+        seen_tape.append((tape, inputs))
+        return real_tape(tape, inputs)
+
+    def capture_msm(pts, scs, c=4):
+        seen_msm.append((pts, scs))
+        return real_msm(pts, scs, c)
+
+    for zk, batch in ((False, B), (True, IPA_ZK_BATCH)):
+        ops, accs = fx.ipa_openings(zk)
+        lanes = [ops[b % 16] for b in range(batch)]
+        log(f"# ipa{' zk' if zk else ''} inputs: 16 fixtures (k = {k}) tiled to {batch}: "
+            f"{time.time() - t0:.2f}s")
+        fr_tape.run, cuda_ops.msm_windowed = capture_tape, capture_msm
+        try:
+            cuda_ops.reset_launches()
+            out, oks = batch_ipa_verify(lanes)
+            torch.cuda.synchronize()
+            launches = dict(cuda_ops.LAUNCHES)
+        finally:
+            fr_tape.run, cuda_ops.msm_windowed = real_tape, real_msm
+        log(f"# ipa{' zk' if zk else ''} launches at batch {batch}: "
+            f"{ {kk: v for kk, v in launches.items() if v} }")
+        launch_gate(launches, {"fr_tape": 1, "msm_windowed": 1, "points_to_fr": 1,
+                               "poseidon_absorb": k + 1 + zk}, f"ipa zk={zk}")
+        check(oks.dtype == torch.bool and tuple(oks.shape) == (batch,), "ipa: result shape")
+        check(bool(oks.all()), f"ipa zk={zk}: {int((~oks).sum())} of {batch} valid lanes rejected")
+        xis = FRW.to_int(out.xi.reshape(-1, 8)).reshape(batch, k)
+        bad = [b for b in range(batch) if [int(x) for x in xis[b]] != accs[b % 16].xi]
+        check(not bad, f"ipa zk={zk}: {len(bad)} lanes' xi differ from the prover's")
+        us = to_affine_int(words_to_limbs(out.u))
+        check(all(us[b] == accs[b % 16].u for b in range(batch)),
+              "ipa: U differs from the prover's")
+        o = ops[0]
+        tam = [IpaOpening(o.svk, o.c, o.z, (o.v + 1) % FRW.spec.p, o.scalars, o.points)] + lanes[1:]
+        _, oks_t = batch_ipa_verify(tam)
+        check(not bool(oks_t[0]) and bool(oks_t[1:].all()),
+              f"ipa zk={zk}: tampered eval, rejected lanes "
+              f"{torch.nonzero(~oks_t).flatten()[:5].tolist()}")
+        best, times = best_of_3(lambda: batch_ipa_verify(lanes))
+        rates[zk] = batch / best
+        steps = ("plan_s", "stack_s", "read_s", "gather_s", "fr_tape_s", "msm_s")
+        phases = []
+        for _ in range(3):
+            tm = {}
+            batch_ipa_verify(lanes, timings=tm)
+            phases.append(tm)
+        log(f"# ipa{' zk' if zk else ''} gates: all {batch} lanes accept, xi and U == the "
+            f"prover's; eval + 1 on lane 0 rejects lane 0 alone; one fr_tape, one msm_windowed, "
+            f"one points_to_fr, {k + 1 + zk} poseidon_absorb, no single-op field launch")
+        log(f"# IPA succinct{' zk' if zk else ''} at batch {batch}, k = {k}: best-of-3 "
+            f"{best * 1e3:.3f} ms = {batch / best:.1f} proofs/s (runs "
+            f"{[round(t * 1e3, 3) for t in times]} ms) on {smi_line()}; steps (ms, three runs): "
+            + ", ".join(f"{s[:-2]} {[round(tm[s] * 1e3, 3) for tm in phases]}" for s in steps))
+    plan = ipa_plan("ipa", fx.ipa_keys()[0].svk)
+    log(f"# ipa plan: recorded in {plan.record_s * 1e3:.2f} ms; {len(plan.tape.rows)} rows "
+        f"{plan.tape.op_counts()}, {plan.tape.n_slots} slots, {len(plan.tape.inputs)} inputs, "
+        f"{len(plan.tape.outputs)} outputs; MSM {len(plan.check.scaled)} scaled + "
+        f"{len(plan.check.plain)} coefficient-1 terms")
+
+    # The path's fr_tape and msm_windowed against their plain versions on
+    # their own inputs (the first batch: k = 11 without zk, 1,024 lanes).
+    tape, ins = seen_tape[0]
+    got = fr_tape.run(tape, ins)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = fr_tape.run_plain(tape, ins)
+    torch.cuda.synchronize()
+    tape_plain = (time.time() - t0) * 1e3
+    tape_err = word_err(got, want)
+    check(tape_err == 0, "ipa: fr_tape differs from run_plain on the batch's inputs")
+    tape_ms = kernel_ms(lambda: fr_tape.run(tape, ins), 20)
+    least = tape.row_muladds(least=True)
+    bms, by = bound_ms((ins.shape[0] + len(tape.outputs)) * B * 32, B * int(least.sum()))
+    floor = tape.chain(least) * CHAIN_FLOOR_MS_PER_MUL / MULADDS_PER_FQ_MUL
+    pts, scs = seen_msm[0]
+    got = cuda_ops.msm_windowed(pts, scs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = cuda_ops.msm_windowed_plain(pts, digits4(scs))
+    torch.cuda.synchronize()
+    msm_plain = (time.time() - t0) * 1e3
+    msm_err = affine_err(got, want)
+    check(msm_err == 0, "ipa: msm_windowed differs from its plain version")
+    msm_ms = kernel_ms(lambda: cuda_ops.msm_windowed(pts, scs), 10)
+    n = pts.shape[1]
+    w_adds, w_dbls = msm_windowed_ops(n)
+    mbms, mby = bound_ms(pts.numel() * 4 + scs.numel() * 4 + B * POINT_BYTES,
+                         B * (w_adds * MULADDS_PER_ADD + w_dbls * MULADDS_PER_DOUBLE))
+    mfloor = msm_windowed_chain_muls(n) * CHAIN_FLOOR_MS_PER_MUL
+    log(f"# ipa fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8): "
+        f"{tape_ms:.4f} ms (bound {bms:.6f} ms, {by}; chain floor {floor:.4f} ms); plain "
+        f"{tape_plain:.1f} ms; == run_plain word for word")
+    log(f"# ipa msm_windowed at {tuple(pts.shape[:2])}: {msm_ms:.4f} ms (bound {mbms:.4f} ms, "
+        f"{mby}; chain floor {mfloor:.4f} ms); plain {msm_plain:.1f} ms; affine-equal")
+    for row in kernels:
+        if row["name"] == "fr_tape":
+            row.update(ipa_shape=list(ins.shape), ipa_ms=tape_ms, ipa_bound_ms=bms,
+                       ipa_chain_floor_ms=floor, ipa_plain_ms=tape_plain, ipa_max_abs_err=tape_err,
+                       ipa_rows=len(tape.rows), launches_ipa=1)
+        if row["name"] == "msm_windowed":
+            row.update(ipa_shape=list(pts.shape), ipa_ms=msm_ms, ipa_bound_ms=mbms,
+                       ipa_chain_floor_ms=mfloor, ipa_plain_ms=msm_plain, ipa_max_abs_err=msm_err,
+                       launches_ipa=1)
+    return rates
+
+
+def ipa_family_phase(dev):
+    """Step 23: BGH19 and IpaAs at k = 11, and the decide at 2^11 points."""
+    import torch
+
+    from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words
+    from snark_verifier_tpu_torch.ff import FRW
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.pcs.ipa import (
+        Bgh19Opening, IpaAccumulator, batch_bgh19_verify, batch_ipa_as_verify, batch_ipa_verify,
+        decide_all,
+    )
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as fx
+
+    B = VERIFY_BATCH
+    k = fx.K
+    ops, accs = fx.bgh19_openings()
+    lanes = [ops[b % 4] for b in range(B)]
+    cuda_ops.reset_launches()
+    out, oks = batch_bgh19_verify(lanes)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    launch_gate(launches, {"fr_tape": 1, "msm_windowed": 1, "points_to_fr": 1}, "bgh19")
+    check(bool(oks.all()), f"bgh19: {int((~oks).sum())} of {B} valid lanes rejected")
+    xis = FRW.to_int(out.xi.reshape(-1, 8)).reshape(B, k)
+    check(all([int(x) for x in xis[b]] == accs[b % 4].xi for b in range(B)),
+          "bgh19: xi differ from the prover's")
+    o = ops[0]
+    q = list(o.queries)
+    q[2] = (q[2][0], q[2][1], (q[2][2] + 1) % FRW.spec.p)
+    tam = [Bgh19Opening(o.svk, o.commitments, o.x, q, o.scalars, o.points)] + lanes[1:]
+    _, oks_t = batch_bgh19_verify(tam)
+    check(not bool(oks_t[0]) and bool(oks_t[1:].all()), "bgh19: the tampered eval's lane")
+    best, _ = best_of_3(lambda: batch_bgh19_verify(lanes))
+    log(f"# bgh19 at batch {B}, k = {k}: all accept, xi == the prover's, a tampered query eval "
+        f"rejects its lane alone; launches {({kk: v for kk, v in launches.items() if v})}; "
+        f"best-of-3 {best * 1e3:.3f} ms = {B / best:.1f} proofs/s")
+
+    folds, faccs = fx.ipa_folds()
+    folded = []
+    for fold, acc_p in zip(folds, faccs):
+        tm = {}
+        cuda_ops.reset_launches()
+        out, oks = batch_ipa_as_verify([fold], timings=tm)
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+        check(bool(oks.all()), f"ipa_as: the fold of {len(fold.accs)} rejected")
+        check([int(x) for x in FRW.to_int(out.xi[0])] == acc_p.xi, "ipa_as: xi differ")
+        launch_gate(launches, {"fr_tape": 1, "msm_windowed": 1, "points_to_fr": 2}, "ipa_as")
+        tm2 = {}
+        batch_ipa_as_verify([fold], timings=tm2)
+        folded.append(out.lane(0))
+        log(f"# ipa_as fold of {len(fold.accs)} (zk {fold.svk.zk}): accepts, xi == the "
+            f"prover's; launches {({kk: v for kk, v in launches.items() if v})}; steps (ms, "
+            f"second run): " + ", ".join(f"{s[:-2]} {tm2[s] * 1e3:.3f}" for s in tm2)
+            + f"; the read (the absorb of {len(fold.accs)}·{k} scalars and {len(fold.accs)} "
+            f"points before alpha, then the IPA's) {tm2['read_s'] * 1e3:.3f} ms")
+
+    dk, dk_zk = fx.ipa_keys()
+    ops, _ = fx.ipa_openings(False)
+    out, oks = batch_ipa_verify(ops)
+    check(bool(oks.all()), "decide inputs: the 16 openings")
+    todo = [out.lane(b) for b in range(16)]
+    cuda_ops.reset_launches()
+    ok = decide_all(dk, todo)
+    ok_folds = [decide_all(d, [a])[0] for d, a in zip((dk, dk_zk), folded)]
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    check(bool(ok.all()) and all(bool(x) for x in ok_folds),
+          f"decide at 2^{k}: {int((~ok).sum())} openings and "
+          f"{sum(not bool(x) for x in ok_folds)} folds rejected")
+    check(launches["ipa_h_coeffs"] == 18, f"decide: {launches['ipa_h_coeffs']} h launches, not 18")
+    h_words = limbs_to_words(from_affine_int([dk.svk.h], device=dev))[0]
+    check(not bool(decide_all(dk, [IpaAccumulator(todo[0].xi, h_words)])[0]),
+          "decide: U = H accepted")
+    t0 = time.time()
+    decide_all(dk, todo)
+    torch.cuda.synchronize()
+    log(f"# decide at 2^{k}: the 16 opening accumulators and both folded ones accept, U = H "
+        f"rejects; launches {({kk: v for kk, v in launches.items() if v})}; 16 decides "
+        f"{(time.time() - t0) * 1e3:.2f} ms")
+
+
+def h_coeffs_work(k):
+    """(bytes, least multiply-adds) of the 2^k coefficients: each written
+    once as 16 int64 limbs; one product and one reduction a coefficient."""
+    n = 1 << k
+    return n * 128 + k * 32, n * (MULADDS_PER_FQ_MUL + MULADDS_FROM_MONT)
+
+
+def ipa_decide_phase(dev, kernels, points):
+    """Step 24: the decide at 2^20 points over step 4's [1..2^20]·G."""
+    import torch
+
+    from snark_verifier_tpu_torch.ec import (
+        from_affine_int, limbs_to_words, py_ec,
+    )
+    from snark_verifier_tpu_torch.ff import FR, FRW, limbs_to_int
+    from snark_verifier_tpu_torch.msm import cuda_ops, msm
+    from snark_verifier_tpu_torch.pcs.ipa import (
+        IpaAccumulator, IpaDecidingKey, IpaSuccinctVerifyingKey, decide, h_coeffs_int,
+    )
+
+    k = IPA_DECIDE_LOG2N
+    n = 1 << k
+    check(points.shape[0] == n, "decide: step 4's points are gone")
+    errs = {}
+    # the kernel against its plain version at k = 5, 11 and 20
+    rng = np.random.default_rng(24)
+    xi = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(k)]
+    for kk in (5, 11, k):
+        xw = FRW.from_int(xi[:kk], dev)
+        got, want = cuda_ops.h_coeffs(xw), cuda_ops.h_coeffs_plain(xw)
+        torch.cuda.synchronize()
+        errs[kk] = int((got - want).abs().max())
+        check(errs[kk] == 0 and torch.equal(got, want), f"h_coeffs differs from its plain "
+                                                        f"version at k = {kk}")
+        if kk < k:
+            check([limbs_to_int(r) for r in got.cpu().numpy()] == h_coeffs_int(xi[:kk]),
+                  f"h_coeffs differs from python ints at k = {kk}")
+    t0 = time.time()
+    h = h_coeffs_int(xi)
+    total = sum(c * (j + 1) for j, c in enumerate(h)) % FR.p
+    U = py_ec.scalar_mul(py_ec.G1_GEN, total)
+    sample = list(range(0, n, 997))
+    hk = cuda_ops.h_coeffs(FRW.from_int(xi, dev))[sample].cpu().numpy()
+    check([limbs_to_int(r) for r in hk] == [h[j] for j in sample],
+          "h_coeffs at 2^20 differs from python ints")
+    log(f"# decide inputs: xi from default_rng(24), h's 2^{k} coefficients, U = (sum_j h_j (j+1))"
+        f"·G and {len(sample)} sampled coefficients against python ints: {time.time() - t0:.2f}s")
+
+    # G = [1..2^20]·G; the verifying key's H is not read by the decide
+    svk = IpaSuccinctVerifyingKey(k, py_ec.G1_GEN, py_ec.G1_GEN)
+    dk = IpaDecidingKey(svk, points)
+    u_words = limbs_to_words(from_affine_int([U], device=dev))[0]
+    acc = IpaAccumulator(FRW.from_int(xi, dev), u_words)
+    cuda_ops.reset_launches()
+    ok = decide(dk, acc)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"# decide at 2^{k} launches: {({kk: v for kk, v in launches.items() if v})}")
+    check(bool(ok), "decide at 2^20 rejects the honest U")
+    check(launches["ipa_h_coeffs"] == 1 and launches["bucket_reduce"] == 1
+          and launches["fold_segments"] == 1 and launches["fold_buckets"] <= 3,
+          "decide at 2^20: launches")
+    check(launches["add"] == 0 and launches["double"] == 0, "decide: add or double launched")
+    bad = limbs_to_words(from_affine_int([py_ec.add(U, py_ec.G1_GEN)], device=dev))[0]
+    check(not bool(decide(dk, IpaAccumulator(acc.xi, bad))), "decide at 2^20 accepts U + G")
+    best, times = best_of_3(lambda: decide(dk, acc))
+    coeffs = cuda_ops.h_coeffs(acc.xi)
+    msm_best, _ = best_of_3(lambda: msm(dk.g_dev(dev), coeffs, device=dev))
+    log(f"# IPA decide at k = {k}: best-of-3 {best * 1e3:.3f} ms (runs "
+        f"{[round(t * 1e3, 3) for t in times]} ms; its msm alone {msm_best * 1e3:.3f} ms) on "
+        f"{smi_line()}; accepts U, rejects U + G")
+
+    ms = kernel_ms(lambda: cuda_ops.h_coeffs(acc.xi), 20)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cuda_ops.h_coeffs_plain(acc.xi)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    nbytes, nops = h_coeffs_work(k)
+    bms, by = bound_ms(nbytes, nops)
+    # the chain: one thread's prefix (at most k - 3 products), its doubling
+    # (3 dependent levels) and a reduction
+    floor = (k - 3 + 3 + 1) * CHAIN_FLOOR_MS_PER_MUL
+    small = {}
+    for kk in (5, 11):
+        xs = FRW.from_int(xi[:kk], dev)
+        small[kk] = kernel_ms(lambda: cuda_ops.h_coeffs(xs), 20)
+    use = ptxas_usage("ipa_h_coeffs_kernel")
+    log(f"# ipa_h_coeffs at k = {k}: {ms:.4f} ms (bound {bms:.4f} ms, {by}: {nbytes / 1e6:.1f} MB "
+        f"out, {nops:.3g} least multiply-adds; chain floor {floor:.4f} ms); k = 5 "
+        f"{small[5]:.4f} ms, k = 11 {small[11]:.4f} ms; plain {plain_ms:.1f} ms; ptxas "
+        f"{use['registers']} registers, {use['stack_bytes']} B stack; == h_coeffs_plain word for "
+        f"word at k = 5, 11, {k}")
+    kernels.append(dict(
+        name="ipa_h_coeffs", route="cuda", source="snark_verifier_tpu_torch/csrc/ipa_kernels.cu",
+        replaces="snark_verifier_tpu/pcs/ipa/ipa.py:95",
+        also_replaces=["snark_verifier_tpu/pcs/ipa/ipa.py:346"], launches=launches["ipa_h_coeffs"],
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None, shape=[n, 16], chain_floor_ms=floor, ms_k5=small[5], ms_k11=small[11],
+        ptxas_registers=use["registers"], ptxas_stack_bytes=use["stack_bytes"],
+        tolerance="exact, canonical limbs"))
+    return best
+
+
 def main() -> int:
     import torch
 
@@ -2510,7 +2976,7 @@ def main() -> int:
         f"{bound_ms(3 * POINT_BYTES * big, MULADDS_PER_ADD * big)[0]:.4f} ms); "
         f"double at B=2^19: {ms_dbig:.4f} ms (bound "
         f"{bound_ms(2 * POINT_BYTES * big, MULADDS_PER_DOUBLE * big)[0]:.4f} ms)")
-    del pts_w, points, points_ext, scalars, digits, sa, sb, saw, sbw, ba, bb2, stacked
+    del pts_w, points_ext, scalars, digits, sa, sb, saw, sbw, ba, bb2, stacked  # points: step 24
     del idx_all, idx_rows, idx_main, idx_top, idx_t, pe, d_all
     torch.cuda.empty_cache()
 
@@ -2558,6 +3024,20 @@ def main() -> int:
     t0 = time.time()
     points_to_fr_checks(dev, kernels, verify_launches, gwc_launches, tree_launches, levels)
     log(f"# points_to_fr checks: {time.time() - t0:.1f}s")
+
+    t0 = time.time()
+    ick_phase(dev)
+    log(f"# ick phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    ipa_rates = ipa_openings_phase(dev, kernels)
+    log(f"# ipa phase: {time.time() - t0:.1f}s; {ipa_rates[False]:.1f} IPA succinct proofs/s")
+    t0 = time.time()
+    ipa_family_phase(dev)
+    log(f"# bgh19 / ipa_as / decide at 2^11 phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    decide_s = ipa_decide_phase(dev, kernels, points)
+    log(f"# decide at 2^20 phase: {time.time() - t0:.1f}s; {decide_s * 1e3:.3f} ms")
+    del points
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

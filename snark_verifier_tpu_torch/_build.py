@@ -62,6 +62,8 @@ _SIGNATURES = {
     "svt_fq12_op": [_I, _P, _P, _LL, _P, _P],
     # accumulation_kernels.cu
     "svt_fr_powers": [_P, _I, _P, _LL, _P],
+    # ipa_kernels.cu
+    "svt_ipa_h_coeffs": [_P, _I, _P, _P, _P],
     # keccak_kernels.cu
     "svt_keccak_read": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
 }

@@ -28,6 +28,8 @@ LAUNCHES = {
     "miller_loop": 0, "final_exp": 0, "fq12_op": 0,
     # pcs/kzg/accumulation.py
     "fr_powers": 0,
+    # msm/cuda_ops.py: the IPA decider's h(X) coefficients
+    "ipa_h_coeffs": 0,
     # hash/keccak_device.py: svt_keccak_read for a whole read, and for one
     # squeeze (EvmTranscript.squeeze_challenge)
     "keccak_read": 0, "keccak_squeeze": 0,

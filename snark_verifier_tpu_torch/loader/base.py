@@ -18,8 +18,12 @@ Loader interface:
   pow_static(S, n:int) -> S    exponentiation by a host int
   powers(S, n) -> [S]          [1, x, .., x^{n-1}]
   msm_zero()/msm_base(pt)/msm_base_int((x,y))/msm_constant(S) -> Expr
+  msm_base_proj(P) -> Expr     a projective point handle as a base
   msm_sum([Expr]) -> Expr
   msm_evaluate(Expr, g) -> P   lower the lazy MSM (g = generator handle)
+  msm_is_identity(Expr) -> bit(s)  the MSM is the identity: "lhs == rhs"
+                               as "lhs - rhs is the identity"
+  affine(P) -> pt              a point handle as the transcript absorbs it
   zero_scalar() -> S           the value of an empty Expr's constant
   accumulator_from_limbs([S]) -> (P, P)  decode an instance-encoded accumulator
   decide_all(srs, [(lhs, rhs)]) -> accept bit(s)  the pairing decide
@@ -36,6 +40,7 @@ from ..ec.g1 import from_affine_int_np
 from ..ff import FQW, FRW
 from ..ff.spec import FR
 from ..pcs.kzg.accumulator import accumulator_from_limbs, accumulator_from_limbs_int
+from ..msm import cuda_ops
 from .msm_expr import MsmExpr, lower
 
 
@@ -98,13 +103,26 @@ class TorchLoader:
             self._bases[xy] = pt
         return MsmExpr.base(self, pt)
 
+    def msm_base_proj(self, pt):
+        """pt: (B, 3, 8) or (3, 8) projective words."""
+        return MsmExpr.base(self, pt)
+
     def msm_constant(self, s):
         return MsmExpr.constant(self, s)
 
     def msm_sum(self, exprs: List):
         return MsmExpr.sum(self, exprs)
 
-    def msm_evaluate(self, expr, g):
+    def msm_is_identity(self, expr):
+        """(B,) bool: the MSM (no constant term) is the identity."""
+        return cuda_ops.is_identity(self.msm_evaluate(expr, None))
+
+    def affine(self, pt):
+        """(B, 3, 8) -> (B, 2, 8) affine words, the identity as (0, 0): one
+        `svt_field_inv` and one `svt_field_mul` launch on the card."""
+        return cuda_ops.affine_xy(pt.expand(self.batch, 3, 8).contiguous())
+
+    def msm_evaluate(self, expr, g=None):
         """-> (B, 3, 8): the scaled terms' scalars out of Montgomery form in
         one batched `from_mont`, then `msm_expr.lower`."""
         scaled, plain = expr.terms(g)
@@ -251,8 +269,16 @@ class NativeLoader:
 
     msm_base_int = msm_base
 
+    msm_base_proj = msm_base
+
     def msm_constant(self, s: int):
         return NativeMsm.constant_term(s)
+
+    def msm_is_identity(self, expr: NativeMsm) -> bool:
+        return expr.evaluate(None) is None
+
+    def affine(self, pt):
+        return pt
 
     def msm_sum(self, exprs: List[NativeMsm]):
         out = NativeMsm()

@@ -9,12 +9,22 @@ program (the JAX package's `parallel/batch_verify.py:86-108`).
   * add / sub / mul / neg append one row each; `batch_inv`, `pow_static`
     and `powers` record the same sequence of ops as `WordField.batch_inv`,
     `pow_static` and `powers` (`ff/word_field.py`);
-  * msm_base / msm_base_int / msm_constant build `MsmExpr`s over symbols
-    and base sources: ("stream", j), the proof's j-th point; ("const", k),
-    the k-th protocol point; ("g",), the generator;
-  * `msm_evaluate` records one output (an OUT row: the scalar's canonical
-    plain word) per scaled term, in `MsmExpr.terms`' order, and returns an
-    `MsmRecord` of output rows and base sources;
+  * msm_base / msm_base_int / msm_base_proj / msm_constant build
+    `MsmExpr`s over symbols and base sources: ("stream", j), the proof's
+    j-th point; ("const", k), the k-th protocol point; ("lane", k), the
+    k-th lane point, a (B, 3, 8) projective point of every lane handed in
+    at run time (`lane_point`: an IPA commitment or accumulator); ("g",),
+    the generator;
+  * `msm_evaluate` with the generator records one output (an OUT row: the
+    scalar's canonical plain word) per scaled term, in `MsmExpr.terms`'
+    order, and returns an `MsmRecord` of output rows and base sources;
+    without it, the MSM is one the plan computes before the tape runs (the
+    commitment to the instances of an instance-committing-key protocol:
+    instance inputs times protocol points), and its value is a new lane
+    point; `msm_is_identity` records the MSM and returns an
+    `IdentityRecord`, the plan's accept bit;
+  * `affine` passes a lane point on: the transcript absorbs it as a lane
+    point;
   * `accumulator_from_limbs` records nothing on the tape: it returns a
     `LimbRecord` of the 12 instance inputs that hold an old accumulator,
     which the plan decodes on the device per batch.
@@ -74,6 +84,16 @@ class StreamPoint:
         self.index = index
 
 
+class LanePoint:
+    """The k-th lane point: a projective point of every lane that the plan
+    hands in at run time, (B, 3, 8) words."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, index: int):
+        self.index = index
+
+
 @dataclass
 class MsmRecord:
     """One lowered MSM: scaled terms (output row, base source) and the
@@ -81,6 +101,23 @@ class MsmRecord:
 
     scaled: List[Tuple[int, tuple]]
     plain: List[tuple]
+
+
+@dataclass
+class IdentityRecord:
+    """An accept bit: the MSM of `msm` is the identity."""
+
+    msm: MsmRecord
+
+
+@dataclass
+class LaneCommitment:
+    """A lane point the plan computes before the tape: Σ input·protocol
+    point over `scaled` (input row, const index) plus the coefficient-1
+    protocol points `plain`."""
+
+    scaled: List[Tuple[int, int]]
+    plain: List[int]
 
 
 @dataclass
@@ -111,6 +148,7 @@ class TapeLoader:
         self.inputs: List = []
         self.outputs: List = []
         self.const_points: List = []  # host affine points, by ("const", k)
+        self.lane_points: List = []  # by ("lane", k): None (handed in) or a LaneCommitment
 
     # ------------------------------------------------------------- scalars
 
@@ -199,17 +237,57 @@ class TapeLoader:
             self.const_points.append(xy)
         return MsmExpr.base(self, ("const", self.const_points.index(xy)))
 
+    def lane_point(self) -> LanePoint:
+        """A new lane point, handed in at run time."""
+        self.lane_points.append(None)
+        return LanePoint(len(self.lane_points) - 1)
+
+    def msm_base_proj(self, pt):
+        if not isinstance(pt, LanePoint):
+            raise errors.InvalidProtocol(f"the recorder cannot take a {type(pt).__name__} "
+                                         "as a lane point")
+        return MsmExpr.base(self, ("lane", pt.index))
+
     def msm_constant(self, s):
         return MsmExpr.constant(self, s)
 
     def msm_sum(self, exprs: List):
         return MsmExpr.sum(self, exprs)
 
-    def msm_evaluate(self, expr, g) -> MsmRecord:
+    def msm_evaluate(self, expr, g=None):
+        """With the generator -> an MsmRecord; without it -> the LanePoint
+        of a commitment the plan computes before the tape (see the module
+        docstring)."""
+        if g is None:
+            return self._lane_commitment(expr)
         if g is not GENERATOR:
             raise errors.InvalidProtocol("the recorder takes the generator as tape_loader.GENERATOR")
         scaled, plain = expr.terms(GENERATOR)
         return MsmRecord([(self.output(s, "msm"), base) for s, base in scaled], plain)
+
+    def _lane_commitment(self, expr) -> LanePoint:
+        if expr.const is not None:
+            raise errors.InvalidProtocol("a commitment before the tape has no generator term")
+        scaled, plain = [], []
+        for s, base in expr.pairs:
+            if base[0] != "const" or (s is not None and s.ref[0] != "in"):
+                raise errors.InvalidProtocol(
+                    "a commitment before the tape takes instance inputs times protocol "
+                    f"points, not {s} times {base}")
+            if s is None:
+                plain.append(base[1])
+            else:
+                scaled.append((s.ref[1], base[1]))
+        self.lane_points.append(LaneCommitment(scaled, plain))
+        return LanePoint(len(self.lane_points) - 1)
+
+    def msm_is_identity(self, expr) -> IdentityRecord:
+        return IdentityRecord(self.msm_evaluate(expr, GENERATOR))
+
+    def affine(self, pt):
+        if not isinstance(pt, LanePoint):
+            raise errors.InvalidProtocol(f"the recorder cannot normalise a {type(pt).__name__}")
+        return pt
 
     def accumulator_from_limbs(self, limbs: List) -> LimbRecord:
         rows = []
@@ -248,9 +326,10 @@ class TapeTranscript:
         before the tape, on the card.  What the transcript would hash is
         kept as `squeezes`: squeeze q's buffer as word sources, ("const",
         v), ("input", label) for an absorbed input symbol, ("scalar", j)
-        and ("point", j) for the j-th stream read, ("hash", q') for an
-        earlier squeeze's output, ("value", ref) for anything else (which
-        no read schedule takes: `verifier/plonk/plan.py`);
+        and ("point", j) for the j-th stream read, ("lane", k) for lane
+        point k, ("hash", q') for an earlier squeeze's output, ("value",
+        ref) for anything else (which no read schedule takes:
+        `verifier/plonk/plan.py`);
       * running (`inner` a real transcript): every call passes on to it, and
         `values` keeps each labelled read's value."""
 
@@ -280,11 +359,17 @@ class TapeTranscript:
             self._buf.append(self._source(s))
 
     def common_ec_point(self, pt):
-        if self.inner is not None:
+        """A lane point is absorbed through the inner transcript's
+        `common_lane_point` (its affine form, mapped Fq -> Fr once for all
+        the lane points)."""
+        if self.inner is not None and isinstance(pt, LanePoint):
+            self.inner.common_lane_point(pt.index)
+        elif self.inner is not None:
             self.inner.common_ec_point(pt)
+        elif isinstance(pt, (StreamPoint, LanePoint)):
+            self._buf.append(("point" if isinstance(pt, StreamPoint) else "lane", pt.index))
         else:
-            self._buf.append(("point", pt.index) if isinstance(pt, StreamPoint)
-                             else ("value", None))
+            self._buf.append(("value", None))
 
     def _read(self, kind: str, method: str):
         label = (kind, len(self.labels))

@@ -12,6 +12,7 @@ Points are (..., 3, 8) int32 tensors in the kernels' word layout (ec/g1.py).
 | `fold_level`, `fold_halving`, `fold_grid` | `svt_fold_segments` (fold_kernels.cu) | `_pallas_fold_level` :246, `_pallas_fold_halving` :326, `_pallas_fold_grid` :589 |
 | `g1_add_chain`, `fq_mul_chain`, `fq_sqr_chain` | `svt_g1_add_chain`, `svt_fq_mul_chain` (fold_kernels.cu) | the probe `benchmarks/micro_packed_dissect.py` :48 |
 | `msm_windowed` | `svt_msm_windowed` (msm_loops.cu) | `ec/curve.py::CurveOps.msm_windowed` :194 with `tree_sum` :245 (XLA) |
+| `h_coeffs` | `svt_ipa_h_coeffs` (ipa_kernels.cu) | `pcs/ipa/ipa.py::h_coeffs_dev` :95 and decide's `to_repr_u16` :346 (XLA) |
 
 Each wrapper checks device, dtype, shape, contiguity and alignment.  For a
 CUDA tensor it launches its kernel on the current stream, into an output
@@ -38,7 +39,7 @@ from .._build import load_library
 from .._launch import LAUNCHES, check as _check, launch as _launch, reset_launches
 from .._launch import same_device as _same_device
 from ..ec.g1 import G1, limbs_to_words, words_to_limbs
-from ..ff import FQ_FIELD, FQW, digits4
+from ..ff import FQ_FIELD, FQW, FR_FIELD, FRW, digits4
 
 
 # ---------------------------------------------------------------- add / double
@@ -177,6 +178,15 @@ def fold_buckets_split(points_ext, idx):
 def identity(batch_shape, device):
     """(0 : 1 : 0) in words, broadcast to `batch_shape` (a view)."""
     return limbs_to_words(G1.infinity((), device=device)).expand(*batch_shape, 3, 8)
+
+
+def is_identity(pt):
+    """(..., 3, 8) projective words -> (...) bool: Z ≡ 0 mod p, which under
+    the lazy [0, 2p] contract is Z ∈ {0, p, 2p}.  Word comparisons on the
+    point's device: no kernel launch, no host synchronisation."""
+    zeros = torch.stack([FQW._words(v, pt.device) for v in (0, FQ_FIELD.spec.p,
+                                                            2 * FQ_FIELD.spec.p)])
+    return (pt[..., 2, None, :] == zeros).all(-1).any(-1)
 
 
 # ---------------------------------------------------------- dense bucket folds
@@ -551,3 +561,42 @@ def to_affine(pt):
     identity maps to (0, 0))."""
     xy = affine_xy(pt)
     return xy[..., 0, :], xy[..., 1, :], FQW.is_zero(pt[..., 2, :])
+
+
+# ------------------------------------------------------ the IPA decider's h(X)
+
+
+def h_coeffs_plain(xi, scalar=None):
+    """The 2^k coefficients of h(X) = s·Π_i (1 + ξ_{k-1-i} X^(2^i)) in plain
+    PyTorch, the JAX package's doubling (`pcs/ipa/ipa.py::h_coeffs_dev`:
+    coeffs ++ coeffs·ξ over reversed ξ): xi (k, 8) Fr Montgomery words,
+    scalar (8,) Montgomery words (None: 1) -> (2^k, 16) int64 canonical
+    16-bit limbs, the layout `msm` reads its scalars in."""
+    F = FR_FIELD
+    x = words_to_limbs(xi)
+    c = (F.const("ONE", xi.device) if scalar is None else words_to_limbs(scalar))[None]
+    for i in range(x.shape[0] - 1, -1, -1):
+        c = torch.cat([c, F.mul(c, x[i])], 0)
+    one_plain = words_to_limbs(FRW.const("ONE_PLAIN", xi.device))
+    return F.canon(F.mul(c, one_plain))
+
+
+def h_coeffs(xi, scalar=None):
+    """`h_coeffs_plain`'s function: on a CUDA tensor one launch of
+    `svt_ipa_h_coeffs` (csrc/ipa_kernels.cu), on a CPU tensor the plain
+    version.  The outputs are canonical, so the words are the same."""
+    _check("h_coeffs", xi, 2, (8,))
+    if scalar is not None:
+        _check("h_coeffs", scalar, 1, (8,))
+        _same_device("h_coeffs", xi, scalar)
+    k = xi.shape[0]
+    if k > 30:
+        raise ValueError(f"h_coeffs: k = {k}; at most 2^30 coefficients")
+    if xi.device.type == "cpu":
+        return h_coeffs_plain(xi, scalar)
+    s = FRW.const("ONE", xi.device) if scalar is None else scalar
+    out = torch.empty((1 << k, 16), dtype=torch.int64, device=xi.device)
+    xi_arg = xi if k else s.reshape(1, 8)  # a valid pointer for k = 0
+    _launch("ipa_h_coeffs", load_library().svt_ipa_h_coeffs, xi_arg.data_ptr(), k,
+            s.data_ptr(), out.data_ptr(), device=xi.device)
+    return out

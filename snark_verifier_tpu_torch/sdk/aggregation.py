@@ -49,10 +49,11 @@ def _stack_streams(snarks: Sequence[Snark], device):
     return sc, pts
 
 
-def _instance_block(snarks: Sequence[Snark], device):
-    """-> (B, n_inst, 8) Fr Montgomery words of every lane's instances,
-    column by column: one host block, one upload."""
-    p, R = FR.p, 1 << 256
+def _instance_block(snarks: Sequence[Snark], device, mont: bool = True):
+    """-> (B, n_inst, 8) Fr words of every lane's instances, column by
+    column, in Montgomery form (`mont`) or as canonical plain words (the
+    scalars of an instance commitment): one host block, one upload."""
+    p, R = FR.p, (1 << 256) if mont else 1
     num_instance = snarks[0].protocol.num_instance
     flat = np.zeros((len(snarks), sum(num_instance), 16), np.uint32)
     for b, s in enumerate(snarks):
@@ -104,7 +105,8 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     `timings`, when given, gets each step's host seconds, each step between
     two synchronizes: `stack_s` (stack and upload), `plan_s` (the protocol
     check and the plan lookup, the recording on a first batch), `read_s`
-    (the transcript and read_proof), `gather_s`, `fr_tape_s`, `msm_s` (the
+    (the instance commitment of an instance-committing-key protocol, the
+    transcript and read_proof), `gather_s`, `fr_tape_s`, `msm_s` (the
     bases and the MSM).
 
     Supported: the schemes "shplonk" and "gwc", each with the transcripts
@@ -127,20 +129,24 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
                              digest=digests.pop())
 
     plan = _step(timings, "plan_s", dev, lookup)
-    sc, pts, inst = _step(timings, "stack_s", dev, lambda: _stack_streams(snarks, dev)
-                          + (_instance_block(snarks, dev),))
+    ick = plan.protocol.instance_committing_key is not None
+    sc, pts, inst, inst_plain = _step(
+        timings, "stack_s", dev, lambda: _stack_streams(snarks, dev)
+        + (_instance_block(snarks, dev), _instance_block(snarks, dev, mont=False) if ick else None))
     instances = _instance_columns(inst, plan.protocol.num_instance)
 
     def read():
         if transcript == "evm":
-            return plan.read_keccak(inst, instances, sc, pts, TorchLoader(B, dev))
-        return plan.read(instances, PoseidonTranscript(sc, pts, dev), TorchLoader(B, dev))
+            return plan.read_keccak(inst, instances, sc, pts, TorchLoader(B, dev)), None
+        lanes = plan.commit(inst_plain)
+        return plan.read(instances, PoseidonTranscript(sc, pts, dev, lanes=lanes),
+                         TorchLoader(B, dev)), lanes
 
-    reads = _step(timings, "read_s", dev, read)
+    reads, lanes = _step(timings, "read_s", dev, read)
     inputs = _step(timings, "gather_s", dev, lambda: plan.gather(instances, reads, B))
     outs = _step(timings, "fr_tape_s", dev, lambda: plan.scalars(inputs))
     return _step(timings, "msm_s", dev,
-                 lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs))
+                 lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs, lanes))
 
 
 def stack_pairs(accs) -> torch.Tensor:

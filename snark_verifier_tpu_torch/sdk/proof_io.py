@@ -125,13 +125,12 @@ def _point_split(protocol: PlonkProtocol, scheme_name: str) -> Tuple[int, int]:
 
 def _codecs(fmt: str):
     """(point encoder, point decoder, point size, scalar encoder, scalar
-    decoder) of a format."""
+    decoder) of a format: "poseidon", and the EVM codec for any other name,
+    as the JAX package reads `fmt` (`sdk/proof_io.py:127-129`, `:149-153`)."""
     if fmt == "poseidon":
         return g1_to_bytes, g1_from_bytes, 32, fr_to_bytes, fr_from_bytes
-    if fmt == "evm":
-        return (g1_to_bytes_evm, g1_from_bytes_evm, 64, lambda v: int(v).to_bytes(32, "big"),
-                lambda b: fr_from_bytes(bytes(reversed(b))))
-    raise ValueError(f"unknown proof format {fmt!r}: 'poseidon' or 'evm'")
+    return (g1_to_bytes_evm, g1_from_bytes_evm, 64, lambda v: int(v).to_bytes(32, "big"),
+            lambda b: fr_from_bytes(bytes(reversed(b))))
 
 
 def proof_to_bytes(snark, scheme_name: str = "shplonk", fmt: str = "poseidon") -> bytes:

@@ -13,9 +13,11 @@ scalars (B, n, 8) Fr words, points (B, m, 2, 8) affine Fq words, both
 Montgomery form.  Stream points were checked on the host
 (`Snark.validate`), so none is the identity.  Their coordinates are mapped
 Fq -> Fr once for the whole stream (one `svt_points_to_fr` launch per batch
-on the card), and each read absorbs its slice.  `absorb_ec_points` takes a
-whole stack of affine points at once, `absorb_projective_points` a stack of
-projective ones (the accumulation fold's M accumulator points: the affine
+on the card), and each read absorbs its slice; the lane points handed in
+(`lanes`: an instance commitment, an IPA accumulator's U) are normalised
+and mapped together on the first `common_lane_point`.  `absorb_ec_points`
+takes a whole stack of affine points at once, `absorb_projective_points` a
+stack of projective ones (the accumulation fold's M accumulator points: the affine
 normalisation and the map in one `svt_points_to_fr` launch); the next
 squeeze absorbs all 2M coordinates in one `svt_poseidon_absorb` launch, the
 same sponge as M `common_ec_point` calls.  `PoseidonTranscriptPy` is the
@@ -45,11 +47,16 @@ def fq_to_fr(x_fq_mont):
 class PoseidonTranscript:
     """Reading transcript over a batch's stacked proof streams."""
 
-    def __init__(self, scalars, points, device):
+    def __init__(self, scalars, points, device, lanes=None):
+        """lanes: (B, n, 3, 8) projective points of every lane that the
+        reader absorbs by index (`common_lane_point`): an instance
+        commitment, an IPA accumulator's U."""
         self.h = PoseidonSponge(scalars.shape[0], device)
         self._scalars = scalars
         self._points = points
         self._points_fr = fq_to_fr(points)  # (B, m, 2, 8): what the sponge absorbs
+        self._lanes = lanes
+        self._lanes_fr = None
         self._si = 0
         self._pi = 0
 
@@ -77,6 +84,16 @@ class PoseidonTranscript:
         `absorb_ec_points_scanned`."""
         fr = points_to_fr(pts, projective=True)
         self.h.update_block(fr.reshape(fr.shape[0], -1, 8))
+
+    def common_lane_point(self, k: int):
+        """Absorb lane point k as `common_ec_point` absorbs its affine form
+        (the identity as (0, 0)).  The first call normalises and maps every
+        lane point in one `points_to_fr(lanes, projective=True)`."""
+        if self._lanes_fr is None:
+            if self._lanes is None:
+                raise ValueError("PoseidonTranscript: no lane points were handed in")
+            self._lanes_fr = points_to_fr(self._lanes.contiguous(), projective=True)
+        self._absorb_fr(self._lanes_fr[:, k])
 
     def _absorb_fr(self, fr):
         self.h.update([fr[:, 0], fr[:, 1]])

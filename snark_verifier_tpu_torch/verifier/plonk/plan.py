@@ -23,6 +23,18 @@ depends only on the protocol, so a batch's whole keccak read is one launch
 of `svt_keccak_read` (`read_keccak`), whose challenges a
 `PrecomputedChallengeTranscript` hands to `read_proof`.
 
+A protocol with an instance committing key (the query-instance family)
+commits to each lane's instance columns before the read: the commitment
+depends only on the instances and the protocol's points, so
+`commit_instances` computes it for the whole batch in one `svt_msm_windowed`
+launch over the instances as canonical words (converted on the host,
+`sdk/aggregation.py::_instance_block(..., mont=False)`: no launch), and the
+read absorbs it as a lane point (one `svt_points_to_fr` launch maps every
+column's point).  The recording knows it as lane point c of column c
+(`TapeLoader.msm_evaluate` without the generator), which the linearization
+takes as the column's commitment.  The keccak read has no source for such
+a point: a keccak plan of this family raises `errors.InvalidProtocol`.
+
 A batch then runs (`sdk/aggregation.py::batch_succinct_verify`):
 `read` (the real transcript, its squeezes on the card) or `read_keccak`
 (one launch for the whole read) -> `gather` (one
@@ -46,8 +58,11 @@ from ... import errors
 from ...ec.g1 import from_affine_int_np
 from ...ff import FQW, fr_tape
 from ...hash import keccak_device as kd
-from ...loader.msm_expr import lower
-from ...loader.tape_loader import GENERATOR, LimbRecord, TapeLoader, TapeTranscript
+from ...loader.msm_expr import MsmExpr, lower
+from ...loader.tape_loader import (
+    GENERATOR, LanePoint, LimbRecord, TapeLoader, TapeTranscript,
+)
+from ...msm import cuda_ops
 from ...pcs.kzg.accumulator import accumulator_from_limbs
 from ...transcript.evm_transcript import PrecomputedChallengeTranscript
 from .verifier import PlonkSuccinctVerifier
@@ -85,6 +100,10 @@ def keccak_schedule(squeezes, protocol) -> kd.ReadSchedule:
                 rows += [(kd.SRC_POINT_X, v, kd.TAG_FQ), (kd.SRC_POINT_Y, v, kd.TAG_FQ)]
             elif kind == "hash":
                 rows.append((kd.SRC_HASH, v, kd.TAG_RAW))
+            elif kind == "lane":
+                raise errors.InvalidProtocol(
+                    "the keccak read has no source for a committed instance point: "
+                    "instance-committing-key protocols read with the Poseidon transcript")
             else:
                 raise errors.InvalidProtocol(f"the keccak read cannot absorb {kind} {v}")
         out.append(rows)
@@ -105,20 +124,27 @@ class SuccinctPlan:
         self.accs = accs  # [(lhs MsmRecord, rhs MsmRecord)] then old accumulators' LimbRecords
         self.const_points = list(L.const_points)
         self.n_points = tr.n_points
+        self.n_lanes = len(L.lane_points)  # the committed instance columns
         self.keccak = keccak_schedule(tr.squeezes, protocol) if transcript == "evm" else None
         self._bases: Dict[str, torch.Tensor] = {}
         self.record_s = time.perf_counter() - t0
 
     # ---------------------------------------------------------------- run
 
+    def commit(self, inst_plain):
+        """The lane points of one batch: `commit_instances` for a protocol
+        with an instance committing key, else None."""
+        if self.protocol.instance_committing_key is None:
+            return None
+        return commit_instances(self.protocol, inst_plain)
+
     def read(self, instances, transcript, L) -> TapeTranscript:
         """Read one batch's proofs through `transcript` -> the TapeTranscript
         that holds the challenges and scalars, (B, 8) handles in read order.
         `L` only loads the protocol's initial transcript state: the old
-        accumulators are decoded once, by `accumulators`."""
-        tr = TapeTranscript(inner=transcript)
-        PlonkSuccinctVerifier.read_proof(self.protocol, instances, tr, self.scheme, _ReadLoader(L))
-        return tr
+        accumulators are decoded once, by `accumulators`; the committed
+        instances are the transcript's lane points (`commit`)."""
+        return read_proof(self.protocol, self.scheme, instances, transcript, L)
 
     def read_keccak(self, inst, instances, scalars, points, L) -> TapeTranscript:
         """The keccak read of one batch: every squeeze in one launch of
@@ -153,13 +179,15 @@ class SuccinctPlan:
             return fr_tape.run(self.tape, inputs)
         return fr_tape.run_plain(self.tape, inputs)
 
-    def base_table(self, points, g):
-        """The bases the MSMs name, (B, m + k + 1, 3, 8): the m stream
-        points (Z = 1), the k protocol points (uploaded once per device),
-        the generator."""
+    def base_table(self, points, g, lanes=None):
+        """The bases the MSMs name, (B, m + l + k + 1, 3, 8): the m stream
+        points (Z = 1), the l lane points, the k protocol points (uploaded
+        once per device), the generator."""
         B, m = points.shape[:2]
         if points.shape[1] != self.n_points:
             raise ValueError(f"plan: {m} proof points, the protocol reads {self.n_points}")
+        if (0 if lanes is None else lanes.shape[1]) != self.n_lanes:
+            raise ValueError(f"plan: the protocol commits {self.n_lanes} instance columns")
         dev = points.device
         key = str(dev)
         if key not in self._bases:
@@ -168,21 +196,25 @@ class SuccinctPlan:
                 if self.const_points else torch.empty((0, 3, 8), dtype=torch.int32, device=dev))
         one = FQW.const("ONE", dev).expand(B, m, 1, 8)
         fixed = torch.cat([self._bases[key], g.reshape(1, 3, 8)], 0)
-        return torch.cat([torch.cat([points, one], -2), fixed.expand(B, -1, 3, 8)], 1)
+        parts = [torch.cat([points, one], -2)] + ([] if lanes is None else [lanes])
+        return torch.cat(parts + [fixed.expand(B, -1, 3, 8)], 1)
 
     def _base_index(self, src) -> int:
         kind = src[0]
         if kind == "stream":
             return src[1]
-        if kind == "const":
+        if kind == "lane":
             return self.n_points + src[1]
-        return self.n_points + len(self.const_points)  # the generator
+        if kind == "const":
+            return self.n_points + self.n_lanes + src[1]
+        return self.n_points + self.n_lanes + len(self.const_points)  # the generator
 
-    def accumulators(self, outs, points, g, inputs) -> List:
+    def accumulators(self, outs, points, g, inputs, lanes=None) -> List:
         """outs (n_out, B, 8) canonical scalars, points (B, m, 2, 8) the
         stream's affine points, g (3, 8), inputs the (n_in, B, 8) block of
-        `gather` -> [(lhs, rhs)], each (B, 3, 8)."""
-        table = self.base_table(points, g)
+        `gather`, lanes the (B, l, 3, 8) lane points of `commit` -> [(lhs,
+        rhs)], each (B, 3, 8)."""
+        table = self.base_table(points, g, lanes)
         B, dev = table.shape[0], table.device
         result = []
         for acc in self.accs:
@@ -204,15 +236,83 @@ class SuccinctPlan:
 
 
 class _ReadLoader:
-    """`L`'s scalars for `SuccinctPlan.read`, whose proof is dropped: its
-    old accumulators are not decoded."""
+    """`L`'s scalars for `read_proof`, whose proof is dropped: its old
+    accumulators are not decoded, and its instance commitments are the
+    lane points 0, 1, ... (computed before the read: `commit_instances`),
+    which the transcript absorbs as such."""
 
     def __init__(self, L):
         self.scalar = L.scalar
+        self._lanes = 0
 
     @staticmethod
     def accumulator_from_limbs(limbs):
         return None
+
+    def msm_base_int(self, pt):
+        return MsmExpr.base(self, None)
+
+    def msm_sum(self, exprs):
+        return MsmExpr.sum(self, exprs)
+
+    def msm_evaluate(self, expr, g=None):
+        self._lanes += 1
+        return LanePoint(self._lanes - 1)
+
+    @staticmethod
+    def affine(pt):
+        return pt
+
+
+def read_proof(protocol, scheme, instances, transcript, L) -> TapeTranscript:
+    """`PlonkProof.read` of one batch through `transcript` (which holds the
+    batch's lane points, if the protocol commits its instances) -> the
+    TapeTranscript of the reads' values in read order."""
+    tr = TapeTranscript(inner=transcript)
+    PlonkSuccinctVerifier.read_proof(protocol, instances, tr, scheme, _ReadLoader(L))
+    return tr
+
+
+def _ick_bases(points, device):
+    """The instance committing key's points as (n, 3, 8) words on `device`,
+    uploaded once per (points, device)."""
+    key = (tuple(points), str(device))
+    t = _ICK_BASES.get(key)
+    if t is None:
+        t = _ICK_BASES[key] = torch.from_numpy(from_affine_int_np(list(points))).to(device)
+    return t
+
+
+_ICK_BASES: Dict[tuple, torch.Tensor] = {}
+
+
+def commit_instances(protocol, inst_plain):
+    """The instance committing key's commitment to every lane's instance
+    columns: column c of lane b is Σᵢ bases[i]·instances[b][c][i] (+ the
+    key's constant point).  inst_plain (B, n_inst, 8): the instances as
+    canonical plain words, column by column -> (B, n_col, 3, 8) projective
+    words, from one `svt_msm_windowed` launch over (B·n_col, n + 1) terms:
+    the bases (a shorter column's scalars padded with zeros) and the
+    constant with the scalar 1.  A column with no term is the identity."""
+    ick = protocol.instance_committing_key
+    bases, const = list(ick["bases"]), ick.get("constant")
+    counts = [min(n, len(bases)) for n in protocol.num_instance]
+    B, dev = inst_plain.shape[0], inst_plain.device
+    n = max(counts, default=0)
+    width = n + (const is not None)
+    if width == 0:
+        return cuda_ops.identity((B, len(counts)), dev).contiguous()
+    scs = torch.zeros((B, len(counts), width, 8), dtype=torch.int32, device=dev)
+    k = 0
+    for c, (cnt, ncol) in enumerate(zip(counts, protocol.num_instance)):
+        scs[:, c, :cnt] = inst_plain[:, k : k + cnt]
+        k += ncol
+    if const is not None:
+        scs[:, :, n, 0] = 1
+    pts = _ick_bases(bases[:n] + ([const] if const is not None else []), dev)
+    pts = pts.expand(B * len(counts), width, 3, 8).contiguous()
+    out = cuda_ops.msm_windowed(pts, scs.view(B * len(counts), width, 8), c=4)
+    return out.view(B, len(counts), 3, 8)
 
 
 def succinct_plan(protocol, scheme, scheme_name: str, transcript: str,

@@ -16,9 +16,10 @@ The protocol is host data; scalars and points are loader handles.  Under
 verifies a batch of proofs of one protocol on one device, op by op (the
 plan's witness); under `NATIVE` it is the python-int oracle
 (`succinct_verify_native`).  Supported: GWC19 (`Gwc19`) and SHPLONK
-(`Bdfg21`), each with the Poseidon or the keccak ("evm") transcript,
-protocols whose instances are absorbed as scalars (no instance committing
-key).
+(`Bdfg21`), each with the Poseidon or the keccak ("evm") transcript;
+instances absorbed as scalars, or committed by an instance committing key
+(the query-instance family: the verifier's MSM of the instances, absorbed
+as a point and taken as the instance columns' commitments).
 """
 
 from __future__ import annotations
@@ -65,11 +66,24 @@ class PlonkProof:
             raise errors.InvalidInstances(
                 f"{[len(i) for i in instances]} != {protocol.num_instance}"
             )
+        committed_instances = None
         if protocol.instance_committing_key is not None:
-            raise errors.InvalidProtocol("instance committing keys are not supported yet")
-        for cols in instances:
-            for v in cols:
-                transcript.common_scalar(v)
+            # the query-instance family: the verifier commits to each instance
+            # column itself, Σ bases·instances (+ constant), and absorbs the
+            # point (the reference's system/halo2.rs:724-756)
+            ick = protocol.instance_committing_key
+            committed_instances = []
+            for cols in instances:
+                expr = L.msm_sum([L.msm_base_int(b) * s for s, b in zip(cols, ick["bases"])])
+                if ick.get("constant") is not None:
+                    expr = expr + L.msm_base_int(ick["constant"])
+                pt = L.msm_evaluate(expr)
+                committed_instances.append(pt)
+                transcript.common_ec_point(L.affine(pt))
+        else:
+            for cols in instances:
+                for v in cols:
+                    transcript.common_scalar(v)
 
         witnesses, challenges = [], []
         for n, m in zip(protocol.num_witness, protocol.num_challenge):
@@ -85,6 +99,7 @@ class PlonkProof:
             for acc_idx in protocol.accumulator_indices
         ]
         return PlonkProof(
+            committed_instances=committed_instances,
             witnesses=witnesses,
             challenges=challenges,
             quotients=quotients,
@@ -110,6 +125,8 @@ class PlonkProof:
         offset = len(protocol.preprocessed)
         rng = range(offset, offset + len(protocol.num_instance))
         inst_queries = [q for q in protocol.quotient.numerator.used_query() if q.poly in rng]
+        if protocol.instance_committing_key is not None:
+            inst_queries = []  # the instance columns are committed, not evaluated
         for q in inst_queries:
             acc = None
             for i, v in enumerate(instances[q.poly - offset]):
@@ -123,7 +140,10 @@ class PlonkProof:
     def commitments(self, protocol, cpe, evaluations: Dict, L) -> List:
         """Linearization MSM assembly (proof.rs:179-281)."""
         comms: List = [L.msm_base_int(pt) for pt in protocol.preprocessed]
-        comms.extend(L.msm_zero() for _ in protocol.num_instance)
+        if self.committed_instances is not None:
+            comms.extend(L.msm_base_proj(p) for p in self.committed_instances)
+        else:
+            comms.extend(L.msm_zero() for _ in protocol.num_instance)
         comms.extend(L.msm_base(w) for w in self.witnesses)
 
         def constant(v):

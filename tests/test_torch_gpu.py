@@ -1020,3 +1020,151 @@ def test_keccak_read_kernel_long_buffers(cuda):
     hp, cp = kd.read_plain(sched, inst, sc, pts)
     torch.cuda.synchronize()
     assert torch.equal(h, hp) and torch.equal(c, cp)
+
+
+# ------------------------------------------------ the IPA family, ick protocols
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 11, 20])
+def test_ipa_h_coeffs_kernel_matches_plain(cuda, k):
+    """svt_ipa_h_coeffs against h_coeffs_plain, word for word, one launch;
+    with a scalar factor, and against python ints where k is small."""
+    from snark_verifier_tpu_torch.ff import FRW, limbs_to_int
+    from snark_verifier_tpu_torch.pcs.ipa import h_coeffs_int
+
+    rng = np.random.default_rng(500 + k)
+    xi = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(k)]
+    s = int.from_bytes(rng.bytes(32), "little") % FR.p
+    xw = FRW.from_int(xi, cuda) if k else torch.zeros((0, 8), dtype=torch.int32, device=cuda)
+    sw = FRW.from_int(s, cuda)
+    reset_launches()
+    got = cuda_ops.h_coeffs(xw)
+    got_s = cuda_ops.h_coeffs(xw, sw)
+    assert LAUNCHES["ipa_h_coeffs"] == 2
+    assert torch.equal(got, cuda_ops.h_coeffs_plain(xw))
+    assert torch.equal(got_s, cuda_ops.h_coeffs_plain(xw, sw))
+    if k <= 11:
+        assert [limbs_to_int(r) for r in got_s.cpu().numpy()] == h_coeffs_int(xi, s)
+
+
+def _ick_stub(n_bases, seed):
+    class Stub:
+        transcript_initial_state = 7
+        num_witness, num_challenge, evaluations, queries, accumulator_indices = [], [], [], [], []
+
+        class quotient:
+            @staticmethod
+            def num_chunk():
+                return 0
+
+        class domain:
+            @staticmethod
+            def rotate(r):
+                return 1
+
+    stub = Stub()
+    stub.num_instance = [n_bases]
+    stub.instance_committing_key = {"bases": py_ec.rand_points(n_bases, seed=seed),
+                                    "constant": py_ec.rand_points(1, seed=seed + 1)[0]}
+    return stub
+
+
+def test_ick_commitment_before_the_read_on_card(cuda):
+    """The plan's instance commitment (one msm_windowed) and its absorb (one
+    points_to_fr) at B = 64, against py_ec and PoseidonTranscriptPy."""
+    from snark_verifier_tpu_torch.ff import FRW, int_to_limbs, np_limbs_to_words
+    from snark_verifier_tpu_torch.loader.base import TorchLoader
+    from snark_verifier_tpu_torch.transcript import PoseidonTranscript, PoseidonTranscriptPy
+    from snark_verifier_tpu_torch.verifier.plonk.plan import commit_instances, read_proof
+
+    class NullPcs:
+        @staticmethod
+        def read_proof(queries, transcript):
+            return {}
+
+    B, n = 64, 5
+    stub = _ick_stub(n, 31)
+    ick = stub.instance_committing_key
+    rng = np.random.default_rng(31)
+    vals = [[int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)] for _ in range(B)]
+
+    def block(mont):
+        f = (lambda v: v * (1 << 256) % FR.p) if mont else (lambda v: v)
+        arr = np.stack([[int_to_limbs(f(v)) for v in row] for row in vals]).astype(np.uint32)
+        return torch.from_numpy(np_limbs_to_words(arr)).to(cuda)
+
+    mont, plain = block(True), block(False)
+    reset_launches()
+    lanes = commit_instances(stub, plain)
+    tr = PoseidonTranscript(torch.zeros((B, 0, 8), dtype=torch.int32, device=cuda),
+                            torch.zeros((B, 0, 2, 8), dtype=torch.int32, device=cuda), cuda,
+                            lanes=lanes)
+    reads = read_proof(stub, NullPcs, [[mont[:, i] for i in range(n)]], tr, TorchLoader(B, cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES["msm_windowed"] == 1 and LAUNCHES["points_to_fr"] == 1
+    assert not any(v for k, v in LAUNCHES.items() if k.startswith("field_"))
+    got = to_affine_int(words_to_limbs(lanes[:, 0]))
+    zs = FRW.to_int(reads.values[0])
+    for b in (0, 1, B - 1):
+        want = py_ec.add(py_ec.msm(ick["bases"], vals[b]), ick["constant"])
+        t = PoseidonTranscriptPy()
+        t.common_scalar(7)
+        t.common_ec_point(want)
+        assert got[b] == want and int(zs[b]) == t.squeeze_challenge()
+
+
+def test_ipa_batch_on_card_mixed_lanes(cuda):
+    """The committed k = 11 openings at B = 48 with every third lane's eval
+    moved: the accept bits are the pattern; one fr_tape, one msm_windowed,
+    one points_to_fr, k + 1 poseidon_absorb; xi are the prover's."""
+    from snark_verifier_tpu_torch.ff import FRW
+    from snark_verifier_tpu_torch.pcs.ipa import IpaOpening, batch_ipa_verify
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as fx
+
+    ops, accs = fx.ipa_openings(False)
+    lanes, want = [], []
+    for b in range(48):
+        o = ops[b % 16]
+        if b % 3 == 2:
+            o = IpaOpening(o.svk, o.c, o.z, (o.v + 1) % FR.p, o.scalars, o.points)
+        lanes.append(o)
+        want.append(b % 3 != 2)
+    reset_launches()
+    out, oks = batch_ipa_verify(lanes, device=cuda)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fr_tape"] == 1 and LAUNCHES["msm_windowed"] == 1
+    assert LAUNCHES["points_to_fr"] == 1 and LAUNCHES["poseidon_absorb"] == fx.K + 1
+    assert not any(v for k, v in LAUNCHES.items() if k.startswith("field_"))
+    assert oks.tolist() == want
+    xis = FRW.to_int(out.xi.reshape(-1, 8)).reshape(48, fx.K)
+    assert all([int(x) for x in xis[b]] == accs[b % 16].xi for b in range(48))
+
+
+def test_ipa_family_and_decide_on_card(cuda):
+    """BGH19 (4 lanes, one tampered), both IpaAs folds, and the decide at
+    2^11 of an opening's and each fold's accumulator (U = H rejected)."""
+    from snark_verifier_tpu_torch.pcs.ipa import (
+        Bgh19Opening, IpaAccumulator, batch_bgh19_verify, batch_ipa_as_verify,
+        batch_ipa_verify, decide,
+    )
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as fx
+
+    ops, _ = fx.bgh19_openings()
+    o = ops[1]
+    q = list(o.queries)
+    q[0] = (q[0][0], q[0][1], (q[0][2] + 1) % FR.p)
+    lanes = [ops[0], Bgh19Opening(o.svk, o.commitments, o.x, q, o.scalars, o.points)] + ops[2:]
+    _, oks = batch_bgh19_verify(lanes, device=cuda)
+    assert oks.tolist() == [True, False, True, True]
+    dk, dk_zk = fx.ipa_keys()
+    folds, _ = fx.ipa_folds()
+    for d, fold in zip((dk, dk_zk), folds):
+        out, ok = batch_ipa_as_verify([fold], device=cuda)
+        assert ok.tolist() == [True]
+        reset_launches()
+        assert bool(decide(d, out.lane(0)))
+        assert LAUNCHES["ipa_h_coeffs"] == 1 and LAUNCHES["bucket_reduce"] == 1
+    out, ok = batch_ipa_verify(fx.ipa_openings(False)[0][:1], device=cuda)
+    assert bool(ok[0]) and bool(decide(dk, out.lane(0)))
+    h = limbs_to_words(from_affine_int([dk.svk.h], device=cuda))[0]
+    assert not bool(decide(dk, IpaAccumulator(out.xi[0], h)))

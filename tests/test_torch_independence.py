@@ -63,6 +63,18 @@ import snark_verifier_tpu_torch.verifier.plonk.plan
 import snark_verifier_tpu_torch.pcs.kzg.accumulator
 import snark_verifier_tpu_torch.pcs.kzg.accumulation
 import snark_verifier_tpu_torch.sdk.tree_aggregation
+import snark_verifier_tpu_torch.pcs.ipa
+import snark_verifier_tpu_torch.pcs.ipa.ipa
+import snark_verifier_tpu_torch.pcs.ipa.bgh19
+import snark_verifier_tpu_torch.pcs.ipa.plan
+import snark_verifier_tpu_torch.pcs.ipa.fixtures
+from snark_verifier_tpu_torch.pcs.ipa import (
+    Bgh19, Ipa, IpaAccumulator, IpaAs, IpaDecidingKey, IpaSuccinctVerifyingKey, decide,
+    decide_all,
+)
+assert all(hasattr(c, "from_jax") for c in (IpaAccumulator, IpaDecidingKey,
+                                            IpaSuccinctVerifyingKey))
+snark_verifier_tpu_torch.pcs.ipa.fixtures.ipa_keys()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "snark_verifier_tpu")]
 assert not bad, bad
 print("OK")

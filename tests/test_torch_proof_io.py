@@ -90,5 +90,13 @@ def test_malformed_bytes_refused_as_jax(fixtures):
         pio.g1_to_bytes_evm(None)
     with pytest.raises(errors.TranscriptError):
         pio.fq_from_bytes(FQ.p.to_bytes(32, "little"))
-    with pytest.raises(ValueError):
-        pio.proof_to_bytes(ours, "shplonk", "bincode")
+    # any format name but "poseidon" is the EVM codec, as in the JAX package,
+    # in both directions
+    for name in ("keccak", "bincode"):
+        blob = pio.proof_to_bytes(ours, "shplonk", name)
+        assert blob == jpio.proof_to_bytes(theirs, "shplonk", name)
+        assert blob == pio.proof_to_bytes(ours, "shplonk", "evm")
+        back = pio.proof_from_bytes(ours.protocol, ours.instances, blob, "shplonk", name)
+        jback = jpio.proof_from_bytes(theirs.protocol, theirs.instances, blob, "shplonk", name)
+        assert back.scalars == ours.scalars == jback.scalars
+        assert back.points == ours.points == jback.points
