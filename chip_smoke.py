@@ -154,7 +154,20 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    point (one `points_to_fr`); gates: every lane's committed point equals
    `py_ec.msm` + constant, z and the next squeeze equal
    `PoseidonTranscriptPy`'s, exactly those launches and two
-   `poseidon_absorb`;
+   `poseidon_absorb`.  Then the same batch with the keccak transcript,
+   through the plan's recorded schedule (`keccak_challenges`); gates: every
+   lane's challenges equal `EvmTranscriptPy`'s, one `msm_windowed`, one
+   `points_to_fr` (`map_fr=False`: the commitments to canonical affine Fq
+   words), one `keccak_read`, no `poseidon_absorb` and no single-op field
+   launch, a tampered instance moves its own lane only; the normalisation
+   timed against `affine_xy`'s two launches.  Then a whole protocol: the
+   evmsnark fixtures' protocol given an instance committing key (its
+   instance column queried, an extra stream scalar), through
+   `batch_succinct_verify(..., "shplonk", "evm")` at 1,024; gates: every
+   lane equals the python-int `succinct_verify_native(..., "evm")`, a
+   tampered instance moves lane 0 alone, two `msm_windowed` (the
+   commitment, the accumulator), one each of `points_to_fr`, `keccak_read`
+   and `fr_tape`;
 22. IPA openings at k = 11 (the committed
    `snark_verifier_tpu_torch/fixtures/ipa_openings_k11.json`): the 16
    without zk tiled to 1,024 and the 16 with zk tiled to 256 through
@@ -174,7 +187,9 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    ints (all at k = 5 and 11, a sample at 20); ξ from default_rng(24) and
    U = (Σ_j h_j·(j+1))·G by python ints: `decide` accepts U and rejects
    U + G with one `ipa_h_coeffs` launch and one MSM; best-of-3 ms beside
-   the MSM alone; the kernel timed beside its bound.
+   the MSM alone; the kernel timed beside its bound, with its share of the
+   bound, the bytes it stores a second and ptxas's registers, stack and
+   spills.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -1807,7 +1822,8 @@ def evm_phase(dev, kernels):
         f"proof_from_bytes, streams equal + 16 oracle runs: {time.time() - t0:.2f}s")
     reads, real = [], keccak_device.read
 
-    def capture(schedule, inst, scalars, points):
+    def capture(schedule, inst, scalars, points, lanes=None):
+        check(lanes is None, "the evm batch read lane points: its protocol commits none")
         reads.append((schedule, inst, scalars, points))
         return real(schedule, inst, scalars, points)
 
@@ -2188,7 +2204,8 @@ def points_to_fr_checks(dev, kernels, verify_launches, gwc_launches, tree_launch
     main = rows[0]
     x = cases[0][1]
     plain_ms = time_ms(lambda: points_to_fr_plain(x), 1, warmup=1)
-    use = {m: ptxas_usage(f"points_to_fr_{m}_kernel") for m in ("affine", "projective")}
+    use = {m: ptxas_usage(f) for m, f in (("affine", "points_to_fr_affine_kernel"),
+                                           ("projective", "points_to_fr_projective_kernelILb1E"))}
     log("# points_to_fr == its plain version and the replaced launches, word for word: "
         + "; ".join(f"{r['label']} {tuple(r['shape'])} ({r['mode']}, {r['identities']} "
                     f"identities): {r['ms']:.4f} ms (with the host's time {r['host_ms']:.4f}) "
@@ -2223,6 +2240,7 @@ def points_to_fr_checks(dev, kernels, verify_launches, gwc_launches, tree_launch
 ICK_BASES = 16  # the stub protocol's committing key: 16 bases and a constant
 IPA_ZK_BATCH = 256
 IPA_DECIDE_LOG2N = LOG2N  # the decide at 2^20 points runs over step 4's [1..2^20]·G
+HC_CHUNK_BITS = 5  # csrc/ipa_kernels.cu's chunk tables: 2^5 entries, 5 doubling levels
 
 
 class IckStub:
@@ -2342,6 +2360,172 @@ def ick_phase(dev):
         f"commitment and read {best * 1e3:.3f} ms best of 3 (runs "
         f"{[round(t * 1e3, 3) for t in times]}), the commitment alone {commit_ms:.4f} ms "
         f"(CUDA events) on {smi_line()}")
+    return ick_keccak_stub(dev, stub, want_pts, flat, lanes)
+
+
+def ick_keccak_stub(dev, stub, want_pts, flat, lanes):
+    """Step 21, keccak: the same stub and batch read with the keccak
+    transcript through the plan's recorded schedule (the read and one
+    squeeze after it): the commitment (one msm_windowed), its affine
+    normalisation (one points_to_fr, map_fr=False), one keccak_read.
+    Returns the launches and the normalisation's row for the kernels line."""
+    import torch
+
+    from snark_verifier_tpu_torch.ff import FQW, FRW, points_to_fr, points_to_fr_plain
+    from snark_verifier_tpu_torch.loader.base import TorchLoader
+    from snark_verifier_tpu_torch.loader.tape_loader import TapeLoader, TapeTranscript
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.transcript import EvmTranscriptPy, PrecomputedChallengeTranscript
+    from snark_verifier_tpu_torch.verifier.plonk.plan import (
+        commit_instances, instance_label, keccak_challenges, keccak_schedule, read_proof,
+    )
+    from snark_verifier_tpu_torch.verifier.plonk.verifier import PlonkProof
+
+    B = VERIFY_BATCH
+    L = TapeLoader()
+    rec = TapeTranscript(L)
+    PlonkProof.read(stub, [[L.input(instance_label(0, i)) for i in range(ICK_BASES)]], rec,
+                    NullPcs, L)
+    rec.squeeze_challenge()
+    sched = keccak_schedule(rec.squeezes, stub)
+    want = []
+    for pt in want_pts:  # the python-int transcript of each distinct lane
+        t = EvmTranscriptPy()
+        t.common_scalar(7)
+        t.common_ec_point(pt)
+        want.append([t.squeeze_challenge(), t.squeeze_challenge()])
+    empty_sc = torch.zeros((B, 0, 8), dtype=torch.int32, device=dev)
+    empty_pts = torch.zeros((B, 0, 2, 8), dtype=torch.int32, device=dev)
+
+    def read(vals):
+        mont = fr_words(vals, True, dev).view(B, ICK_BASES, 8)
+        plain = fr_words(vals, False, dev).view(B, ICK_BASES, 8)
+
+        def run():
+            lanes = commit_instances(stub, plain)
+            chals = keccak_challenges(sched, mont, empty_sc, empty_pts, lanes)
+            tr = PrecomputedChallengeTranscript(empty_sc, empty_pts, list(chals))
+            reads = read_proof(stub, NullPcs, [[mont[:, i] for i in range(ICK_BASES)]], tr,
+                               TorchLoader(B, dev))
+            return reads.values[0], chals[1]
+
+        return run
+
+    run = read(flat)
+    cuda_ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    got = [FRW.to_int(v) for v in got]
+    log(f"# ick keccak read launches at batch {B}: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    launch_gate(launches, {"msm_windowed": 1, "points_to_fr": 1, "keccak_read": 1,
+                           "poseidon_absorb": 0, "keccak_squeeze": 0}, "ick keccak")
+    bad = [b for b in range(B) if [int(got[0][b]), int(got[1][b])] != want[b % 16]]
+    check(not bad, f"ick keccak: {len(bad)} lanes' challenges differ from EvmTranscriptPy's, "
+                   f"first {bad[:5]}")
+    moved = list(flat)
+    moved[0] = (moved[0] + 1) % FRW.spec.p  # lane 0's first instance
+    got2 = [FRW.to_int(v) for v in read(moved)()]
+    diff = [b for b in range(B) if [int(got2[0][b]), int(got2[1][b])] != want[b % 16]]
+    check(diff == [0], f"ick keccak: a tampered instance of lane 0 moved lanes {diff[:5]}")
+    best, times = best_of_3(run)
+
+    # the normalisation alone: one launch against affine_xy's two (inv, mul)
+    xy = points_to_fr(lanes, projective=True, map_fr=False)
+    e = word_err(xy, points_to_fr_plain(lanes, projective=True, map_fr=False))
+    check(e == 0, "points_to_fr (map_fr=False) differs from its plain version on the lanes")
+    check(word_err(xy, FQW.canon(cuda_ops.affine_xy(lanes))) == 0,
+          "points_to_fr (map_fr=False) differs from affine_xy on the lanes")
+    flat_lanes = lanes.reshape(-1, 3, 8).contiguous()
+    rounds = [gcd_rounds(v, FQW.spec.p) for v in word_ints(flat_lanes[:, 2])]
+    _, inv_ops, inv_floor = inv_work(rounds)
+    m = len(rounds)
+    bms, by = bound_ms(160 * m, inv_ops + 2 * m * MULADDS_PER_FQ_MUL)
+    row = dict(label=f"ick lanes {tuple(lanes.shape[:2])}", mode="projective to affine Fq",
+               shape=list(lanes.shape), ms=kernel_ms(lambda: points_to_fr(
+                   lanes, projective=True, map_fr=False), 20),
+               host_ms=time_ms(lambda: points_to_fr(lanes, projective=True, map_fr=False), 50),
+               replaced_launches=2, replaced_ms=kernel_ms(lambda: cuda_ops.affine_xy(lanes), 10),
+               replaced_host_ms=time_ms(lambda: cuda_ops.affine_xy(lanes), 50),
+               bound_ms=bms, bound_by=by, chain_floor_ms=inv_floor + CHAIN_FLOOR_MS_PER_MUL,
+               identities=0, ptxas=ptxas_usage("points_to_fr_projective_kernelILb0E"))
+    log(f"# ick keccak gates: every lane's z and next squeeze == EvmTranscriptPy's, a tampered "
+        f"instance moves lane 0 alone; launches: one msm_windowed, one points_to_fr "
+        f"(map_fr=False), one keccak_read, no poseidon_absorb, no single-op field launch; the "
+        f"commitment and read {best * 1e3:.3f} ms best of 3 (runs "
+        f"{[round(t * 1e3, 3) for t in times]}); the normalisation {row['ms']:.4f} ms (with the "
+        f"host's time {row['host_ms']:.4f}) against affine_xy's two launches "
+        f"{row['replaced_ms']:.4f} ms (with the host's {row['replaced_host_ms']:.4f}), bound "
+        f"{bms:.6f} ms ({by}), chain floor {row['chain_floor_ms']:.4f} ms, ptxas "
+        f"{row['ptxas']}; on {smi_line()}")
+    return launches, row
+
+
+def ick_keccak_batch(dev):
+    """Step 21, a whole protocol: the 16 evmsnark fixtures' protocol given an
+    instance committing key over its instance column (16 random bases and a
+    constant) and that column queried and evaluated in the proof (an extra
+    stream scalar, numpy seed 21), as tests/test_torch_instance_committing_
+    key.py does; `batch_succinct_verify(..., "shplonk", "evm")` at 1,024
+    tiled.  No prover makes such a proof, so the accumulators are no valid
+    ones: every lane's equals the port's python-int verifier's
+    (`succinct_verify_native(..., "evm")`), a tampered instance moves lane
+    0's alone.  Returns the launches."""
+    import copy
+
+    import torch
+
+    from snark_verifier_tpu_torch.ec import py_ec
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.sdk.aggregation import batch_succinct_verify
+    from snark_verifier_tpu_torch.sdk.snark import Snark
+    from snark_verifier_tpu_torch.verifier.plonk import verifier as pv
+    from snark_verifier_tpu_torch.verifier.plonk.protocol import Query
+
+    B = VERIFY_BATCH
+    t0 = time.time()
+    srs, loaded = load_fixtures("evmsnark")
+    proto = copy.deepcopy(loaded[0].protocol)
+    proto.instance_committing_key = {
+        "bases": py_ec.rand_points(proto.num_instance[0], seed=23),
+        "constant": py_ec.rand_points(1, seed=24)[0]}
+    n_eval = len(proto.evaluations)
+    iq = Query(len(proto.preprocessed), 0)
+    proto.evaluations.append(iq)
+    proto.queries.append(iq)
+    rng = np.random.default_rng(21)
+    base = [Snark(proto, s.instances, s.scalars[:n_eval]
+                  + [int.from_bytes(rng.bytes(32), "little") % FR.p] + s.scalars[n_eval:],
+                  s.points) for s in loaded]
+    oracle = [pv.succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in base]
+    log(f"# ick keccak batch inputs: the evmsnark protocol with an instance committing key of "
+        f"{proto.num_instance[0]} bases and a constant, 16 oracle verifies: "
+        f"{time.time() - t0:.2f}s")
+    snarks = [base[i % 16] for i in range(B)]
+    cuda_ops.reset_launches()
+    accs = batch_succinct_verify(snarks, srs, "shplonk", "evm")
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"# ick keccak batch launches at batch {B}: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    launch_gate(launches, {"msm_windowed": 2, "points_to_fr": 1, "keccak_read": 1,
+                           "fr_tape": 1, "poseidon_absorb": 0, "keccak_squeeze": 0},
+                "ick keccak batch")
+    got = affine_pairs(*accs[0])
+    bad = [b for b in range(B) if got[b] != oracle[b % 16]]
+    check(not bad, f"ick keccak batch: {len(bad)} lanes differ from the python-int verifier")
+    accs2 = batch_succinct_verify([tampered(snarks[0])] + snarks[1:], srs, "shplonk", "evm")
+    got2 = affine_pairs(*accs2[0])
+    diff = [b for b in range(B) if got2[b] != got[b]]
+    check(diff == [0], f"ick keccak batch: a tampered instance of lane 0 moved lanes {diff[:5]}")
+    best, times = best_of_3(lambda: batch_succinct_verify(snarks, srs, "shplonk", "evm"))
+    log(f"# ick keccak batch gates: every lane == succinct_verify_native(..., 'evm'), a tampered "
+        f"instance moves lane 0 alone; launches: two msm_windowed (the commitment, the "
+        f"accumulator), one points_to_fr (map_fr=False), one keccak_read, one fr_tape; "
+        f"{best * 1e3:.3f} ms best of 3 (runs {[round(t * 1e3, 3) for t in times]}) = "
+        f"{B / best:.1f} succinct proofs/s on {smi_line()}")
     return launches
 
 
@@ -2631,26 +2815,28 @@ def ipa_decide_phase(dev, kernels, points):
     plain_ms = (time.time() - t0) * 1e3
     nbytes, nops = h_coeffs_work(k)
     bms, by = bound_ms(nbytes, nops)
-    # the chain: one thread's prefix (at most k - 3 products), its doubling
-    # (3 dependent levels) and a reduction
-    floor = (k - 3 + 3 + 1) * CHAIN_FLOOR_MS_PER_MUL
+    # the chain: the chunk tables' doubling levels, a tile table entry, the
+    # tile's factor and one coefficient's product
+    floor = (HC_CHUNK_BITS + 3) * CHAIN_FLOOR_MS_PER_MUL
     small = {}
     for kk in (5, 11):
         xs = FRW.from_int(xi[:kk], dev)
         small[kk] = kernel_ms(lambda: cuda_ops.h_coeffs(xs), 20)
     use = ptxas_usage("ipa_h_coeffs_kernel")
+    share, gbps = bms / ms, nbytes / (ms * 1e-3) / 1e9
     log(f"# ipa_h_coeffs at k = {k}: {ms:.4f} ms (bound {bms:.4f} ms, {by}: {nbytes / 1e6:.1f} MB "
-        f"out, {nops:.3g} least multiply-adds; chain floor {floor:.4f} ms); k = 5 "
-        f"{small[5]:.4f} ms, k = 11 {small[11]:.4f} ms; plain {plain_ms:.1f} ms; ptxas "
-        f"{use['registers']} registers, {use['stack_bytes']} B stack; == h_coeffs_plain word for "
-        f"word at k = 5, 11, {k}")
+        f"out, {nops:.3g} least multiply-adds; {share:.1%} of the bound, {gbps:.0f} GB/s stored; "
+        f"chain floor {floor:.4f} ms); k = 5 {small[5]:.4f} ms, k = 11 {small[11]:.4f} ms; plain "
+        f"{plain_ms:.1f} ms; ptxas {use['registers']} registers, {use['stack_bytes']} B stack, "
+        f"{use['spill_bytes']} B spill stores; == h_coeffs_plain word for word at k = 5, 11, {k}")
     kernels.append(dict(
         name="ipa_h_coeffs", route="cuda", source="snark_verifier_tpu_torch/csrc/ipa_kernels.cu",
         replaces="snark_verifier_tpu/pcs/ipa/ipa.py:95",
         also_replaces=["snark_verifier_tpu/pcs/ipa/ipa.py:346"], launches=launches["ipa_h_coeffs"],
         max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None, shape=[n, 16], chain_floor_ms=floor, ms_k5=small[5], ms_k11=small[11],
-        ptxas_registers=use["registers"], ptxas_stack_bytes=use["stack_bytes"],
+        bound_share=share, stored_gb_per_s=gbps, ptxas_registers=use["registers"],
+        ptxas_stack_bytes=use["stack_bytes"], ptxas_spill_bytes=use["spill_bytes"],
         tolerance="exact, canonical limbs"))
     return best
 
@@ -3026,8 +3212,16 @@ def main() -> int:
     log(f"# points_to_fr checks: {time.time() - t0:.1f}s")
 
     t0 = time.time()
-    ick_phase(dev)
-    log(f"# ick phase: {time.time() - t0:.1f}s")
+    ick_launches, ick_row = ick_phase(dev)
+    ick_batch_launches = ick_keccak_batch(dev)
+    row = next(r for r in kernels if r["name"] == "points_to_fr")
+    row.update(launches_ick_keccak=ick_launches["points_to_fr"],
+               launches_ick_keccak_batch=ick_batch_launches["points_to_fr"], to_affine=ick_row)
+    row["also_replaces"].append("snark_verifier_tpu/transcript/evm_transcript.py:119")
+    row = next(r for r in kernels if r["name"] == "keccak_read")
+    row.update(launches_ick_keccak=ick_launches["keccak_read"],
+               launches_ick_keccak_batch=ick_batch_launches["keccak_read"])
+    log(f"# ick phase (Poseidon and keccak): {time.time() - t0:.1f}s")
     t0 = time.time()
     ipa_rates = ipa_openings_phase(dev, kernels)
     log(f"# ipa phase: {time.time() - t0:.1f}s; {ipa_rates[False]:.1f} IPA succinct proofs/s")

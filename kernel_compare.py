@@ -6,10 +6,12 @@ one card: the only fair comparison of two versions of a kernel.
 
 `DIR` is the csrc/ directory of the other checkout (for example one unpacked
 with `git archive <commit> snark_verifier_tpu_torch/csrc`).  Its
-`fold_kernels.cu`, `msm_kernels.cu` and `poseidon_kernels.cu` are built side
-by side with nvcc, each against the headers beside it, and its entry points
-are called as the port has declared them since the fold took a team size
-(the other checkout must be one whose `svt_fold_buckets` takes it):
+`fold_kernels.cu`, `msm_kernels.cu` and `poseidon_kernels.cu` (and, where
+it has them, `field_kernels.cu`, `keccak_kernels.cu`,
+`accumulation_kernels.cu` and `ipa_kernels.cu`) are built side by side
+with nvcc, each against the headers beside it, and its entry points are
+called as the port has declared them since the fold took a team size (the
+other checkout must be one whose `svt_fold_buckets` takes it):
 
 * `svt_fq_mul_chain(a, b, out, n, ch, stream)`: chains of dependent Fq
   multiplies at B = 2^17, CH = 16 and 256;
@@ -56,7 +58,23 @@ are called as the port has declared them since the fold took a team size
   table of 14 add launches, then per window 4 double launches, a gather, a
   tree of add launches and one more add), and the weighted bucket sums plus
   Horner over the MSM's own (32, 256) bucket sums (a suffix scan and a tree
-  of add launches, then 8 double launches and one add launch per window).
+  of add launches, then 8 double launches and one add launch per window);
+* where the other checkout has it: `svt_ipa_h_coeffs(xi, k, s, out,
+  stream)` at k = 5, 11 and 20 (ξ from numpy seed 24, s = 1 and a random
+  s), each version held to `h_coeffs_plain` and to the other word for
+  word, with the bytes it stores a second and its share of the bytes'
+  bound; and beside them this checkout's other store route,
+  `csrc/probe/ipa_h_coeffs_vec.cu` (`svt_ipa_h_coeffs_vec`: the same
+  tables, a tile's canonical words staged in shared memory and stored 16
+  bytes a thread), built as its own library (rows of kind
+  `ipa_h_coeffs_vec`, whose "parent" columns are that route's);
+* `to_affine` (this checkout alone): the keccak read's normalisation of
+  instance commitments, one `svt_points_to_fr` launch with `map_fr=False`,
+  beside the two launches of `cuda_ops.affine_xy` (`svt_field_inv`,
+  `svt_field_mul`) it replaced, at (1,024, 1) and (1,024, 4) projective
+  points (identity lanes among them), both held to the plain version
+  (`affine_xy`'s lazy words after `canon`); the "parent" columns are
+  `affine_xy`'s.
 
 This checkout's kernels run through their wrappers on the same tensors.
 Each pair is timed with CUDA events in the order parent, this, this, parent,
@@ -94,8 +112,9 @@ PARENT_UNITS = {
                       "svt_field_canon": [_I, _P, _P, _LL, _P]},
     "keccak_kernels": {"svt_keccak_squeeze": [_P, _P, _I, _P, _I, _P, _P, _P, _LL, _P]},
     "accumulation_kernels": {"svt_fr_powers": [_P, _I, _P, _LL, _P]},
+    "ipa_kernels": {"svt_ipa_h_coeffs": [_P, _I, _P, _P, _P]},
 }
-OPTIONAL_UNITS = ("field_kernels", "keccak_kernels", "accumulation_kernels")
+OPTIONAL_UNITS = ("field_kernels", "keccak_kernels", "accumulation_kernels", "ipa_kernels")
 
 
 def build_parent(csrc: Path, out_dir: Path):
@@ -199,7 +218,7 @@ def main() -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated parts to run: fq_mul_chain, msm (the folds and the "
                          "point loops), poseidon_permute, field_inv, keccak_read, fr_powers, "
-                         "points_to_fr (default all)")
+                         "points_to_fr, h_coeffs, to_affine (default all)")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -221,6 +240,14 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
     parent = build_parent(args.parent, _build.BUILD_DIR / "compare")
+    other = None
+    if selected("h_coeffs"):  # the other store route, this checkout's probe
+        lib = _build.BUILD_DIR / "compare" / "libh_coeffs_vec.so"
+        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared", "-Xcompiler",
+                        "-fPIC", "-o", str(lib),
+                        str(_build.SRC_DIR / "probe" / "ipa_h_coeffs_vec.cu")], check=True)
+        other = ctypes.CDLL(str(lib)).svt_ipa_h_coeffs_vec
+        other.argtypes, other.restype = [_P, _I, _P, _P, _P], ctypes.c_int
     _build.load_library()
     print(f"# card: {card}; builds {time.time() - t0:.1f}s", flush=True)
     rows = []
@@ -566,6 +593,71 @@ def main() -> int:
                         want, 10, timer=timer, mode="projective" if proj else "affine",
                         shape=list(x.shape), timed=label, parent_launches=5 if proj else 3,
                         this_launches=1, elements=m)
+
+    # ------------------------------------------------- the IPA decider's h(X)
+    if "svt_ipa_h_coeffs" in parent and selected("h_coeffs"):
+        rng = np.random.default_rng(24)
+        xi_all = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(20)]
+        s_rand = FRW.from_int(int.from_bytes(rng.bytes(32), "little") % FR.p, dev)
+        for k in (5, 11, 20):
+            xi = FRW.from_int(xi_all[:k], dev)
+            for label, sw in (("s = 1", FRW.const("ONE", dev)), ("random s", s_rand)):
+                out = torch.empty((1 << k, 16), dtype=torch.int64, device=dev)
+
+                def p_h(xi=xi, sw=sw, out=out, k=k):
+                    call(parent["svt_ipa_h_coeffs"], xi.data_ptr(), k, sw.data_ptr(),
+                         out.data_ptr())
+                    return out
+
+                this = cuda_ops.h_coeffs(xi, sw)
+                p_h()
+                torch.cuda.synchronize()
+                n_bytes = (1 << k) * 128
+                bound = n_bytes / 3.35e12 * 1e3
+                compare("ipa_h_coeffs", p_h, lambda: cuda_ops.h_coeffs(xi, sw), out, word_err,
+                        cuda_ops.h_coeffs_plain(xi, sw), 20, timer=kernel_ms, k=k, scalar=label,
+                        equal_to_each_other=bool(torch.equal(this, out)), bytes=n_bytes,
+                        bound_ms=bound)
+                r = rows[-1]
+                if not r["equal_to_each_other"]:
+                    r["this_err"] = max(r["this_err"], 1)
+                r.update(parent_gb_per_s=n_bytes / max(r["parent_ms"]) / 1e6,
+                         this_gb_per_s=n_bytes / max(r["this_ms"]) / 1e6,
+                         parent_bound_share=bound / max(r["parent_ms"]),
+                         this_bound_share=bound / max(r["this_ms"]))
+                print(json.dumps({k2: r[k2] for k2 in ("k", "scalar", "parent_gb_per_s",
+                                                       "this_gb_per_s", "parent_bound_share",
+                                                       "this_bound_share")}), flush=True)
+                out_v = torch.empty_like(out)
+
+                def v_h(xi=xi, sw=sw, out_v=out_v, k=k):
+                    call(other, xi.data_ptr(), k, sw.data_ptr(), out_v.data_ptr())
+                    return out_v
+
+                compare("ipa_h_coeffs_vec", v_h, lambda: cuda_ops.h_coeffs(xi, sw), v_h(),
+                        word_err, cuda_ops.h_coeffs_plain(xi, sw), 20, timer=kernel_ms, k=k,
+                        scalar=label,
+                        parent="csrc/probe/ipa_h_coeffs_vec.cu (16-byte stores a thread)",
+                        bytes=n_bytes, bound_ms=bound)
+                r = rows[-1]
+                r.update(parent_gb_per_s=n_bytes / max(r["parent_ms"]) / 1e6,
+                         this_gb_per_s=n_bytes / max(r["this_ms"]) / 1e6)
+
+    # -------------------------- the keccak read's normalisation, one launch
+    if selected("to_affine"):
+        from snark_verifier_tpu_torch.ff import points_to_fr, points_to_fr_plain
+
+        rng = np.random.default_rng(31)
+        for shape in ((1024, 1), (1024, 4)):
+            x = rand_lazy_words(rng, (*shape, 3), FQ.p, dev)  # Z = 0, p, 2p first
+            want = points_to_fr_plain(x, projective=True, map_fr=False)
+            for timer, label in ((kernel_ms, "kernel"), (time_ms, "as called")):
+                compare("to_affine", lambda: cuda_ops.affine_xy(x),
+                        lambda: points_to_fr(x, projective=True, map_fr=False),
+                        FQW.canon(cuda_ops.affine_xy(x)), word_err, want, 10, timer=timer,
+                        shape=list(x.shape), timed=label,
+                        parent="cuda_ops.affine_xy (svt_field_inv, svt_field_mul)",
+                        parent_launches=2, this_launches=1)
 
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -65,7 +65,8 @@ _SIGNATURES = {
     # ipa_kernels.cu
     "svt_ipa_h_coeffs": [_P, _I, _P, _P, _P],
     # keccak_kernels.cu
-    "svt_keccak_read": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
+    "svt_keccak_read": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL,
+                        _P],
 }
 
 _lib = None

@@ -20,10 +20,17 @@
 // mul by plain 1, canon, and Fr's mul by R^2), so its words equal theirs:
 // after the canon every word is a function of the value alone.  The
 // identity (Z = 0, p or 2p) inverts to 0 and maps to (0, 0), as the JAX
-// package's to_affine + fq_to_fr.  Affine mode is a thread an element in
-// 256-thread blocks; projective mode a thread a point in 32-thread blocks,
-// as the inversion (latency-bound: the tree's 2,048 points spread over 64
-// SMs, not 8).  Bounds: affine 272 multiply-adds against 64 bytes an
+// package's to_affine + fq_to_fr.  A third mode, projective to affine,
+// stops before the map: canonical affine Fq Montgomery (x, y), the words
+// the keccak read absorbs for an instance commitment (the JAX package's
+// G1.to_affine under transcript/evm_transcript.py::EvmTranscript.
+// common_ec_point :119-124, which hashes the coordinates' canonical values:
+// the canon here only fixes the representative); the identity gives
+// (0, 0).  On that path it takes the place of msm/cuda_ops.py::affine_xy's
+// two single-op launches (inv, mul).  Affine mode is a thread an element
+// in 256-thread blocks; the projective modes a thread a point in 32-thread
+// blocks, as the inversion (latency-bound: the tree's 2,048 points spread
+// over 64 SMs, not 8).  Bounds: affine 272 multiply-adds against 64 bytes an
 // element; projective the inversion's steps and update rows for the rounds
 // the data needs, plus 6 products, against 160 bytes a point.  At the
 // paths' shapes both sit at their chain: the inversion's rounds, then three
@@ -130,8 +137,10 @@ __global__ void __launch_bounds__(FE_THREADS)
   fe_store(out + i * FQ_WORDS, r);
 }
 
-// Projective mode: in (n, 3, 8) Fq words (X, Y, Z) -> out (n, 2, 8) Fr words
-// of the affine (X/Z, Y/Z); Z^-1 is canonical, 0 for the identity.
+// Projective modes: in (n, 3, 8) Fq words (X, Y, Z) -> out (n, 2, 8) Fr
+// words of the affine (X/Z, Y/Z) (MAP), or its canonical Fq Montgomery words
+// (!MAP); Z^-1 is canonical, 0 for the identity.
+template <bool MAP>
 __global__ void __launch_bounds__(INV_THREADS)
     points_to_fr_projective_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                                    long long n) {
@@ -145,7 +154,8 @@ __global__ void __launch_bounds__(INV_THREADS)
   for (int c = 0; c < 2; c++) {
     fe_load(x, pt + c * FQ_WORDS);
     fe_mul<FQ>(t, x, zinv);
-    fq_to_fr(r, t);
+    if constexpr (MAP) fq_to_fr(r, t);
+    else fe_canon<FQ>(r, t);
     fe_store(out + (i * 2 + c) * FQ_WORDS, r);
   }
 }
@@ -219,16 +229,20 @@ extern "C" int svt_field_canon(int field, const void* a, void* out, long long n,
   return svt::launch_unary<svt::OP_CANON>(field, a, out, n, stream);
 }
 
-// in: (n, 8) Fq Montgomery words (projective = 0) or (n, 3, 8) projective
-// points (projective = 1); out: (n, 8) or (n, 2, 8) Fr Montgomery words.
-extern "C" int svt_points_to_fr(const void* in, int projective, void* out, long long n,
+// mode 0: in (n, 8) Fq Montgomery words -> out (n, 8) Fr Montgomery words;
+// mode 1: in (n, 3, 8) projective points -> out (n, 2, 8) Fr Montgomery
+// words; mode 2: the same points -> out (n, 2, 8) affine Fq Montgomery words.
+extern "C" int svt_points_to_fr(const void* in, int mode, void* out, long long n,
                                 void* stream) {
-  if (n < 0 || (projective != 0 && projective != 1)) return (int)cudaErrorInvalidValue;
+  if (n < 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const auto st = (cudaStream_t)stream;
-    if (projective)
-      svt::points_to_fr_projective_kernel<<<svt::fe_blocks(n, svt::INV_THREADS),
-                                            svt::INV_THREADS, 0, st>>>(
+    const unsigned blocks = svt::fe_blocks(n, svt::INV_THREADS);
+    if (mode == 1)
+      svt::points_to_fr_projective_kernel<true><<<blocks, svt::INV_THREADS, 0, st>>>(
+          (const uint32_t*)in, (uint32_t*)out, n);
+    else if (mode == 2)
+      svt::points_to_fr_projective_kernel<false><<<blocks, svt::INV_THREADS, 0, st>>>(
           (const uint32_t*)in, (uint32_t*)out, n);
     else
       svt::points_to_fr_affine_kernel<<<svt::fe_blocks(n), svt::FE_THREADS, 0, st>>>(

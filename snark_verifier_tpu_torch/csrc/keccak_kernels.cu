@@ -11,7 +11,9 @@
 // A read is a schedule recorded once per protocol (verifier/plonk/plan.py):
 // squeeze q hashes rows starts[q] .. starts[q + 1] - 1, each row a word's
 // source (an instance, a constant, a stream scalar, the x or y of a stream
-// point, or the hash of an earlier squeeze), its index there and its tag:
+// point, the hash of an earlier squeeze, or the x or y of a lane point: an
+// instance commitment, computed before the read and normalised to affine
+// by svt_points_to_fr), its index there and its tag:
 // 0 raw bytes (hashed as they are), 1 an Fr and 2 an Fq element in
 // Montgomery form (they leave it through fq.cuh's multiply by plain 1 and
 // fe_canon).  Each squeeze is keccak256 of its words, the dup marker 0x01
@@ -64,7 +66,7 @@ constexpr int KR_RING = 256;   // sponge lanes a warp buffers (a power of two)
 constexpr int KR_CHUNK = 32;   // words gathered at a time, one a lane
 constexpr int KC_TAG_FR = 1, KC_TAG_FQ = 2;  // tag 0: raw words, hashed as they are
 enum { KC_SRC_INSTANCE, KC_SRC_CONST, KC_SRC_SCALAR, KC_SRC_POINT_X, KC_SRC_POINT_Y,
-       KC_SRC_HASH };
+       KC_SRC_HASH, KC_SRC_LANE_X, KC_SRC_LANE_Y };
 
 struct KcRead {
   const uint32_t* inst;     // (B, n_inst, 8) Fr Montgomery words
@@ -74,6 +76,8 @@ struct KcRead {
   int n_sc;
   const uint32_t* points;   // (B, n_pt, 2, 8) affine Fq Montgomery words
   int n_pt;
+  const uint32_t* lane_pts;  // (B, n_lane_pts, 2, 8) affine Fq Montgomery words
+  int n_lane_pts;
   const int* rows;          // (n_rows, 3): source, index, tag
   const int* starts;        // (n_sq + 1,): squeeze q's rows
   const uint32_t* pad;      // (L, 2): (lo, hi) halves of every squeeze's pad lanes
@@ -100,6 +104,8 @@ __device__ __forceinline__ void kr_word(uint32_t x[FQ_WORDS], const KcRead& s, i
       : src == KC_SRC_CONST  ? s.consts + (long long)idx * FQ_WORDS
       : src == KC_SRC_SCALAR ? s.scalars + (b * s.n_sc + idx) * FQ_WORDS
       : src == KC_SRC_HASH   ? s.hash + (idx * s.B + b) * FQ_WORDS
+      : src >= KC_SRC_LANE_X ? s.lane_pts + ((b * s.n_lane_pts + idx) * 2
+                                              + (src == KC_SRC_LANE_Y)) * FQ_WORDS
                              : s.points + ((b * s.n_pt + idx) * 2 + (src == KC_SRC_POINT_Y))
                                               * FQ_WORDS;
   kr_load(x, p);
@@ -184,14 +190,16 @@ __global__ void __launch_bounds__(KR_TEAMS * 32) keccak_read_kernel(const KcRead
 // source and that every squeeze has at least one word.
 extern "C" int svt_keccak_read(const void* inst, int n_inst, const void* consts,
                                const void* scalars, int n_sc, const void* points, int n_pt,
-                               const void* rows, const void* starts, const void* pad,
+                               const void* lane_pts, int n_lane_pts, const void* rows,
+                               const void* starts, const void* pad,
                                const void* pad_starts, int n_sq, void* hash, void* chal,
                                long long B, void* stream) {
   if (n_sq < 1 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const svt::KcRead s{(const uint32_t*)inst, n_inst, (const uint32_t*)consts,
                       (const uint32_t*)scalars, n_sc, (const uint32_t*)points, n_pt,
-                      (const int*)rows, (const int*)starts, (const uint32_t*)pad,
+                      (const uint32_t*)lane_pts, n_lane_pts, (const int*)rows,
+                      (const int*)starts, (const uint32_t*)pad,
                       (const int*)pad_starts, n_sq, (uint32_t*)hash, (uint32_t*)chal, B};
   const unsigned blocks = (unsigned)((B + svt::KR_TEAMS - 1) / svt::KR_TEAMS);
   svt::keccak_read_kernel<<<blocks, svt::KR_TEAMS * 32, 0, (cudaStream_t)stream>>>(s);

@@ -30,7 +30,8 @@ transcript's canonical-value map Fq -> Fr (the JAX package's
 `transcript/poseidon_transcript.py::fq_to_fr` :31), and in projective mode
 the affine normalisation before it (`ec/curve.py::to_affine` :261), as one
 launch of `svt_points_to_fr`; `points_to_fr_plain` runs the same primitive
-ops one by one.
+ops one by one.  With `map_fr=False` it is the normalisation alone
+(canonical affine Fq words: the keccak read's instance commitments).
 """
 
 from __future__ import annotations
@@ -301,34 +302,48 @@ FRW = WordField(FR)
 # ---------------------------------------------------------- Fq -> Fr map
 
 
-def points_to_fr_plain(x, projective: bool = False):
+def points_to_fr_plain(x, projective: bool = False, map_fr: bool = True):
     """The plain version of `svt_points_to_fr` on any device: the primitive
     ops' plain twins in the kernel's order.  Affine mode: (..., 8) Fq
     Montgomery words -> (..., 8) Fr Montgomery words of the value mod r
     (from_mont, canon, then Fr's to_mont; q < 2r, so the canonical Fq
     value is a lazy Fr input).  Projective mode: (..., 3, 8) points ->
     (..., 2, 8), the map of the affine (X/Z, Y/Z); the identity (Z ≡ 0)
-    maps to (0, 0)."""
+    maps to (0, 0).  Projective mode with `map_fr=False`: the affine
+    (X/Z, Y/Z) itself, canonical Fq Montgomery words (the JAX package's
+    G1.to_affine, canonical); the identity is (0, 0)."""
+    _mode(projective, map_fr)
     if projective:
         zinv = FQW.plain("inv", x[..., 2, :])
         x = FQW.plain("mul", x[..., :2, :], zinv[..., None, :])
+        if not map_fr:
+            return FQW.plain("canon", x)
     c = FQW.plain("canon", FQW.plain("mul", x, FQW.const("ONE_PLAIN", x.device)))
     return FRW.plain("mul", c, FRW.const("R2", x.device))
 
 
-def points_to_fr(x, projective: bool = False):
+def _mode(projective: bool, map_fr: bool) -> int:
+    """svt_points_to_fr's mode: 0 affine, 1 projective, 2 projective to
+    affine Fq."""
+    if not (projective or map_fr):
+        raise ValueError("points_to_fr: map_fr=False takes projective points")
+    return 0 if not projective else 1 if map_fr else 2
+
+
+def points_to_fr(x, projective: bool = False, map_fr: bool = True):
     """`points_to_fr_plain`'s function: on a CUDA tensor one launch of
     `svt_points_to_fr` (csrc/field_kernels.cu), on a CPU tensor the plain
     version.  The words are the same: each leaves a canonical value through
-    the same Fr product."""
+    the same Fr product (or, `map_fr=False`, through the same canon)."""
     name = "points_to_fr"
+    mode = _mode(projective, map_fr)
     WordField._check(name, x)
     tail = (3, NWORDS) if projective else (NWORDS,)
     if tuple(x.shape[x.dim() - len(tail):]) != tail:
         raise ValueError(f"{name}: bad shape {tuple(x.shape)} for "
                          f"{'projective' if projective else 'affine'} mode")
     if x.device.type == "cpu":
-        return points_to_fr_plain(x, projective)
+        return points_to_fr_plain(x, projective, map_fr)
     x2 = x.contiguous()
     if x2.data_ptr() % 16:
         x2 = x2.clone()
@@ -336,6 +351,6 @@ def points_to_fr(x, projective: bool = False):
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
     n = x.numel() // (3 * NWORDS if projective else NWORDS)
     if n:
-        launch(name, load_library().svt_points_to_fr, x2.data_ptr(), int(projective),
+        launch(name, load_library().svt_points_to_fr, x2.data_ptr(), mode,
                out.data_ptr(), n, device=x.device)
     return out

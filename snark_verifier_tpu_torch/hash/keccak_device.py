@@ -13,11 +13,13 @@ word (transcript/evm.rs:88), then the keccak pad 0x01 ... 0x80.
 * `ReadSchedule` — a transcript read's squeezes word by word, recorded once
   per protocol (`verifier/plonk/plan.py`): each word's source (an instance,
   a constant, a stream scalar, the x or y of a stream point, an earlier
-  squeeze's hash), its index there and its tag.
-* `read(schedule, inst, scalars, points)` — every squeeze of a batch's read
-  -> (hashes, challenges), (n_sq, B, 8) each.  On CUDA tensors one launch
-  of `svt_keccak_read` (csrc/keccak_kernels.cu: a warp a proof); on CPU
-  tensors `read_plain`, the same schedule squeeze by squeeze.
+  squeeze's hash, the x or y of a lane point), its index there and its tag.
+* `read(schedule, inst, scalars, points, lanes)` — every squeeze of a
+  batch's read -> (hashes, challenges), (n_sq, B, 8) each; `lanes` are the
+  affine lane points (instance commitments, computed before the read).  On
+  CUDA tensors one launch of `svt_keccak_read` (csrc/keccak_kernels.cu: a
+  warp a proof); on CPU tensors `read_plain`, the same schedule squeeze by
+  squeeze.
 * `squeeze(words, tags)` — one transcript squeeze of (B, W, 8) words, word
   w tagged TAG_RAW (a previous hash), TAG_FR or TAG_FQ (a field element in
   Montgomery form, hashed as its canonical value) -> (hash (B, 8) raw
@@ -46,7 +48,8 @@ from .keccak import _ROTATIONS, _ROUND_CONSTANTS, RATE
 
 TAG_RAW, TAG_FR, TAG_FQ = 0, 1, 2  # the tags of csrc/keccak_kernels.cu
 # A word's source in a read (csrc/keccak_kernels.cu's KC_SRC_*)
-SRC_INSTANCE, SRC_CONST, SRC_SCALAR, SRC_POINT_X, SRC_POINT_Y, SRC_HASH = range(6)
+(SRC_INSTANCE, SRC_CONST, SRC_SCALAR, SRC_POINT_X, SRC_POINT_Y, SRC_HASH, SRC_LANE_X,
+ SRC_LANE_Y) = range(8)
 RATE_LANES = RATE // 8  # 17
 _FIELDS = {TAG_FR: FRW, TAG_FQ: FQW}
 _I64 = torch.int64
@@ -209,8 +212,9 @@ class ReadSchedule:
     `squeezes[q]` is squeeze q's buffer: (source, index, tag) triples, the
     source one of SRC_*: instance `index` of the batch's instance block, the
     constant `consts[index]` (a canonical value, hashed raw), stream scalar
-    `index`, the x or y of stream point `index`, or squeeze `index`'s hash
-    (an earlier one).  Every squeeze hashes at least one word."""
+    `index`, the x or y of stream point `index`, squeeze `index`'s hash
+    (an earlier one), or the x or y of lane point `index`.  Every squeeze
+    hashes at least one word."""
 
     def __init__(self, squeezes: Sequence[Sequence[Tuple[int, int, int]]],
                  consts: Sequence[int] = ()):
@@ -223,7 +227,7 @@ class ReadSchedule:
                 raise ValueError(f"keccak read: squeeze {q} hashes no word")
             for src, idx, tag in sq:
                 if tag not in (TAG_RAW, TAG_FR, TAG_FQ) or idx < 0 or not (
-                        SRC_INSTANCE <= src <= SRC_HASH):
+                        SRC_INSTANCE <= src <= SRC_LANE_Y):
                     raise ValueError(f"keccak read: bad word {(src, idx, tag)} in squeeze {q}")
                 if src == SRC_HASH and idx >= q:
                     raise ValueError(f"keccak read: squeeze {q} takes the hash of squeeze {idx}")
@@ -255,25 +259,33 @@ class ReadSchedule:
         return self._tables[key]
 
 
-def _read_inputs(schedule: ReadSchedule, inst, scalars, points):
+def _no_lanes(scalars):
+    return torch.empty((scalars.shape[0], 0, 2, 8), dtype=torch.int32, device=scalars.device)
+
+
+def _read_inputs(schedule: ReadSchedule, inst, scalars, points, lanes):
     """Check a read's inputs against its schedule; -> B."""
     check("keccak_read", inst, 3, (8,))
     check("keccak_read", scalars, 3, (8,))
     check("keccak_read", points, 4, (2, 8))
-    same_device("keccak_read", inst, scalars, points)
+    check("keccak_read", lanes, 4, (2, 8))
+    same_device("keccak_read", inst, scalars, points, lanes)
     B = scalars.shape[0]
     n_pt = max(schedule.need(SRC_POINT_X), schedule.need(SRC_POINT_Y))
+    n_lanes = max(schedule.need(SRC_LANE_X), schedule.need(SRC_LANE_Y))
     for name, t, n in (("instances", inst, schedule.need(SRC_INSTANCE)),
-                       ("scalars", scalars, schedule.need(SRC_SCALAR)), ("points", points, n_pt)):
+                       ("scalars", scalars, schedule.need(SRC_SCALAR)), ("points", points, n_pt),
+                       ("lane points", lanes, n_lanes)):
         if t.shape[0] != B or t.shape[1] < n:
             raise ValueError(f"keccak_read: {name} {tuple(t.shape)} for a read of {B} proofs "
                              f"that takes {n}")
     return B
 
 
-def squeeze_words(schedule: ReadSchedule, q: int, inst, scalars, points, hashes):
+def squeeze_words(schedule: ReadSchedule, q: int, inst, scalars, points, hashes, lanes=None):
     """Squeeze q's buffer, (B, W, 8) words, and its tags: its words gathered
-    from their sources, `hashes` the earlier squeezes' (q', B, 8)."""
+    from their sources, `hashes` the earlier squeezes' (q', B, 8), `lanes`
+    the (B, l, 2, 8) affine lane points."""
     B = scalars.shape[0]
     consts = schedule.tables(scalars.device)[4]
     cols = [inst[:, idx] if src == SRC_INSTANCE
@@ -281,24 +293,27 @@ def squeeze_words(schedule: ReadSchedule, q: int, inst, scalars, points, hashes)
             else scalars[:, idx] if src == SRC_SCALAR
             else points[:, idx, 0] if src == SRC_POINT_X
             else points[:, idx, 1] if src == SRC_POINT_Y
+            else lanes[:, idx, 0] if src == SRC_LANE_X
+            else lanes[:, idx, 1] if src == SRC_LANE_Y
             else hashes[idx]
             for src, idx, _ in schedule.squeezes[q]]
     return torch.stack(cols, 1), [t for _, _, t in schedule.squeezes[q]]
 
 
-def read_plain(schedule: ReadSchedule, inst, scalars, points):
+def read_plain(schedule: ReadSchedule, inst, scalars, points, lanes=None):
     """The plain read on any device: `squeeze_plain` squeeze by squeeze ->
     (hashes, challenges), (n_sq, B, 8) each."""
-    _read_inputs(schedule, inst, scalars, points)
+    lanes = _no_lanes(scalars) if lanes is None else lanes
+    _read_inputs(schedule, inst, scalars, points, lanes)
     hashes, chals = [], []
     for q in range(len(schedule.squeezes)):
-        h, c = squeeze_plain(*squeeze_words(schedule, q, inst, scalars, points, hashes))
+        h, c = squeeze_plain(*squeeze_words(schedule, q, inst, scalars, points, hashes, lanes))
         hashes.append(h)
         chals.append(c)
     return torch.stack(hashes, 0), torch.stack(chals, 0)
 
 
-def _launch_read(kernel: str, schedule: ReadSchedule, inst, scalars, points):
+def _launch_read(kernel: str, schedule: ReadSchedule, inst, scalars, points, lanes):
     B, dev = scalars.shape[0], scalars.device
     rows, starts, pad, pad_starts, consts = schedule.tables(dev)
     n_sq = len(schedule.squeezes)
@@ -307,20 +322,23 @@ def _launch_read(kernel: str, schedule: ReadSchedule, inst, scalars, points):
     if B:
         launch(kernel, load_library().svt_keccak_read, inst.data_ptr(), inst.shape[1],
                consts.data_ptr(), scalars.data_ptr(), scalars.shape[1], points.data_ptr(),
-               points.shape[1], rows.data_ptr(), starts.data_ptr(), pad.data_ptr(),
-               pad_starts.data_ptr(), n_sq, h.data_ptr(), c.data_ptr(), B, device=dev)
+               points.shape[1], lanes.data_ptr(), lanes.shape[1], rows.data_ptr(),
+               starts.data_ptr(), pad.data_ptr(), pad_starts.data_ptr(), n_sq, h.data_ptr(),
+               c.data_ptr(), B, device=dev)
     return h, c
 
 
-def read(schedule: ReadSchedule, inst, scalars, points):
+def read(schedule: ReadSchedule, inst, scalars, points, lanes=None):
     """A batch's whole read: inst (B, n_inst, 8) Fr Montgomery words, the
-    stream's scalars (B, n, 8) and points (B, m, 2, 8) -> (hashes,
+    stream's scalars (B, n, 8) and points (B, m, 2, 8), the lane points
+    (B, l, 2, 8) (affine Fq Montgomery words; None: none) -> (hashes,
     challenges), (n_sq, B, 8) each.  On CUDA tensors one launch of
     `svt_keccak_read`; on CPU tensors `read_plain`."""
     if scalars.device.type == "cpu":
-        return read_plain(schedule, inst, scalars, points)
-    _read_inputs(schedule, inst, scalars, points)
-    return _launch_read("keccak_read", schedule, inst, scalars, points)
+        return read_plain(schedule, inst, scalars, points, lanes)
+    lanes = _no_lanes(scalars) if lanes is None else lanes
+    _read_inputs(schedule, inst, scalars, points, lanes)
+    return _launch_read("keccak_read", schedule, inst, scalars, points, lanes)
 
 
 _single: dict = {}  # tags -> the schedule of one squeeze of those words
@@ -340,5 +358,5 @@ def squeeze(words, tags: Sequence[int]):
     B, dev = words.shape[0], words.device
     none = torch.empty((B, 0, 8), dtype=torch.int32, device=dev)
     pts = torch.empty((B, 0, 2, 8), dtype=torch.int32, device=dev)
-    h, c = _launch_read("keccak_squeeze", _single[tags], none, words, pts)
+    h, c = _launch_read("keccak_squeeze", _single[tags], none, words, pts, pts)
     return h[0], c[0]

@@ -136,9 +136,9 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     instances = _instance_columns(inst, plan.protocol.num_instance)
 
     def read():
-        if transcript == "evm":
-            return plan.read_keccak(inst, instances, sc, pts, TorchLoader(B, dev)), None
         lanes = plan.commit(inst_plain)
+        if transcript == "evm":
+            return plan.read_keccak(inst, instances, sc, pts, TorchLoader(B, dev), lanes), lanes
         return plan.read(instances, PoseidonTranscript(sc, pts, dev, lanes=lanes),
                          TorchLoader(B, dev)), lanes
 

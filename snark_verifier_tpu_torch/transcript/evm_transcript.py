@@ -101,6 +101,9 @@ class PrecomputedChallengeTranscript:
     def common_ec_point(self, xy):
         pass
 
+    def common_lane_point(self, k: int):
+        pass  # an instance commitment, hashed with the rest before
+
     def squeeze_challenge(self):
         c = self._challenges[self._ci]
         self._ci += 1

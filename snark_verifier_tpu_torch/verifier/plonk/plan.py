@@ -18,10 +18,10 @@ The recording also keeps what the transcript hashes at each squeeze
 (`TapeTranscript.squeezes`); for the keccak ("evm") transcript the plan
 turns it into a `hash/keccak_device.py::ReadSchedule`: every squeeze's
 words, each an instance, the protocol's initial state, a stream scalar, the
-x or y of a stream point or the previous hash, with its tag.  The schedule
-depends only on the protocol, so a batch's whole keccak read is one launch
-of `svt_keccak_read` (`read_keccak`), whose challenges a
-`PrecomputedChallengeTranscript` hands to `read_proof`.
+x or y of a stream point, the previous hash or the x or y of a lane point,
+with its tag.  The schedule depends only on the protocol, so a batch's
+whole keccak read is one launch of `svt_keccak_read` (`read_keccak`), whose
+challenges a `PrecomputedChallengeTranscript` hands to `read_proof`.
 
 A protocol with an instance committing key (the query-instance family)
 commits to each lane's instance columns before the read: the commitment
@@ -29,11 +29,13 @@ depends only on the instances and the protocol's points, so
 `commit_instances` computes it for the whole batch in one `svt_msm_windowed`
 launch over the instances as canonical words (converted on the host,
 `sdk/aggregation.py::_instance_block(..., mont=False)`: no launch), and the
-read absorbs it as a lane point (one `svt_points_to_fr` launch maps every
-column's point).  The recording knows it as lane point c of column c
-(`TapeLoader.msm_evaluate` without the generator), which the linearization
-takes as the column's commitment.  The keccak read has no source for such
-a point: a keccak plan of this family raises `errors.InvalidProtocol`.
+read absorbs it as a lane point.  The Poseidon read maps every column's
+point Fq -> Fr in one `svt_points_to_fr` launch; the keccak read takes
+them as canonical affine Fq words, normalised in one `svt_points_to_fr`
+launch (`map_fr=False`), and hashes their x and y where the recording put
+them (`keccak_challenges`).  The recording knows it as lane point c of
+column c (`TapeLoader.msm_evaluate` without the generator), which the
+linearization takes as the column's commitment.
 
 A batch then runs (`sdk/aggregation.py::batch_succinct_verify`):
 `read` (the real transcript, its squeezes on the card) or `read_keccak`
@@ -56,7 +58,7 @@ import torch
 
 from ... import errors
 from ...ec.g1 import from_affine_int_np
-from ...ff import FQW, fr_tape
+from ...ff import FQW, fr_tape, points_to_fr
 from ...hash import keccak_device as kd
 from ...loader.msm_expr import MsmExpr, lower
 from ...loader.tape_loader import (
@@ -80,7 +82,9 @@ def keccak_schedule(squeezes, protocol) -> kd.ReadSchedule:
     """A recording's `TapeTranscript.squeezes` -> the keccak read's
     schedule: instances (Fr, Montgomery words in the batch's instance block,
     column by column), constants (hashed as their canonical value), stream
-    scalars (Fr), stream points (x and y, Fq) and earlier hashes (raw)."""
+    scalars (Fr), stream points (x and y, Fq), earlier hashes (raw) and lane
+    points (x and y, Fq: the committed instance columns).  Raises
+    `errors.InvalidProtocol` on any other word."""
     flat = {instance_label(c, i): k for k, (c, i) in enumerate(
         (c, i) for c, n in enumerate(protocol.num_instance) for i in range(n))}
     consts: List[int] = []
@@ -101,9 +105,7 @@ def keccak_schedule(squeezes, protocol) -> kd.ReadSchedule:
             elif kind == "hash":
                 rows.append((kd.SRC_HASH, v, kd.TAG_RAW))
             elif kind == "lane":
-                raise errors.InvalidProtocol(
-                    "the keccak read has no source for a committed instance point: "
-                    "instance-committing-key protocols read with the Poseidon transcript")
+                rows += [(kd.SRC_LANE_X, v, kd.TAG_FQ), (kd.SRC_LANE_Y, v, kd.TAG_FQ)]
             else:
                 raise errors.InvalidProtocol(f"the keccak read cannot absorb {kind} {v}")
         out.append(rows)
@@ -146,14 +148,14 @@ class SuccinctPlan:
         instances are the transcript's lane points (`commit`)."""
         return read_proof(self.protocol, self.scheme, instances, transcript, L)
 
-    def read_keccak(self, inst, instances, scalars, points, L) -> TapeTranscript:
-        """The keccak read of one batch: every squeeze in one launch of
-        `svt_keccak_read` (`read_plain` on CPU tensors) over the instance
-        block inst (B, n_inst, 8) and the streams, then `read` over a
-        transcript that replays its challenges."""
+    def read_keccak(self, inst, instances, scalars, points, L, lanes=None) -> TapeTranscript:
+        """The keccak read of one batch (`keccak_challenges` over the
+        instance block inst (B, n_inst, 8), the streams and the lane points
+        of `commit`), then `read` over a transcript that replays its
+        challenges."""
         if self.keccak is None:
             raise ValueError("plan: recorded for another transcript than keccak")
-        _, chals = kd.read(self.keccak, inst, scalars, points)
+        chals = keccak_challenges(self.keccak, inst, scalars, points, lanes)
         return self.read(instances, PrecomputedChallengeTranscript(scalars, points, list(chals)),
                          L)
 
@@ -271,6 +273,18 @@ def read_proof(protocol, scheme, instances, transcript, L) -> TapeTranscript:
     tr = TapeTranscript(inner=transcript)
     PlonkSuccinctVerifier.read_proof(protocol, instances, tr, scheme, _ReadLoader(L))
     return tr
+
+
+def keccak_challenges(schedule: kd.ReadSchedule, inst, scalars, points, lanes=None):
+    """Every challenge of a batch's keccak read, (n_sq, B, 8) Fr Montgomery
+    words: the lane points (B, l, 3, 8) projective (None: none) normalised
+    to canonical affine Fq words in one `svt_points_to_fr` launch
+    (`map_fr=False`; the identity is (0, 0), as the JAX package's
+    `G1.to_affine`), then one `svt_keccak_read` launch over the instance
+    block, the streams and those points (`read_plain` on CPU tensors)."""
+    xy = None if lanes is None else points_to_fr(lanes.contiguous(), projective=True,
+                                                 map_fr=False)
+    return kd.read(schedule, inst, scalars, points, xy)[1]
 
 
 def _ick_bases(points, device):

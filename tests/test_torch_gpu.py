@@ -1025,7 +1025,7 @@ def test_keccak_read_kernel_long_buffers(cuda):
 # ------------------------------------------------ the IPA family, ick protocols
 
 
-@pytest.mark.parametrize("k", [0, 1, 5, 11, 20])
+@pytest.mark.parametrize("k", [0, 1, 5, 9, 11, 12, 20])
 def test_ipa_h_coeffs_kernel_matches_plain(cuda, k):
     """svt_ipa_h_coeffs against h_coeffs_plain, word for word, one launch;
     with a scalar factor, and against python ints where k is small."""
@@ -1045,6 +1045,55 @@ def test_ipa_h_coeffs_kernel_matches_plain(cuda, k):
     assert torch.equal(got_s, cuda_ops.h_coeffs_plain(xw, sw))
     if k <= 11:
         assert [limbs_to_int(r) for r in got_s.cpu().numpy()] == h_coeffs_int(xi, s)
+
+
+def test_ipa_h_coeffs_kernel_at_k23_samples(cuda):
+    """k = 23: the tile index spans three 5-bit chunks (bits 10-22), more
+    than the main path's k = 20 uses; sampled coefficients (every chunk of
+    the tile index zero, nonzero and all ones among them) against python
+    ints."""
+    from snark_verifier_tpu_torch.ff import FRW, limbs_to_int
+
+    k = 23
+    rng = np.random.default_rng(523)
+    xi = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(k)]
+    s = int.from_bytes(rng.bytes(32), "little") % FR.p
+    got = cuda_ops.h_coeffs(FRW.from_int(xi, cuda), FRW.from_int(s, cuda))
+    sample = [0, 1, 1023, 1024, (1 << 15) + 5, (1 << 20) + 7, (1 << 22) + 3, (1 << k) - 1]
+    sample += [int(j) for j in rng.integers(0, 1 << k, size=40)]
+    rows = got[torch.tensor(sample, device=cuda)].cpu().numpy()
+    for j, row in zip(sample, rows):
+        want = s
+        for b in range(k):
+            if j >> b & 1:
+                want = want * xi[k - 1 - b] % FR.p
+        assert limbs_to_int(row) == want, j
+
+
+def test_points_to_fr_to_affine_matches_plain(cuda):
+    """map_fr=False: projective points (Z = 1, random Z, identity lanes with
+    Z = 0, p and 2p) -> canonical affine Fq Montgomery words, one launch."""
+    from snark_verifier_tpu_torch.ff import points_to_fr, points_to_fr_plain
+
+    rng = np.random.default_rng(77)
+    q, R, n = FQ.p, 1 << 256, 37
+    rows, want = [], []
+    for k, (x, y) in enumerate(py_ec.rand_points(n, seed=77)):
+        lam = 1 if k % 4 == 0 else int.from_bytes(rng.bytes(32), "little") % (q - 1) + 1
+        if k % 16 in (1, 2, 3):
+            rows += [int.from_bytes(rng.bytes(32), "little") % (2 * q + 1) for _ in range(2)]
+            rows.append((0, q, 2 * q)[k % 16 - 1])
+            want += [0, 0]
+            continue
+        rows += [x * lam % q * R % q, y * lam % q * R % q, lam * R % q]
+        want += [x * R % q, y * R % q]
+    pts = _fq_words(rows, cuda).view(n, 3, 8)
+    reset_launches()
+    got = points_to_fr(pts, projective=True, map_fr=False)
+    assert LAUNCHES["points_to_fr"] == 1 and not _field_launches()
+    assert torch.equal(got.cpu(), points_to_fr_plain(pts.cpu(), projective=True, map_fr=False))
+    assert _word_vals(got.view(-1, 8)) == want  # canonical Montgomery words
+    assert torch.equal(got, FQW.canon(cuda_ops.affine_xy(pts)))
 
 
 def _ick_stub(n_bases, seed):
@@ -1168,3 +1217,81 @@ def test_ipa_family_and_decide_on_card(cuda):
     assert bool(ok[0]) and bool(decide(dk, out.lane(0)))
     h = limbs_to_words(from_affine_int([dk.svk.h], device=cuda))[0]
     assert not bool(decide(dk, IpaAccumulator(out.xi[0], h)))
+
+
+def test_ick_keccak_read_on_card(cuda):
+    """The keccak read of the ick stub at B = 64 through the recorded
+    schedule: the commitment (one msm_windowed), its normalisation (one
+    points_to_fr, map_fr=False) and one keccak_read; z and the next squeeze
+    against EvmTranscriptPy."""
+    from snark_verifier_tpu_torch.ff import FRW, int_to_limbs, np_limbs_to_words
+    from snark_verifier_tpu_torch.loader.tape_loader import TapeLoader, TapeTranscript
+    from snark_verifier_tpu_torch.transcript import EvmTranscriptPy
+    from snark_verifier_tpu_torch.verifier.plonk.plan import (
+        commit_instances, instance_label, keccak_challenges, keccak_schedule,
+    )
+    from snark_verifier_tpu_torch.verifier.plonk.verifier import PlonkProof
+
+    class NullPcs:
+        @staticmethod
+        def read_proof(queries, transcript):
+            return {}
+
+    B, n = 64, 5
+    stub = _ick_stub(n, 41)
+    ick = stub.instance_committing_key
+    L = TapeLoader()
+    rec = TapeTranscript(L)
+    PlonkProof.read(stub, [[L.input(instance_label(0, i)) for i in range(n)]], rec, NullPcs, L)
+    rec.squeeze_challenge()
+    sched = keccak_schedule(rec.squeezes, stub)
+    rng = np.random.default_rng(41)
+    vals = [[int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)] for _ in range(B)]
+
+    def block(mont):
+        f = (lambda v: v * (1 << 256) % FR.p) if mont else (lambda v: v)
+        arr = np.stack([[int_to_limbs(f(v)) for v in row] for row in vals]).astype(np.uint32)
+        return torch.from_numpy(np_limbs_to_words(arr)).to(cuda)
+
+    empty_sc = torch.zeros((B, 0, 8), dtype=torch.int32, device=cuda)
+    empty_pts = torch.zeros((B, 0, 2, 8), dtype=torch.int32, device=cuda)
+    mont, plain = block(True), block(False)
+    reset_launches()
+    chals = keccak_challenges(sched, mont, empty_sc, empty_pts, commit_instances(stub, plain))
+    torch.cuda.synchronize()
+    assert LAUNCHES["msm_windowed"] == 1 and LAUNCHES["points_to_fr"] == 1
+    assert LAUNCHES["keccak_read"] == 1 and LAUNCHES["poseidon_absorb"] == 0
+    assert not _field_launches()
+    z, nxt = FRW.to_int(chals[0]), FRW.to_int(chals[1])
+    for b in (0, 1, B - 1):
+        t = EvmTranscriptPy()
+        t.common_scalar(7)
+        t.common_ec_point(py_ec.add(py_ec.msm(ick["bases"], vals[b]), ick["constant"]))
+        assert [int(z[b]), int(nxt[b])] == [t.squeeze_challenge(), t.squeeze_challenge()]
+
+
+def test_ick_keccak_batch_on_card_matches_oracle(cuda):
+    """batch_succinct_verify(..., "shplonk", "evm") of the evmsnark protocol
+    given an instance committing key (its instance column queried, an extra
+    stream scalar): every lane equals the python-int verifier."""
+    import copy
+
+    from snark_verifier_tpu_torch.verifier.plonk.protocol import Query
+
+    srs, loaded = _fixtures("evmsnark", 3)
+    proto = copy.deepcopy(loaded[0].protocol)
+    proto.instance_committing_key = {"bases": py_ec.rand_points(proto.num_instance[0], seed=3),
+                                     "constant": py_ec.rand_points(1, seed=4)[0]}
+    n_eval = len(proto.evaluations)
+    proto.evaluations.append(Query(len(proto.preprocessed), 0))
+    proto.queries.append(Query(len(proto.preprocessed), 0))
+    snarks = [Snark(proto, s.instances, s.scalars[:n_eval] + [12345 + i] + s.scalars[n_eval:],
+                    s.points) for i, s in enumerate(loaded)]
+    reset_launches()
+    (lhs, rhs), = batch_succinct_verify(snarks, srs, "shplonk", "evm")
+    torch.cuda.synchronize()
+    assert LAUNCHES["msm_windowed"] == 2 and LAUNCHES["points_to_fr"] == 1
+    assert LAUNCHES["keccak_read"] == 1 and LAUNCHES["fr_tape"] == 1
+    assert LAUNCHES["poseidon_absorb"] == 0 and not _field_launches()
+    got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
+    assert got == [succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in snarks]

@@ -18,8 +18,10 @@ C++ stand-in for csrc/fq.cuh's multiply and canon (whose inline-PTX carry
 chains tests/test_torch_mul_schedule.py runs word by word), and runs the
 read kernel warp by warp (`__shared__` its function-static storage) on a
 schedule of one squeeze of W = 1 ... 30 words with all three tags against
-`keccak256` and the plain squeeze; tests/test_torch_keccak_read.py runs it
-on whole reads.  Skips inside the test where no g++ is found.
+`keccak256` and the plain squeeze, and on reads that hash lane points (an
+instance commitment's affine x and y) beside stream words against
+`read_plain` and python ints; tests/test_torch_keccak_read.py runs it on
+whole reads.  Skips inside the test where no g++ is found.
 
 Tolerance: exact."""
 
@@ -170,8 +172,8 @@ int main(int argc, char** argv) {
 """
 
 # The read kernel: reads a header (B, n_inst, n_sc, n_pt, n_consts, n_rows,
-# n_sq, n_pad) and KcRead's arrays; runs every warp of the grid; writes the
-# hashes (n_sq, B, 8) and the challenges (n_sq, B, 8).
+# n_sq, n_pad, n_lane_pts) and KcRead's arrays; runs every warp of the grid;
+# writes the hashes (n_sq, B, 8) and the challenges (n_sq, B, 8).
 KERNEL = r"""
 #include <cstdio>
 #include <cstdlib>
@@ -185,18 +187,20 @@ template <class T> static std::vector<T> rd(FILE* f, size_t n) {
   return v; }
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
-  long long h[8];
-  if (fread(h, 8, 8, f) != 8) return 2;
+  long long h[9];
+  if (fread(h, 8, 9, f) != 9) return 2;
   const long long B = h[0], n_inst = h[1], n_sc = h[2], n_pt = h[3], n_consts = h[4];
-  const long long n_rows = h[5], n_sq = h[6], n_pad = h[7];
+  const long long n_rows = h[5], n_sq = h[6], n_pad = h[7], n_lane_pts = h[8];
   auto inst = rd<uint32_t>(f, B * n_inst * 8), consts = rd<uint32_t>(f, n_consts * 8);
   auto scalars = rd<uint32_t>(f, B * n_sc * 8), points = rd<uint32_t>(f, B * n_pt * 16);
   auto rows = rd<int>(f, n_rows * 3), starts = rd<int>(f, n_sq + 1);
   auto pad = rd<uint32_t>(f, n_pad * 2);
   auto pad_starts = rd<int>(f, n_sq + 1);
+  auto lane_pts = rd<uint32_t>(f, B * n_lane_pts * 16);
   std::vector<uint32_t> hash(n_sq * B * 8), chal(n_sq * B * 8);
   const svt::KcRead s{inst.data(), (int)n_inst, consts.data(), scalars.data(), (int)n_sc,
-                      points.data(), (int)n_pt, rows.data(), starts.data(), pad.data(),
+                      points.data(), (int)n_pt, lane_pts.data(), (int)n_lane_pts, rows.data(),
+                      starts.data(), pad.data(),
                       pad_starts.data(), (int)n_sq, hash.data(), chal.data(), B};
   for (long long b = 0; b < B; b++)
     run_warp((unsigned)(b / svt::KR_TEAMS), (unsigned)(b % svt::KR_TEAMS),
@@ -233,18 +237,21 @@ def _build(d: Path, main: str, kernel: bool) -> Path:
 
 def read_kernel(d: Path):
     """The read kernel built under g++ in `d` -> run(schedule, inst, scalars,
-    points) -> (hashes, challenges), (n_sq, B, 8) int32 each."""
+    points, lanes=None) -> (hashes, challenges), (n_sq, B, 8) int32 each;
+    `lanes` the (B, l, 2, 8) affine lane points."""
     exe = _build(d, KERNEL, kernel=True)
 
-    def run(schedule, inst, scalars, points):
+    def run(schedule, inst, scalars, points, lanes=None):
         rows, starts, pad, pad_starts, consts = (t.numpy() for t in schedule.tables("cpu"))
         B = scalars.shape[0]
         n_sq = len(schedule.squeezes)
+        if lanes is None:
+            lanes = torch.zeros((B, 0, 2, 8), dtype=torch.int32)
         with open(d / "in.bin", "wb") as f:
             f.write(np.array([B, inst.shape[1], scalars.shape[1], points.shape[1],
-                              consts.shape[0], rows.shape[0], n_sq, pad.shape[0]],
-                             np.int64).tobytes())
-            for a in (inst, consts, scalars, points, rows, starts, pad, pad_starts):
+                              consts.shape[0], rows.shape[0], n_sq, pad.shape[0],
+                              lanes.shape[1]], np.int64).tobytes())
+            for a in (inst, consts, scalars, points, rows, starts, pad, pad_starts, lanes):
                 f.write(np.ascontiguousarray(a).astype(np.int32).tobytes())
         subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")], check=True,
                        timeout=600)
@@ -332,8 +339,13 @@ def _lazy_words(rng, n, p):
 
 
 @pytest.fixture(scope="module")
-def kernel(tmp_path_factory):
-    run = read_kernel(tmp_path_factory.mktemp("keccak_kernel"))
+def kernel_read(tmp_path_factory):
+    return read_kernel(tmp_path_factory.mktemp("keccak_kernel"))
+
+
+@pytest.fixture(scope="module")
+def kernel(kernel_read):
+    run = kernel_read
 
     def squeeze(words, tags):
         n = words.shape[0]
@@ -398,3 +410,54 @@ def test_kernel_body_long_buffers(kernel, W):
     h, c = kernel(words, tags)
     hp, cp = kd.squeeze_plain(words, tags)
     assert torch.equal(h, hp) and torch.equal(c, cp)
+
+
+@pytest.mark.parametrize("n_lanes", [1, 2, 3])
+def test_kernel_body_reads_lane_points(kernel_read, n_lanes):
+    """Lane-point words (an instance commitment's affine x and y, Fq
+    Montgomery words, lazy up to 2q, canonical coordinates at or above q/2
+    among them) beside stream points and scalars, in a read of three
+    squeezes whose lanes come in column order and out of it: the kernel's
+    words equal `read_plain`'s and the python-int transcript's (x then y,
+    each big-endian, the dup marker after a lone hash)."""
+    rng = np.random.default_rng(300 + n_lanes)
+    B = 3
+    R = 1 << 256
+    lanes = torch.stack([_lazy_words(rng, 2 * n_lanes, FQ.p).reshape(n_lanes, 2, 8)
+                         for _ in range(B)], 0).contiguous()
+    lanes[1, 0, 0] = torch.tensor(np.frombuffer((FQ.p - 1).to_bytes(32, "little"), "<i4")
+                                  .copy())  # a coordinate >= q/2, canonical
+    points = torch.stack([_lazy_words(rng, 2, FQ.p).reshape(1, 2, 8) for _ in range(B)], 0)
+    scalars = _lazy_words(rng, B, FR.p).reshape(B, 1, 8)
+    inst = torch.zeros((B, 0, 8), dtype=torch.int32)
+    LX, LY, FQT = kd.SRC_LANE_X, kd.SRC_LANE_Y, kd.TAG_FQ
+    first = [(kd.SRC_CONST, 0, kd.TAG_RAW)] + [w for c in range(n_lanes)
+                                              for w in ((LX, c, FQT), (LY, c, FQT))]
+    second = [(kd.SRC_HASH, 0, kd.TAG_RAW), (kd.SRC_POINT_X, 0, FQT), (kd.SRC_POINT_Y, 0, FQT),
+              (LX, n_lanes - 1, FQT), (LY, n_lanes - 1, FQT), (kd.SRC_SCALAR, 0, kd.TAG_FR)]
+    sched = kd.ReadSchedule([first, second, [(kd.SRC_HASH, 1, kd.TAG_RAW)]], [7])
+    h, c = kernel_read(sched, inst, scalars, points, lanes)
+    hp, cp = kd.read_plain(sched, inst, scalars, points, lanes)
+    assert torch.equal(h, hp) and torch.equal(c, cp)
+    src = {kd.SRC_POINT_X: lambda b, i: points[b, i, 0], kd.SRC_POINT_Y: lambda b, i: points[b, i, 1],
+           LX: lambda b, i: lanes[b, i, 0], LY: lambda b, i: lanes[b, i, 1],
+           kd.SRC_SCALAR: lambda b, i: scalars[b, i]}
+    for b in range(B):
+        hashes = []
+        for q, sq in enumerate(sched.squeezes):
+            data = b""
+            for s_, i, t in sq:
+                if s_ == kd.SRC_CONST:
+                    v = 7
+                elif s_ == kd.SRC_HASH:
+                    v = hashes[i]
+                else:
+                    p = FQ.p if t == FQT else FR.p
+                    v = _value(src[s_](b, i)) * pow(R, -1, p) % p
+                data += v.to_bytes(32, "big")
+            hashes.append(int.from_bytes(keccak256(data + (b"\x01" if len(sq) == 1 else b"")),
+                                         "big"))
+            assert _value(h[q, b]) == hashes[-1]
+            assert _value(c[q, b]) % FR.p == hashes[-1] * R % FR.p
+    with pytest.raises(ValueError):  # the read takes more lane points than it is given
+        kd.read_plain(sched, inst, scalars, points, lanes[:, : n_lanes - 1])

@@ -8,6 +8,10 @@ affine normalisation before it, against the JAX package.
 * Projective mode: it equals JAX `fq_to_fr(G1.to_affine(.))` on projective
   points with Z = 1, with random Z, and on identity lanes with Z = 0, p and
   2p (as lazy words) under random X and Y.
+* Projective mode with `map_fr=False` (the keccak read's instance
+  commitments): canonical affine Fq words equal to JAX `G1.to_affine`
+  after `canon`, (0, 0) for the identity lanes, and to the canon of
+  `cuda_ops.affine_xy`; mapped, they give the projective mode's words.
 * `PoseidonTranscript.absorb_projective_points` squeezes what JAX
   `absorb_ec_points_scanned` squeezes after `G1.to_affine`, and what the
   port's affine absorb squeezes after `cuda_ops.affine_xy`.
@@ -15,7 +19,8 @@ affine normalisation before it, against the JAX package.
   stub of the CUDA runtime, the portable stand-in for csrc/fq.cuh's field
   functions of tests/test_torch_fr_tape_schedule.py and the real
   csrc/fe_inv.cuh), thread by thread in both modes, against the plain
-  version.  Skips inside that test where no g++ is found.
+  version, in all three modes.  Skips inside that test where no g++ is
+  found.
 
 Inputs are made with numpy from a seed.  Tolerance: exact, word for word."""
 
@@ -33,11 +38,13 @@ import torch
 
 from snark_verifier_tpu.ec.g1 import G1 as JG1
 from snark_verifier_tpu.ec import py_ec as jpy_ec
+from snark_verifier_tpu.ff import FQ_FIELD as JFQ
 from snark_verifier_tpu.ff import FR_FIELD as JFR
 from snark_verifier_tpu.transcript import PoseidonTranscript as JPoseidonTranscript
 from snark_verifier_tpu.transcript.poseidon_transcript import fq_to_fr as j_fq_to_fr
 from snark_verifier_tpu_torch.ff import (
     FQ,
+    FQW,
     FR,
     FRW,
     limbs_to_words,
@@ -140,6 +147,28 @@ def test_projective_plain_matches_jax_to_affine_then_fq_to_fr():
     assert torch.equal(got, points_to_fr(cuda_ops.affine_xy(pts)))
 
 
+def test_projective_to_affine_plain_matches_jax_to_affine():
+    pts, want = _projective(np.random.default_rng(8))
+
+    def jax_affine(p):
+        x, y, _ = JG1.to_affine(p)
+        return jnp.stack([JFQ.canon(x), JFQ.canon(y)], -2)
+
+    got = points_to_fr(pts, projective=True, map_fr=False)
+    assert got.shape == (pts.shape[0], 2, 8)
+    assert torch.equal(got, points_to_fr_plain(pts, projective=True, map_fr=False))
+    ref = np.asarray(jax.jit(jax_affine)(jnp.asarray(to_jax_elems(pts))))
+    assert np.array_equal(to_jax_elems(got), ref)
+    assert all(v < Q for v in _ints(got))  # canonical Montgomery words
+    gi = FQW.to_int(got.reshape(-1, 8)).tolist()
+    for k, w in enumerate(want):
+        assert gi[2 * k : 2 * k + 2] == ([0, 0] if w is None else list(w))
+    assert torch.equal(got, FQW.canon(cuda_ops.affine_xy(pts)))
+    assert torch.equal(points_to_fr(got), points_to_fr(pts, projective=True))
+    with pytest.raises(ValueError):
+        points_to_fr(pts[:, 0], map_fr=False)  # affine mode has no normalisation
+
+
 def test_projective_absorb_matches_jax_scanned_absorb():
     pts, _ = _projective(np.random.default_rng(4))
     stack = torch.stack([pts, pts.flip(0)], 0).contiguous()  # (2, M, 3, 8): two transcripts
@@ -182,15 +211,17 @@ int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   long long h[2];
   if (fread(h, 8, 2, f) != 2) return 2;
-  const long long projective = h[0], n = h[1];
+  const long long mode = h[0], n = h[1], projective = mode != 0;
   const long long in_words = n * (projective ? 24 : 8), out_words = n * (projective ? 16 : 8);
   std::vector<uint32_t> in(in_words), out(out_words);
   if (fread(in.data(), 4, in_words, f) != (size_t)in_words) return 3;
   const long long T = projective ? svt::INV_THREADS : svt::FE_THREADS;
   for (long long i = 0; i < n; i++) {
     blockIdx.x = (unsigned)(i / T); threadIdx.x = (unsigned)(i % T);
-    if (projective)
-      svt::points_to_fr_projective_kernel(in.data(), out.data(), n);
+    if (mode == 1)
+      svt::points_to_fr_projective_kernel<true>(in.data(), out.data(), n);
+    else if (mode == 2)
+      svt::points_to_fr_projective_kernel<false>(in.data(), out.data(), n);
     else
       svt::points_to_fr_affine_kernel(in.data(), out.data(), n);
   }
@@ -216,11 +247,12 @@ def kernel_body(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O2", "-I", str(d), "-o", str(d / "h"),
                     str(d / "harness.cpp")], check=True, capture_output=True, timeout=300)
 
-    def run(x, projective):
+    def run(x, projective, map_fr=True):
         n = x.numel() // (24 if projective else 8)
         inp, out = d / "in.bin", d / "out.bin"
         with open(inp, "wb") as f:
-            f.write(np.array([int(projective), n], np.int64).tobytes())
+            f.write(np.array([0 if not projective else 1 if map_fr else 2, n],
+                             np.int64).tobytes())
             f.write(x.contiguous().numpy().tobytes())
         subprocess.run([str(d / "h"), str(inp), str(out)], check=True, timeout=300)
         return torch.from_numpy(np.fromfile(out, np.int32).reshape(n, *((2, 8) if projective
@@ -240,3 +272,6 @@ def test_kernel_body_matches_plain_in_both_modes(kernel_body):
     got = kernel_body(pts, True)
     assert torch.equal(got, points_to_fr_plain(pts, projective=True))
     assert not bool(got[len(got) - 40 : len(got) - 20].any())  # the identities map to (0, 0)
+    aff = kernel_body(pts, True, map_fr=False)
+    assert torch.equal(aff, points_to_fr_plain(pts, projective=True, map_fr=False))
+    assert not bool(aff[len(aff) - 40 : len(aff) - 20].any())
