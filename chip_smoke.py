@@ -10,7 +10,8 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 3. holds each kernel against its plain PyTorch twin on the card: `add` and
    `double` at B = 65,536 (with identity, P == Q and P == -Q lanes) exactly,
    after canonicalization (their launches here are reported as
-   `launches_kat`: no main path launches them any more); `fold_buckets` at
+   `launches_kat`; of the paths only step 25's sharded MSM launches `add`,
+   for the fold of its partials); `fold_buckets` at
    the MSM's real shapes, in affine form: one main window (256, 4,624), all
    31 main windows in one launch (7,936, 4,624), and the top window (49,
    25,846) both whole and split into segments (`fold_buckets_split`);
@@ -190,6 +191,29 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    the MSM alone; the kernel timed beside its bound, with its share of the
    bound, the bytes it stores a second and ptxas's registers, stack and
    spills.
+25. the mesh paths (`parallel/`, `sdk/tree_aggregation.py`) on a mesh of this
+   one card listed 4 times, at `__graft_entry__.py::dryrun_multichip`'s
+   full sizes (the shards run one after another on the card: no scaling is
+   claimed): `msm_sharded` at n = 2^20 over step 4's points and scalars
+   (gates: == k_total·G, no overflow, one MSM a shard, exactly 2 `add`
+   launches for the partials' fold, each equal to its plain version on its
+   own inputs; best-of-3 ms beside step 4's and a 2^18 MSM's), its
+   gathers (2: 4·96 + 4 B) and `predict_efficiency` at D = 2, 4, 8 from this
+   run's MSM rate, add and gather times and the NVLink data-sheet figure;
+   `batch_msm_sharded` on a (2, 2) mesh at the dryrun's (4, 32) and at (4,
+   2^18), each element equal to the one-device `msm` and python ints;
+   `batch_verify_sharded` at 1,024 (all accept, the shards' accumulators
+   equal the one-device batch's, lane 0's tamper rejects it alone, the
+   dryrun's 4-lane mixed pattern exact, one launch a shard of each verify
+   kernel, no gather; proofs/s beside step 9's); `tree_aggregate_sharded`
+   at 1,024 leaves (the root accepts, a tampered leaf rejects, every group
+   of each fold level == `create_proof` on its own inputs, 2 gathers equal to
+   `tree_comm_inventory`'s; leaves/s beside step 13's); then the warm start
+   (`bench.py:243-280`): a fresh process loads the SRS and the fixtures
+   and verifies 1,024 proofs through `batch_verify_sharded` on a one-device
+   mesh, once over an empty `SNARK_AOT_DIR` and once over what the first
+   left (the plan and the G2 lines loaded), each timed part by part, the
+   hash of the sources that keys the cache included.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -2841,6 +2865,373 @@ def ipa_decide_phase(dev, kernels, points):
     return best
 
 
+MESH_D = 4  # the card listed MESH_D times: the dryrun's point axis
+MESH_BATCH_N = 1 << 18  # batch_msm_sharded at B = 4, n = 2^18: step 4's points in four
+WARM_START_TIMEOUT_S = 300
+
+# The warm start (bench.py:243-280): a fresh process loads the SRS and the
+# fixtures, tiles them to VERIFY_BATCH and verifies them through
+# batch_verify_sharded on a one-device mesh, timing each part of the way.
+WARM_START = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+import torch
+from snark_verifier_tpu_torch import _build
+from snark_verifier_tpu_torch.parallel import Mesh, batch_verify_sharded
+from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
+from snark_verifier_tpu_torch.sdk import aot
+from snark_verifier_tpu_torch.sdk.snark import Snark
+from snark_verifier_tpu_torch.sdk.srs import load_params
+from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
+split = {"import": time.perf_counter() - t0}
+
+
+def part(name, fn):
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    split[name] = time.perf_counter() - t
+    return r
+
+
+dev = part("cuda_init", lambda: torch.zeros(1, device="cuda").device)
+part("library_load", _build.load_library)
+d = os.path.join("benchmarks", "fixtures", "vanilla_k10")
+srs = part("srs_parse", lambda: load_params(os.path.join(d, "srs.bin")))
+base = part("fixtures", lambda: [Snark.load(os.path.join(d, f"snark_{i:02d}.json"))
+                                 for i in range(16)])
+snarks = [base[i % 16] for i in range(int(sys.argv[1]))]
+# the hash of the package's sources that keys every cache entry, computed
+# once a process (here, so that "plan" is the lookup alone)
+part("code_fingerprint", aot._code_fingerprint)
+plan = part("plan", lambda: succinct_plan(base[0].protocol, Bdfg21, "shplonk", "poseidon",
+                                          device=dev))
+part("g2_lines", lambda: srs.decider_coeffs(dev))
+oks = part("first_batch", lambda: batch_verify_sharded(snarks, srs, Mesh([dev], ("batch",))))
+assert bool(oks.all()), "the warm-start batch rejected"
+split["wall"] = time.perf_counter() - t0
+print("WARM_START " + json.dumps({"split_s": split, "plan_from_cache": plan.from_cache,
+                                  "plan_s": plan.record_s}))
+"""
+
+
+def warm_start_run(aot_dir):
+    """One fresh process of WARM_START over `aot_dir` -> (its report, the
+    wall time of the whole subprocess in s)."""
+    import os
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo), SNARK_AOT_DIR=str(aot_dir))
+    env.pop("SNARK_AOT", None)  # the default: on for a CUDA device
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-c", WARM_START, str(VERIFY_BATCH)], cwd=repo,
+                         env=env, capture_output=True, text=True, timeout=WARM_START_TIMEOUT_S)
+    wall = time.time() - t0
+    check(out.returncode == 0, f"the warm-start process failed ({out.returncode}): "
+                               f"{out.stderr[-2000:]}")
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith("WARM_START ")), None)
+    check(line is not None, "the warm-start process printed no report")
+    return json.loads(line[len("WARM_START "):]), wall
+
+
+def warm_start_phase():
+    """Step 25f: the warm start run twice in fresh processes, once over an
+    empty cache directory and once over what the first left."""
+    import shutil
+    from pathlib import Path
+
+    aot_dir = Path(__file__).resolve().parent / "snark_verifier_tpu_torch" / "build" / "aot_warm"
+    shutil.rmtree(aot_dir, ignore_errors=True)
+    aot_dir.mkdir(parents=True)
+    cold, cold_wall = warm_start_run(aot_dir)
+    entries = sorted(p.name for p in aot_dir.glob("*.npz"))
+    warm, warm_wall = warm_start_run(aot_dir)
+    check(not cold["plan_from_cache"], "the cold warm-start process found a cached plan")
+    check(len(entries) == 2, f"the cold process left {entries}, not the plan and the G2 lines")
+    check(warm["plan_from_cache"], "the warm process recorded the plan again")
+    check(sorted(p.name for p in aot_dir.glob("*.npz")) == entries,
+          "the warm process wrote the cache again")
+    for label, rep, wall in (("cold", cold, cold_wall), ("warm", warm, warm_wall)):
+        log(f"# warm start, {label} (a fresh process, {VERIFY_BATCH} proofs, a one-device "
+            f"mesh): process wall {wall:.3f} s; in-process " + ", ".join(
+                f"{k} {v * 1e3:.1f} ms" for k, v in rep["split_s"].items())
+            + f"; plan {'loaded' if rep['plan_from_cache'] else 'recorded'} in "
+              f"{rep['plan_s'] * 1e3:.3f} ms")
+    return {"cold": dict(cold, process_wall_s=cold_wall),
+            "warm": dict(warm, process_wall_s=warm_wall)}
+
+
+def mesh_phase(dev, kernels, points, scalars, ks, want, msm_best_s, verify_rate, tree_rate):
+    """Step 25: the sharded paths of `parallel/` and `sdk/tree_aggregation.py`
+    on a mesh of this one card listed MESH_D times (`dryrun_multichip`'s
+    sizes: the 2^20 MSM, the verify and the tree at 1,024); no scaling is
+    claimed, since every shard runs on the same card."""
+    import torch
+
+    from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words, py_ec
+    from snark_verifier_tpu_torch.ec import to_affine_int
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.msm import cuda_ops, msm, scalars_from_int
+    from snark_verifier_tpu_torch.parallel import (
+        Mesh, batch_msm_sharded, batch_verify_sharded, msm_sharded,
+    )
+    from snark_verifier_tpu_torch.parallel.batch_verify import batch_succinct_verify_sharded
+    from snark_verifier_tpu_torch.parallel.comm_model import (
+        NVLINK_BYTES_PER_S, PARTIAL_BYTES, collective_inventory, predict_efficiency,
+    )
+    from snark_verifier_tpu_torch.parallel.mesh import all_gather, recording
+    from snark_verifier_tpu_torch.pcs.kzg.accumulation import KzgAs
+    from snark_verifier_tpu_torch.sdk.aggregation import batch_succinct_verify
+    from snark_verifier_tpu_torch.sdk.tree_aggregation import (
+        tree_aggregate_sharded, tree_comm_inventory,
+    )
+    from snark_verifier_tpu_torch.transcript.poseidon_transcript import PoseidonTranscriptPy
+
+    D = MESH_D
+    mesh = Mesh([dev] * D, ("points",))
+    log(f"# mesh: {mesh} (count {torch.cuda.device_count()}: one card listed {D} times; the "
+        f"shards run one after another on it, so no scaling is claimed)")
+    out = {}
+
+    # 25a: msm_sharded at n = 2^20, every add of the partials' fold captured
+    n = points.shape[0]
+    adds, real_add = [], cuda_ops.add
+
+    def add(a, b):
+        r = real_add(a, b)
+        adds.append((a, b, r))
+        return r
+
+    cuda_ops.add = add
+    try:
+        cuda_ops.reset_launches()
+        with recording() as ops:
+            res, ovf = msm_sharded(points, scalars, mesh)
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+    finally:
+        cuda_ops.add = real_add
+    log(f"# msm_sharded 2^{LOG2N} over {D}: launches { {k: v for k, v in launches.items() if v} }"
+        f"; gathers {ops}")
+    check(not bool(ovf), "msm_sharded: bucket overflow")
+    check(to_affine_int(res) == want, "msm_sharded result != k_total·G")
+    levels = (D - 1).bit_length()  # ceil(log2 D) fold levels, an add each
+    check(launches["add"] == levels and len(adds) == levels,
+          f"msm_sharded launched add {launches['add']} times, not {levels} (the partials' "
+          f"fold)")
+    check(launches["bucket_reduce"] == D and launches["fold_segments"] == D,
+          "msm_sharded did not run one MSM a shard")
+    check(D <= launches["fold_buckets"] <= 3 * D, "msm_sharded's fold_buckets launches")
+    check(launches["double"] == 0, "msm_sharded launched double")
+    want_ops = [{"op": "all-gather", "type": f"s32[{D},3,8]", "bytes": D * 96},
+                {"op": "all-gather", "type": f"pred[{D}]", "bytes": D}]
+    check(ops == want_ops, f"msm_sharded's gathers {ops}, not {want_ops}")
+    add_err = 0
+    for a, b, r in adds:  # the path's own adds against the plain version
+        add_err = max(add_err, word_err(canon_point_words(r), canon_point_words(cuda_ops.add_plain(a, b))))
+    check(add_err == 0, "add on the partials' fold differs from its plain version")
+    best, runs = best_of_3(lambda: msm_sharded(points, scalars, mesh))
+    log(f"# msm_sharded 2^{LOG2N} c={C_BITS} over {D} shards of one card: best-of-3 "
+        f"{best * 1e3:.2f} ms = {n / best:.1f} points/s (runs {[round(t * 1e3, 2) for t in runs]} "
+        f"ms); step 4's one-device msm {msm_best_s * 1e3:.2f} ms in this process")
+    n4 = n // D
+    best_q, runs_q = best_of_3(lambda: msm(points[:n4], scalars[:n4], device=dev))
+    log(f"# msm 2^{LOG2N - 2} (one shard's size) on the card: best-of-3 {best_q * 1e3:.2f} ms "
+        f"(runs {[round(t * 1e3, 2) for t in runs_q]} ms); {D} of them {D * best_q * 1e3:.2f} ms")
+    a2, b2, _ = adds[0]
+    add_ms = kernel_ms(lambda: real_add(a2, b2), 50)
+    parts = [limbs_to_words(res).clone() for _ in range(D)]
+    gather_ms = time_ms(lambda: all_gather(parts, mesh, "points"), 50)
+    log(f"# the fold's first level: add at {tuple(a2.shape)} {add_ms:.4f} ms (kernel time); a "
+        f"gather of {D} partials {gather_ms:.4f} ms (a same-card copy and stack, not an NVLink "
+        f"hop)")
+    rate = n / msm_best_s
+    pred = {f"D={d}": predict_efficiency(n, d, rate, alpha_link_s=gather_ms * 1e-3,
+                                         ecadd_row_s=add_ms * 1e-3)["efficiency"]
+            for d in (2, 4, 8)}
+    log(f"# predict_efficiency (weak scaling, 2^{LOG2N} points a device): chip rate "
+        f"{rate:.1f} points/s (step 4, this run), alpha {gather_ms * 1e-3:.3e} s (this run's "
+        f"gather on one card), fold level {add_ms * 1e-3:.3e} s (this run's add), bandwidth "
+        f"{NVLINK_BYTES_PER_S:.3e} B/s (NVLink, H100 data sheet, each way), {PARTIAL_BYTES} B a "
+        f"device: {json.dumps(pred)} (a model, not a measurement)")
+    inv = collective_inventory(msm_sharded, points[:1024], scalars[:1024], mesh)
+    check(inv["count"] == 2 and inv["total_bytes"] == D * 97, f"msm inventory {inv}")
+    out["msm"] = dict(ms=best * 1e3, one_device_ms=msm_best_s * 1e3, shard_ms=best_q * 1e3,
+                      launches=launches, gathers=ops, add_ms=add_ms, gather_ms=gather_ms,
+                      predicted_efficiency=pred)
+
+    # 25b: batch_msm_sharded on a (2, 2) mesh: dryrun's shape, then B = 4, n = 2^18
+    grid = Mesh([[dev, dev], [dev, dev]], ("batch", "points"))
+    base4 = py_ec.rand_points(4, seed=3)
+    Bd, nd = 4, 32
+    pts_d = [base4[i % 4] for i in range(Bd * nd)]
+    ks_d = [(i * 7919 + 13) % (1 << 128) for i in range(Bd * nd)]
+    P_d = from_affine_int(pts_d, device=dev).reshape(Bd, nd, 3, 16)
+    S_d = scalars_from_int(ks_d).to(dev).reshape(Bd, nd, 16)
+    got, ovf_d = batch_msm_sharded(P_d, S_d, grid, capacity=16)
+    check(not bool(ovf_d.any()), "batch_msm_sharded (dryrun shape): overflow")
+    for b in range(Bd):
+        one, _ = msm(P_d[b], S_d[b], device=dev)
+        w = py_ec.msm(pts_d[b * nd:(b + 1) * nd], ks_d[b * nd:(b + 1) * nd])
+        check(to_affine_int(got[b]) == to_affine_int(one) == w,
+              f"batch_msm_sharded (dryrun shape) element {b} differs")
+    Bq = n // MESH_BATCH_N
+    Pb = points.view(Bq, MESH_BATCH_N, 3, 16)
+    Sb = scalars.view(Bq, MESH_BATCH_N, 16)
+    cuda_ops.reset_launches()
+    got, ovf_b = batch_msm_sharded(Pb, Sb, grid)
+    torch.cuda.synchronize()
+    b_launches = {k: v for k, v in cuda_ops.LAUNCHES.items() if v}
+    check(not bool(ovf_b.any()), "batch_msm_sharded at 2^18: overflow")
+    for b in range(Bq):
+        lo = b * MESH_BATCH_N
+        k_b = sum(ks[i] * (i + 1) for i in range(lo, lo + MESH_BATCH_N)) % FR.p
+        one, _ = msm(Pb[b], Sb[b], device=dev)
+        check(to_affine_int(got[b]) == to_affine_int(one)
+              == py_ec.scalar_mul(py_ec.G1_GEN, k_b),
+              f"batch_msm_sharded at 2^18: element {b} differs")
+    best_b, _ = best_of_3(lambda: batch_msm_sharded(Pb, Sb, grid))
+    log(f"# batch_msm_sharded on a (2, 2) mesh of one card: the dryrun shape (4, 32) and (4, "
+        f"2^18) equal the one-device msm and python ints element by element; (4, 2^18) "
+        f"best-of-3 {best_b * 1e3:.2f} ms; launches {b_launches}")
+    out["batch_msm_ms"] = best_b * 1e3
+
+    # 25c: batch_verify_sharded at 1,024 over the card listed D times
+    vmesh = Mesh([dev] * D, ("batch",))
+    srs, base = load_fixtures("snark")
+    snarks = [base[i % 16] for i in range(VERIFY_BATCH)]
+    cuda_ops.reset_launches()
+    with recording() as v_ops:
+        oks = batch_verify_sharded(snarks, srs, vmesh)
+    torch.cuda.synchronize()
+    v_launches = dict(cuda_ops.LAUNCHES)
+    check(oks.shape == (VERIFY_BATCH,) and bool(oks.all()), "the sharded verify rejected")
+    check(v_ops == [], f"the sharded verify gathered {v_ops}")
+    for k in ("fr_tape", "msm_windowed", "miller_loop", "final_exp", "points_to_fr"):
+        check(v_launches[k] == D, f"the sharded verify launched {k} {v_launches[k]} times, "
+                                  f"not once a shard")
+    check(v_launches["add"] == 0 and v_launches["double"] == 0, "the sharded verify's add")
+    sharded = batch_succinct_verify_sharded(snarks, srs, vmesh)
+    whole = batch_succinct_verify(snarks, srs, device=dev)
+    lhs = torch.cat([acc[0][0] for acc in sharded], 0)
+    rhs = torch.cat([acc[0][1] for acc in sharded], 0)
+    check(bool(proj_equal(lhs, whole[0][0]).all() & proj_equal(rhs, whole[0][1]).all()),
+          "a shard's accumulators differ from the one-device batch's")
+    bad = [tampered(base[0])] + snarks[1:]
+    oks_t = batch_verify_sharded(bad, srs, vmesh).tolist()
+    check(oks_t[0] is False and all(oks_t[1:]), "the sharded verify: lane 0's tamper")
+    mixed = [tampered(base[i]) if i % 2 else base[i] for i in range(D)]
+    got_m = batch_verify_sharded(mixed, srs, vmesh).tolist()
+    check(got_m == [i % 2 == 0 for i in range(D)], f"the mixed lanes came back {got_m}")
+    best_v, runs_v = best_of_3(lambda: batch_verify_sharded(snarks, srs, vmesh))
+    tm = {}
+    batch_verify_sharded(snarks, srs, vmesh, timings=tm)
+    log(f"# batch_verify_sharded at {VERIFY_BATCH} over {D} shards of one card: every lane "
+        f"accepts, the shards' accumulators equal the one-device batch's, lane 0's tamper "
+        f"rejects it alone, the mixed lanes {got_m}; launches "
+        f"{ {k: v for k, v in v_launches.items() if v} }; best-of-3 {best_v * 1e3:.2f} ms = "
+        f"{VERIFY_BATCH / best_v:.1f} proofs/s (runs {[round(t * 1e3, 2) for t in runs_v]} ms; "
+        f"step 9's one-device {verify_rate:.1f}); phases succinct {tm['succinct_s'] * 1e3:.2f}, "
+        f"decide {tm['decide_s'] * 1e3:.2f} ms")
+    out["verify"] = dict(ms=best_v * 1e3, proofs_per_s=VERIFY_BATCH / best_v,
+                         one_device_proofs_per_s=verify_rate)
+
+    # 25d: tree_aggregate_sharded at TREE_LEAVES leaves, every fold level captured
+    B = TREE_LEAVES
+    leaves = [base[i % 16] for i in range(B)]
+    levels, real_fold = [], KzgAs._fold_once
+
+    def capture(pairs):
+        r = real_fold(pairs)
+        levels.append((pairs, r))
+        return r
+
+    KzgAs._fold_once = capture
+    try:
+        cuda_ops.reset_launches()
+        with recording() as t_ops:
+            lhs, rhs, ok = tree_aggregate_sharded(leaves, srs, vmesh)
+        torch.cuda.synchronize()
+        t_launches = dict(cuda_ops.LAUNCHES)
+    finally:
+        KzgAs._fold_once = real_fold
+    shapes = [tuple(p.shape[:2]) for p, _ in levels]
+    per = B // D
+    g = KzgAs.group_size(per)
+    want_shapes = ([(per // g, g), (1, per // g)] if g else [(1, per)]) * D + [(1, D)]
+    check(bool(ok), "the sharded tree's root rejected")
+    check(shapes == want_shapes, f"the sharded tree's fold levels {shapes}, not {want_shapes}")
+    check(t_launches["fr_powers"] == len(shapes), "the sharded tree's fr_powers launches")
+    check(t_launches["points_to_fr"] == D + len(shapes), "the sharded tree's points_to_fr")
+    check(t_launches["miller_loop"] == 1 and t_launches["final_exp"] == 1, "one decide")
+    check(t_launches["add"] == 0, "the sharded tree launched add")
+    tree_want = [{"op": "all-gather", "type": f"s32[{D},3,8]", "bytes": D * 96}] * 2
+    check(t_ops == tree_want, f"the sharded tree's gathers {t_ops}")
+    check(tree_comm_inventory(leaves, srs, vmesh)["ops"] == t_ops,
+          "tree_comm_inventory differs from the run's gathers")
+    t0 = time.time()
+    oracle = {}  # create_proof of each distinct group (the tiled leaves repeat)
+    n_groups = 0
+    for k, (pairs, (l_out, r_out)) in enumerate(levels):
+        got = affine_pairs(l_out, r_out)
+        for gi in range(pairs.shape[0]):
+            pts = tuple(affine_pairs(pairs[gi, :, 0], pairs[gi, :, 1]))
+            if pts not in oracle:
+                oracle[pts] = KzgAs.create_proof(None, list(pts), PoseidonTranscriptPy())
+            check(got[gi] == oracle[pts],
+                  f"sharded tree fold level {k} {shapes[k]} group {gi} differs from create_proof")
+            n_groups += 1
+    check(proj_equal(levels[-1][1][0][0], lhs) and proj_equal(levels[-1][1][1][0], rhs),
+          "the sharded root is not the last fold level's")
+    log(f"# tree_aggregate_sharded gates: the root accepts; every group of every fold level "
+        f"{shapes} ({n_groups} groups, {len(oracle)} distinct inputs) == create_proof on its "
+        f"own inputs ({time.time() - t0:.2f}s); gathers {t_ops}")
+    _, _, ok_t = tree_aggregate_sharded([tampered(base[0])] + leaves[1:], srs, vmesh)
+    check(not bool(ok_t), "the sharded tree with a tampered leaf 0 accepted")
+    best_t, runs_t = best_of_3(lambda: tree_aggregate_sharded(leaves, srs, vmesh))
+    tm = {}
+    tree_aggregate_sharded(leaves, srs, vmesh, timings=tm)
+    log(f"# tree_aggregate_sharded at {B} leaves over {D} shards of one card: the tampered "
+        f"leaf rejects; best-of-3 {best_t * 1e3:.2f} ms = {B / best_t:.1f} leaves/s (runs "
+        f"{[round(t * 1e3, 2) for t in runs_t]} ms; step 13's one-device {tree_rate:.1f}); "
+        f"phases (ms) " + ", ".join(f"{k[:-2]} {v * 1e3:.2f}" for k, v in tm.items()))
+    out["tree"] = dict(ms=best_t * 1e3, leaves_per_s=B / best_t, one_device_leaves_per_s=tree_rate,
+                       launches={k: v for k, v in t_launches.items() if v})
+
+    # 25e: the inventories are O(D)
+    log(f"# inventories: msm {len(ops)} gathers, {sum(o['bytes'] for o in ops)} B "
+        f"(= {D}·96 + {D}); tree {len(t_ops)} gathers, {sum(o['bytes'] for o in t_ops)} B "
+        f"(= 2·{D}·96); verify none")
+
+    # 25f: the warm start
+    out["warm_start"] = warm_start_phase()
+    # The add's row: its path is the partials' fold, so its launches, time
+    # and bound are that fold's first level; the suffix-scan shape it is
+    # also timed at stays beside them as scan_*.
+    row = next(r for r in kernels if r["name"] == "add")
+    plain_ms = time_ms(lambda: cuda_ops.add_plain(a2, b2), 3, warmup=1)
+    bms, by = bound_ms(3 * POINT_BYTES * a2.shape[0], MULADDS_PER_ADD * a2.shape[0])
+    row.update({f"scan_{k}": row[k] for k in ("shape", "ms", "plain_ms", "bound_ms")
+                if k in row})
+    row.update(launches=launches["add"], launches_mesh_msm=launches["add"],
+               shape_note="ms, shape and bound_ms: the sharded MSM's first fold level; "
+                          "scan_*: the suffix-scan shape this row reported before",
+               shape=list(a2.shape),
+               ms=add_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               max_abs_err=max(row["max_abs_err"], add_err))
+    return out
+
+
+def canon_point_words(w):
+    """(..., 3, 8) point words -> their canonical Fq limbs, coordinate by
+    coordinate (two lazy forms of one projective triple compare equal)."""
+    from snark_verifier_tpu_torch.ec import words_to_limbs
+    from snark_verifier_tpu_torch.ff import FQ_FIELD
+
+    return FQ_FIELD.canon(words_to_limbs(w))
+
+
 def main() -> int:
     import torch
 
@@ -3015,6 +3406,7 @@ def main() -> int:
     log("# msm gates: no overflow, == k_total·G, negative control moved by (j+1)·G")
 
     best, times = best_of_3(lambda: msm(points, scalars, c=C_BITS))
+    msm_best = best
     log(f"# msm 2^{LOG2N} c={C_BITS}: best-of-3 {best * 1e3:.2f} ms = "
         f"{n / best:.1f} points/s (runs {[round(t * 1e3, 2) for t in times]} ms) "
         f"on {name}, {smi}")
@@ -3162,7 +3554,7 @@ def main() -> int:
         f"{bound_ms(3 * POINT_BYTES * big, MULADDS_PER_ADD * big)[0]:.4f} ms); "
         f"double at B=2^19: {ms_dbig:.4f} ms (bound "
         f"{bound_ms(2 * POINT_BYTES * big, MULADDS_PER_DOUBLE * big)[0]:.4f} ms)")
-    del pts_w, points_ext, scalars, digits, sa, sb, saw, sbw, ba, bb2, stacked  # points: step 24
+    del pts_w, points_ext, digits, sa, sb, saw, sbw, ba, bb2, stacked  # points, scalars: steps 24-25
     del idx_all, idx_rows, idx_main, idx_top, idx_t, pe, d_all
     torch.cuda.empty_cache()
 
@@ -3231,7 +3623,14 @@ def main() -> int:
     t0 = time.time()
     decide_s = ipa_decide_phase(dev, kernels, points)
     log(f"# decide at 2^20 phase: {time.time() - t0:.1f}s; {decide_s * 1e3:.3f} ms")
-    del points
+    t0 = time.time()
+    mesh = mesh_phase(dev, kernels, points, scalars, ks, want, msm_best, rate, leaves)
+    log(f"# mesh phase: {time.time() - t0:.1f}s; msm_sharded {mesh['msm']['ms']:.2f} ms, "
+        f"verify {mesh['verify']['proofs_per_s']:.1f} proofs/s, tree "
+        f"{mesh['tree']['leaves_per_s']:.1f} leaves/s, warm start cold "
+        f"{mesh['warm_start']['cold']['process_wall_s']:.2f} s, warm "
+        f"{mesh['warm_start']['warm']['process_wall_s']:.2f} s")
+    del points, scalars
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

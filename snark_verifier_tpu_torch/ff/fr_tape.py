@@ -41,6 +41,7 @@ import torch
 from .. import errors
 from .._build import load_library
 from .._launch import check, launch
+from ..device import device_key
 from .spec import FR, int_to_limbs
 from .word_field import FRW, np_limbs_to_words
 
@@ -168,7 +169,7 @@ class FrTape:
 
     def device_arrays(self, device):
         """(rows, consts) as int32 tensors on `device`, uploaded once."""
-        key = str(device)
+        key = device_key(device)
         if key not in self._dev:
             self._dev[key] = (torch.from_numpy(self.rows).to(device),
                               torch.from_numpy(self.consts).to(device))

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import device_key
 from .spec import MASK, NLIMBS, W, FieldSpec, int_to_limbs, limbs_to_int
 
 _I64 = torch.int64
@@ -58,7 +59,7 @@ class LimbField:
 
     def const(self, name: str, device):
         """A (16,) constant (P, P2 or ONE, the Montgomery 1) on `device`."""
-        key = (name, str(device))
+        key = (name, device_key(device))
         v = self._dev.get(key)
         if v is None:
             v = torch.as_tensor(self._np[name], device=device)

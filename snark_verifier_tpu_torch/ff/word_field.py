@@ -43,6 +43,7 @@ import torch
 
 from .._build import load_library
 from .._launch import launch, same_device
+from ..device import device_key
 from .limb_field import get_field
 from .spec import FQ, FR, NLIMBS, W, FieldSpec, int_to_limbs
 
@@ -121,7 +122,7 @@ class WordField:
     # ------------------------------------------------------------ constants
 
     def _words(self, raw: int, device):
-        key = (raw, str(device))
+        key = (raw, device_key(device))
         v = self._cache.get(key)
         if v is None:
             v = limbs_to_words(torch.as_tensor(int_to_limbs(raw).astype(np.int64))).to(device)

@@ -43,6 +43,7 @@ import torch
 
 from .._build import load_library
 from .._launch import check, launch, same_device
+from ..device import device_key
 from ..ff import FQW, FRW
 from .keccak import _ROTATIONS, _ROUND_CONSTANTS, RATE
 
@@ -84,7 +85,7 @@ _tables: dict = {}
 
 
 def _device_tables(device):
-    key = str(device)
+    key = device_key(device)
     if key not in _tables:
         _tables[key] = tuple(torch.from_numpy(a).to(device) for a in _host_tables())
     return _tables[key]
@@ -246,7 +247,7 @@ class ReadSchedule:
     def tables(self, device):
         """(rows (n, 3), starts, pad (L, 2), pad starts, consts (k, 8)) int32
         on `device`, uploaded once."""
-        key = str(device)
+        key = device_key(device)
         if key not in self._tables:
             rows = np.array([w for sq in self.squeezes for w in sq], np.int32).reshape(-1, 3)
             starts = np.cumsum([0] + self.widths).astype(np.int32)

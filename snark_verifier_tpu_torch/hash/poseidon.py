@@ -34,6 +34,7 @@ import torch
 
 from .._build import load_library
 from .._launch import check, launch, same_device
+from ..device import device_key
 from ..ff import FR, FR_FIELD, FRW, limbs_to_words, np_limbs_to_words, words_to_limbs
 from ..ff.spec import int_to_limbs
 from .grain import generate_constants
@@ -107,12 +108,12 @@ def _host_constants():
     return np_limbs_to_words(rc), np_limbs_to_words(md)
 
 
-_consts: dict = {}  # str(device) -> (rc, mds) limb tensors (plain twin)
+_consts: dict = {}  # device_key(device) -> (rc, mds) limb tensors (plain twin)
 _loaded: set = set()  # CUDA devices whose constant memory holds the spec
 
 
 def _limb_constants(device):
-    key = str(device)
+    key = device_key(device)
     if key not in _consts:
         rc, md = _host_constants()
         _consts[key] = (words_to_limbs(torch.from_numpy(rc)).to(device),
@@ -146,13 +147,13 @@ def permute_plain(state):
 def _library(dev):
     """The kernel library, with the spec's constants on device `dev`."""
     lib = load_library()
-    if str(dev) not in _loaded:
+    if device_key(dev) not in _loaded:
         rc, md = _host_constants()
         with torch.cuda.device(dev):
             err = lib.svt_poseidon_load_constants(rc.ctypes.data, md.ctypes.data)
         if err:
             raise RuntimeError(f"poseidon: loading the constants failed ({err})")
-        _loaded.add(str(dev))
+        _loaded.add(device_key(dev))
     return lib
 
 

@@ -31,6 +31,7 @@ import torch
 
 from .._build import load_library
 from .._launch import check, launch, same_device
+from ..device import device_key
 from ..ff import FQ_FIELD, limbs_to_words, np_limbs_to_words, words_to_limbs
 from ..tower import FQ2, FQ6, FQ12
 from ..tower.encode import fq_mont, tower_limbs
@@ -207,13 +208,13 @@ _loaded: set = set()  # CUDA devices whose constant memory holds the Frobenius t
 
 def _library(device):
     lib = load_library()
-    if str(device) not in _loaded:
+    if device_key(device) not in _loaded:
         tab = np.ascontiguousarray(fq12_vm.transform_table())
         with torch.cuda.device(device):
             err = lib.svt_pairing_load_constants(tab.ctypes.data)
         if err:
             raise RuntimeError(f"pairing: loading the constants failed ({err})")
-        _loaded.add(str(device))
+        _loaded.add(device_key(device))
     return lib
 
 

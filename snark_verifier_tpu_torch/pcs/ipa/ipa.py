@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ... import ff
-from ...device import resolve_device
+from ...device import device_key, resolve_device
 from ...ec import g1
 from ...ec.g1 import from_affine_int, limbs_to_words
 from ...ff import FQW, np_limbs_to_words
@@ -153,7 +153,7 @@ class IpaDecidingKey:
     def g_dev(self, device):
         """G as (n, 3, 16) projective Montgomery limbs on `device`, uploaded
         once per device."""
-        key = str(device)
+        key = device_key(device)
         if key not in self._dev:
             g = self.g
             self._dev[key] = (g.to(device) if isinstance(g, torch.Tensor)

@@ -47,13 +47,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import device_key, resolve_device
 from ...ec.g1 import from_affine_int_np
 from ...ff import FQW, FRW, fr_tape
 from ...loader.tape_loader import (
     IdentityRecord, LanePoint, StreamPoint, TapeLoader, TapeTranscript,
 )
 from ...msm import cuda_ops
+from ...sdk import aot
 from ...sdk.aggregation import _step
 from ...transcript.poseidon_transcript import PoseidonTranscript
 from ..kzg.multiopen import Query
@@ -99,7 +100,33 @@ class IpaPlan:
         self.n_points, self.n_scalars = tr.n_points, tr.n_scalars
         self.const_points = list(L.const_points)
         self._bases: Dict[str, torch.Tensor] = {}
-        self.record_s = time.perf_counter() - t0
+        self.record_s = time.perf_counter() - t0  # or the load's, where `from_cache`
+        self.from_cache = False
+
+    def to_record(self) -> aot.Record:
+        """The plan as numpy arrays and a JSON header (`sdk/aot.py`); the
+        kind, key and shape come from the caller on load."""
+        arrays, meta = aot.tape_record(self.tape)
+        arrays.update(aot.msm_arrays(self.check, "check_"))
+        arrays["xi_rows"] = np.array(self.xi_rows, np.int64)
+        meta.update(u_index=self.u_index, n_given=self.n_given, n_points=self.n_points,
+                    n_scalars=self.n_scalars, const_points=aot.to_json(self.const_points))
+        return arrays, meta
+
+    @classmethod
+    def from_record(cls, kind, svk, shape, arrays, meta) -> "IpaPlan":
+        t0 = time.perf_counter()
+        plan = cls.__new__(cls)
+        plan.kind, plan.svk, plan.shape = kind, svk, tuple(shape)
+        plan.tape = aot.tape_from(arrays, meta)
+        plan.check = aot.msm_from(arrays, "check_")
+        plan.xi_rows = arrays["xi_rows"].tolist()
+        plan.u_index, plan.n_given = int(meta["u_index"]), int(meta["n_given"])
+        plan.n_points, plan.n_scalars = int(meta["n_points"]), int(meta["n_scalars"])
+        plan.const_points = aot.from_json(meta["const_points"])
+        plan._bases = {}
+        plan.record_s, plan.from_cache = time.perf_counter() - t0, True
+        return plan
 
     # ------------------------------------------------------------- shapes
 
@@ -169,7 +196,7 @@ class IpaPlan:
         return fr_tape.run_plain(self.tape, inputs)
 
     def _const_table(self, device):
-        key = str(device)
+        key = device_key(device)
         if key not in self._bases:
             self._bases[key] = torch.from_numpy(from_affine_int_np(self.const_points)).to(device)
         return self._bases[key]
@@ -220,13 +247,22 @@ class IpaPlan:
         return IpaAccumulator(xi, table[:, self.u_index]), ok
 
 
-def ipa_plan(kind: str, svk: IpaSuccinctVerifyingKey, shape: tuple = ()) -> IpaPlan:
+def ipa_plan(kind: str, svk: IpaSuccinctVerifyingKey, shape: tuple = (),
+             device=None) -> IpaPlan:
     """The plan of (kind, key, shape), recorded on first use and kept for
-    the process."""
+    the process; where the warm-start cache is on for `device`
+    (`sdk/aot.py`), loaded from it, or recorded and saved to it."""
     key = (kind, svk.key(), tuple(shape))
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = IpaPlan(kind, svk, shape)
+        build = lambda: IpaPlan(kind, svk, shape)
+        if aot.enabled(device):
+            plan = aot.load_or_compile(
+                ("ipa_plan",) + key, build, IpaPlan.to_record,
+                lambda arrays, meta: IpaPlan.from_record(kind, svk, shape, arrays, meta))
+        else:
+            plan = build()
+        _PLANS[key] = plan
     return plan
 
 
@@ -319,7 +355,7 @@ def _batch(kind: str, items: Sequence, device, timings):
         if len(keys) != 1 or len(shapes) != 1:
             raise ValueError(f"a {kind} batch verifies under one key and one proof shape: "
                              f"{len(keys)} keys and {len(shapes)} shapes")
-        return ipa_plan(kind, items[0].svk, shapes.pop())
+        return ipa_plan(kind, items[0].svk, shapes.pop(), device=dev)
 
     plan = _step(timings, "plan_s", dev, lookup)
 

@@ -78,18 +78,26 @@ def _stack_instances(snarks: Sequence[Snark], device):
     return _instance_columns(_instance_block(snarks, device), snarks[0].protocol.num_instance)
 
 
-def _step(timings, key: str, device, fn):
-    """fn(); with `timings`, its host seconds under `key`, between two
-    synchronizes of `device`."""
+def _synchronize(where):
+    """Wait for `where`: a device, or a mesh (`parallel.mesh.Mesh`, each of
+    its cards)."""
+    if not isinstance(where, torch.device):
+        where.synchronize()
+    elif where.type == "cuda":
+        torch.cuda.synchronize(where)
+
+
+def _step(timings, key: str, where, fn):
+    """fn(); with `timings`, its host seconds added under `key` (a sharded
+    path sums its shards), between two synchronizes of `where`, a device or
+    a mesh."""
     if timings is None:
         return fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _synchronize(where)
     t = time.perf_counter()
     r = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[key] = time.perf_counter() - t
+    _synchronize(where)
+    timings[key] = timings.get(key, 0.0) + time.perf_counter() - t
     return r
 
 
@@ -126,7 +134,7 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
         if len(digests) != 1:
             raise ValueError("a batch verifies one shared protocol")
         return succinct_plan(snarks[0].protocol, SCHEMES[scheme_name], scheme_name, transcript,
-                             digest=digests.pop())
+                             digest=digests.pop(), device=dev)
 
     plan = _step(timings, "plan_s", dev, lookup)
     ick = plan.protocol.instance_committing_key is not None

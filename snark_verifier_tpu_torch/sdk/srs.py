@@ -17,18 +17,22 @@ The file is halo2's `ParamsKZG` in the "Processed" layout:
 from __future__ import annotations
 
 import functools
+import hashlib
 import random
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import errors
+from ..device import device_key
 from ..ec import py_ec
 from ..ec.g1 import from_affine_int_np
 from ..ff.spec import FQ, FR
 from ..pairing import py_pairing as pp
 from ..pairing.pairing import coeffs_to_device, prepare_g2_coeffs
+from . import aot
 from .proof_io import g1_from_bytes
 
 
@@ -48,9 +52,14 @@ class Srs:
     def g(self):
         return self.g1_powers[0]
 
+    def content_hash(self) -> str:
+        """A stable digest of what the verifier takes from the SRS (g, g2,
+        s_g2): the JAX package's `Srs.content_hash`, the same value."""
+        return hashlib.sha256(repr((self.g, self.g2, self.s_g2)).encode()).hexdigest()
+
     def g_dev(self, device):
         """g as (3, 8) projective Montgomery words on `device`, cached."""
-        key = str(device)
+        key = device_key(device)
         if key not in self._g_words:
             self._g_words[key] = torch.from_numpy(from_affine_int_np([self.g])[0]).to(device)
         return self._g_words[key]
@@ -62,11 +71,27 @@ class Srs:
         return prepare_g2_coeffs([self.g2, pp.g2_neg(self.s_g2)])
 
     def decider_coeffs(self, device):
-        """`decider_coeffs_host` on `device`, uploaded once per device."""
-        key = str(device)
+        """`decider_coeffs_host` on `device`, uploaded once per device.  Where
+        the warm-start cache is on for `device` (`sdk/aot.py`), the host
+        lines come from it, or are computed and saved to it."""
+        key = device_key(device)
         if key not in self._decider:
+            if aot.enabled(device) and "decider_coeffs_host" not in self.__dict__:
+                self.__dict__["decider_coeffs_host"] = aot.load_or_compile(
+                    ("g2_lines", self.content_hash()), lambda: self.decider_coeffs_host,
+                    _lines_record, _lines_from)
             self._decider[key] = coeffs_to_device(self.decider_coeffs_host, device)
         return self._decider[key]
+
+
+def _lines_record(coeffs):
+    dbl, addc, has_add, finals = coeffs
+    return {"dbl": dbl, "addc": addc, "has_add": np.asarray(has_add, np.bool_),
+            "finals": finals}, {}
+
+
+def _lines_from(arrays, meta):
+    return arrays["dbl"], arrays["addc"], arrays["has_add"], arrays["finals"]
 
 
 def g2_from_bytes(b: bytes):

@@ -54,9 +54,11 @@ from __future__ import annotations
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from ... import errors
+from ...device import device_key
 from ...ec.g1 import from_affine_int_np
 from ...ff import FQW, fr_tape, points_to_fr
 from ...hash import keccak_device as kd
@@ -66,6 +68,7 @@ from ...loader.tape_loader import (
 )
 from ...msm import cuda_ops
 from ...pcs.kzg.accumulator import accumulator_from_limbs
+from ...sdk import aot
 from ...transcript.evm_transcript import PrecomputedChallengeTranscript
 from .verifier import PlonkSuccinctVerifier
 
@@ -129,7 +132,58 @@ class SuccinctPlan:
         self.n_lanes = len(L.lane_points)  # the committed instance columns
         self.keccak = keccak_schedule(tr.squeezes, protocol) if transcript == "evm" else None
         self._bases: Dict[str, torch.Tensor] = {}
-        self.record_s = time.perf_counter() - t0
+        self.record_s = time.perf_counter() - t0  # or the load's, where `from_cache`
+        self.from_cache = False
+
+    # ----------------------------------------------------- the warm start
+
+    def to_record(self) -> aot.Record:
+        """The plan as numpy arrays and a JSON header (`sdk/aot.py`): the
+        tape, each accumulator's MSM records or limb rows, the keccak
+        schedule; the protocol and scheme come from the caller on load."""
+        arrays, meta = aot.tape_record(self.tape)
+        kinds = []
+        for i, acc in enumerate(self.accs):
+            if isinstance(acc, LimbRecord):
+                kinds.append("limbs")
+                arrays[f"acc{i}_limbs"] = np.array(acc.inputs, np.int64)
+            else:
+                kinds.append("msm")
+                for side, rec in zip("lr", acc):
+                    arrays.update(aot.msm_arrays(rec, f"acc{i}{side}_"))
+        if self.keccak is not None:
+            sq = self.keccak.squeezes
+            arrays["keccak_words"] = np.array([w for q in sq for w in q], np.int64).reshape(-1, 3)
+            arrays["keccak_widths"] = np.array([len(q) for q in sq], np.int64)
+        meta.update(accs=kinds, const_points=aot.to_json(self.const_points),
+                    n_points=self.n_points, n_lanes=self.n_lanes,
+                    keccak_consts=None if self.keccak is None else self.keccak.consts)
+        return arrays, meta
+
+    @classmethod
+    def from_record(cls, protocol, scheme, transcript: str, arrays, meta) -> "SuccinctPlan":
+        t0 = time.perf_counter()
+        plan = cls.__new__(cls)
+        plan.protocol, plan.scheme = protocol, scheme
+        plan.tape = aot.tape_from(arrays, meta)
+        plan.accs = []
+        for i, kind in enumerate(meta["accs"]):
+            if kind == "limbs":
+                plan.accs.append(LimbRecord(arrays[f"acc{i}_limbs"].tolist()))
+            else:
+                plan.accs.append(tuple(aot.msm_from(arrays, f"acc{i}{side}_") for side in "lr"))
+        plan.const_points = aot.from_json(meta["const_points"])
+        plan.n_points, plan.n_lanes = int(meta["n_points"]), int(meta["n_lanes"])
+        plan.keccak = None
+        if transcript == "evm":
+            words = arrays["keccak_words"].tolist()
+            ends = np.cumsum(arrays["keccak_widths"]).tolist()
+            plan.keccak = kd.ReadSchedule([words[e - w:e] for e, w in
+                                           zip(ends, arrays["keccak_widths"].tolist())],
+                                          meta["keccak_consts"])
+        plan._bases = {}
+        plan.record_s, plan.from_cache = time.perf_counter() - t0, True
+        return plan
 
     # ---------------------------------------------------------------- run
 
@@ -191,7 +245,7 @@ class SuccinctPlan:
         if (0 if lanes is None else lanes.shape[1]) != self.n_lanes:
             raise ValueError(f"plan: the protocol commits {self.n_lanes} instance columns")
         dev = points.device
-        key = str(dev)
+        key = device_key(dev)
         if key not in self._bases:
             self._bases[key] = (
                 torch.from_numpy(from_affine_int_np(self.const_points)).to(dev)
@@ -290,7 +344,7 @@ def keccak_challenges(schedule: kd.ReadSchedule, inst, scalars, points, lanes=No
 def _ick_bases(points, device):
     """The instance committing key's points as (n, 3, 8) words on `device`,
     uploaded once per (points, device)."""
-    key = (tuple(points), str(device))
+    key = (tuple(points), device_key(device))
     t = _ICK_BASES.get(key)
     if t is None:
         t = _ICK_BASES[key] = torch.from_numpy(from_affine_int_np(list(points))).to(device)
@@ -330,12 +384,22 @@ def commit_instances(protocol, inst_plain):
 
 
 def succinct_plan(protocol, scheme, scheme_name: str, transcript: str,
-                  digest: str = None) -> SuccinctPlan:
+                  digest: str = None, device=None) -> SuccinctPlan:
     """The plan of (protocol, scheme, transcript), recorded on first use
-    and kept for the process.  `digest`: the protocol's content_hash(),
-    where the caller has it already."""
+    and kept for the process; where the warm-start cache is on for
+    `device` (`sdk/aot.py`), loaded from it, or recorded and saved to it.
+    `digest`: the protocol's content_hash(), where the caller has it
+    already."""
     key = (digest or protocol.content_hash(), scheme_name, transcript)
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = SuccinctPlan(protocol, scheme, transcript)
+        build = lambda: SuccinctPlan(protocol, scheme, transcript)
+        if aot.enabled(device):
+            plan = aot.load_or_compile(
+                ("succinct_plan",) + key, build, SuccinctPlan.to_record,
+                lambda arrays, meta: SuccinctPlan.from_record(protocol, scheme, transcript,
+                                                              arrays, meta))
+        else:
+            plan = build()
+        _PLANS[key] = plan
     return plan

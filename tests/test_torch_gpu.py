@@ -1295,3 +1295,49 @@ def test_ick_keccak_batch_on_card_matches_oracle(cuda):
     assert LAUNCHES["poseidon_absorb"] == 0 and not _field_launches()
     got = list(zip(to_affine_int(words_to_limbs(lhs)), to_affine_int(words_to_limbs(rhs))))
     assert got == [succinct_verify_native(s, srs, "shplonk", "evm")[0] for s in snarks]
+
+
+# ------------------------------------------------- the mesh paths (one card listed twice)
+
+
+def test_msm_sharded_on_a_mesh_of_one_card_listed_twice(cuda):
+    from snark_verifier_tpu_torch.parallel import Mesh, batch_msm_sharded, msm_sharded
+    from snark_verifier_tpu_torch.parallel.mesh import recording
+
+    mesh = Mesh(["cuda"] * 2, ("points",))
+    assert [str(d) for d in mesh.devices.flat] == [f"cuda:{torch.cuda.current_device()}"] * 2
+    pts = py_ec.rand_points(512, seed=11)
+    rng = np.random.default_rng(12)
+    ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(512)]
+    reset_launches()
+    with recording() as ops:
+        out, ovf = msm_sharded(from_affine_int(pts), scalars_from_int(ks), mesh)
+    assert out.device.type == "cuda" and not bool(ovf)
+    assert to_affine_int(out) == py_ec.msm(pts, ks)
+    assert LAUNCHES["add"] == 1 and LAUNCHES["bucket_reduce"] == 2
+    assert [o["type"] for o in ops] == ["s32[2,3,8]", "pred[2]"]
+    grid = Mesh(np.array(["cuda"] * 4).reshape(2, 2), ("batch", "points"))
+    P = from_affine_int(pts[:256]).reshape(4, 64, 3, 16)
+    S = scalars_from_int(ks[:256]).reshape(4, 64, 16)
+    outs, ovfs = batch_msm_sharded(P, S, grid)
+    assert not bool(ovfs.any())
+    assert to_affine_int(outs) == [py_ec.msm(pts[64 * b:64 * (b + 1)], ks[64 * b:64 * (b + 1)])
+                                   for b in range(4)]
+
+
+def test_batch_verify_sharded_on_a_mesh_of_one_card_listed_twice(cuda):
+    from snark_verifier_tpu_torch.parallel import Mesh, batch_verify_sharded
+
+    srs, snarks = _fixtures("snark", 4)
+    s1 = snarks[1]
+    snarks[1] = Snark(s1.protocol, [list(c) for c in s1.instances], s1.scalars, s1.points)
+    snarks[1].instances[0][0] = (snarks[1].instances[0][0] + 1) % FR.p
+    reset_launches()
+    timings = {}
+    oks = batch_verify_sharded(snarks, srs, Mesh(["cuda"] * 2, ("batch",)), timings=timings)
+    assert oks.device.type == "cuda" and oks.tolist() == [True, False, True, True]
+    assert LAUNCHES["miller_loop"] == 2 and LAUNCHES["final_exp"] == 2
+    assert LAUNCHES["fr_tape"] == 2 and LAUNCHES["msm_windowed"] == 2
+    assert set(timings) == {"succinct_s", "decide_s", "stack_s", "plan_s", "read_s",
+                            "gather_s", "fr_tape_s", "msm_s"}
+    assert oks.tolist() == batch_verify(snarks, srs).tolist()

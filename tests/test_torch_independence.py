@@ -68,6 +68,15 @@ import snark_verifier_tpu_torch.pcs.ipa.ipa
 import snark_verifier_tpu_torch.pcs.ipa.bgh19
 import snark_verifier_tpu_torch.pcs.ipa.plan
 import snark_verifier_tpu_torch.pcs.ipa.fixtures
+import snark_verifier_tpu_torch.parallel.mesh
+import snark_verifier_tpu_torch.parallel.msm_sharded
+import snark_verifier_tpu_torch.parallel.comm_model
+import snark_verifier_tpu_torch.sdk.aot
+from snark_verifier_tpu_torch.parallel import (
+    Mesh, batch_msm_sharded, batch_verify, batch_verify_sharded, msm_sharded,
+)
+from snark_verifier_tpu_torch.sdk.tree_aggregation import tree_aggregate_sharded, tree_comm_inventory
+assert Mesh(["cpu"] * 2, ("batch",)).shape == {"batch": 2}
 from snark_verifier_tpu_torch.pcs.ipa import (
     Bgh19, Ipa, IpaAccumulator, IpaAs, IpaDecidingKey, IpaSuccinctVerifyingKey, decide,
     decide_all,
