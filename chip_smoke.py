@@ -213,7 +213,24 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    and verifies 1,024 proofs through `batch_verify_sharded` on a one-device
    mesh, once over an empty `SNARK_AOT_DIR` and once over what the first
    left (the plan and the G2 lines loaded), each timed part by part, the
-   hash of the sources that keys the cache included.
+   hash of the sources that keys the cache included;
+26. host proving (`system/`, `pcs/kzg/prover_py.py`, `pcs/ipa`), every
+   commitment one `msm` on the card (`Srs.commit`, `IpaProvingKey.commit`
+   through `msm/pippenger.py::msm_int`): `Srs.commit` equals `py_ec.msm`
+   at n = 1, 4, 5, 1,023 and 1,024 (srs.bin's powers) and is None on an
+   all-zero polynomial, its ms at n = 1, 64, 1,024 and 8,192;
+   `compile_protocol` of `demo_spec(10)` equals `protocol.json`;
+   `gen_snark` with seed 0 equals `snark_00.json` (SHPLONK, Poseidon),
+   `gwcsnark_00.json` (GWC19) and `evmsnark_00.json` (SHPLONK, keccak);
+   each through `batch_verify` at 16 lanes with its scheme and transcript
+   (all accept, a tampered instance rejects lane 0 alone), and
+   `verify_snark_native` accepts snark_00; with the committed k = 11 key,
+   `Ipa.create_proof` rebuilds opening 0 without and with zk, `Bgh19.open`
+   BGH19 opening 0 and `IpaAs.create_proof` the fold of the 16
+   accumulators, each equal to its `ipa_*_k11.json` entry.  Each proof's
+   wall, its commitments' share (synchronized) and the host's, its
+   commitments and `msm` calls, and the kernels' launches it adds (the
+   kernels line's `launches_host_proving`).
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -3223,6 +3240,202 @@ def mesh_phase(dev, kernels, points, scalars, ks, want, msm_best_s, verify_rate,
     return out
 
 
+# --------------------------------------------------- step 26: host proving
+
+HOST_PROVING_BATCH = 16  # lanes of each rebuilt proof through batch_verify
+COMMIT_GATE_N = (1, 4, 5, 1023, 1024)  # Srs.commit on the card against py_ec.msm
+COMMIT_TIMED_N = (1, 64, 1024, 8192)
+
+
+class CommitClock:
+    """Wraps a prover's commitment function: each call's n and its seconds
+    on the host clock (the call ends on the host: the card's point comes
+    back as python ints), and the MSM kernels' launches by proof."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, coeffs, *args, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self.fn(coeffs, *args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append((len(coeffs), time.perf_counter() - t0))
+        return out
+
+    def proof(self, label, fn, smi):
+        """Run one proof -> (its result, its report line's numbers)."""
+        import torch
+        from snark_verifier_tpu_torch.msm import cuda_ops
+
+        self.calls = []
+        cuda_ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: cuda_ops.LAUNCHES[k] for k in ("fold_buckets", "fold_segments",
+                                                      "bucket_reduce")}
+        commit_s = sum(s for _, s in self.calls)
+        rep = {"wall_s": wall, "commit_s": commit_s, "host_s": wall - commit_s,
+               "commitments": len(self.calls), "msm": launches["bucket_reduce"],
+               "launches": launches, "n": sorted({n for n, _ in self.calls})}
+        log(f"# {label}: wall {wall:.3f} s = commitments on the card {commit_s:.3f} s "
+            f"(synchronized) + host {wall - commit_s:.3f} s; {len(self.calls)} commitments, "
+            f"{launches['bucket_reduce']} msm calls, launches {launches}; sizes {rep['n']} "
+            f"({smi})")
+        return out, rep
+
+
+def host_proving_phase(dev, smi):
+    """Step 26: the repo's own proofs made again by the port's host provers,
+    every commitment an `msm` on the card: the vanilla_k10 protocol and
+    snark_00 / gwcsnark_00 / evmsnark_00, IPA opening 0 (without and with
+    zk), BGH19 opening 0 and the IpaAs fold of the 16 openings, each equal
+    to its committed file; the rebuilt proofs through `batch_verify`;
+    `Srs.commit` against `py_ec.msm`; the commitment's ms by n."""
+    import json
+    from pathlib import Path
+
+    import torch
+    from snark_verifier_tpu_torch.ec import py_ec
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.parallel import batch_verify
+    from snark_verifier_tpu_torch.pcs.ipa import Bgh19, Ipa, IpaAs, IpaProvingKey
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as fx
+    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Query
+    from snark_verifier_tpu_torch.sdk.srs import load_params
+    from snark_verifier_tpu_torch.system.vanilla_fixtures import demo_assignment, demo_spec
+    from snark_verifier_tpu_torch.system.vanilla_plonk import compile_protocol, gen_snark
+    from snark_verifier_tpu_torch.transcript import PoseidonTranscriptPy
+    from snark_verifier_tpu_torch.utils.py_poly import peval
+    from snark_verifier_tpu_torch.verifier.plonk.verifier import verify_snark_native
+
+    R = FR.p
+    d = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    t0 = time.perf_counter()
+    srs = load_params(str(d / "srs.bin"))
+    log(f"# host proving: srs.bin ({len(srs.g1_powers)} powers) parsed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    clock = CommitClock(srs.commit)
+    srs.commit = clock  # the instance's commit: every prover call goes through the clock
+    report = {"proofs": {}}
+
+    # gate 6 first: the card's commitment against py_ec.msm
+    rng = np.random.default_rng(26)
+    for n in COMMIT_GATE_N:
+        c = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+        got = srs.commit(c)
+        check(got == py_ec.msm(srs.g1_powers[:n], c), f"Srs.commit on the card at n = {n} "
+                                                       f"differs from py_ec.msm")
+        check(all(type(v) is int for v in got), "Srs.commit returned no python ints")
+    check(srs.commit([0] * 1024) is None, "an all-zero polynomial did not commit to None")
+    timed = {}
+    for n in COMMIT_TIMED_N:
+        c = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+        srs.commit(c)  # warm
+        clock.calls = []
+        for _ in range(5):
+            srs.commit(c)
+        timed[n] = min(s for _, s in clock.calls) * 1e3
+    report["commit_ms"] = timed
+    log(f"# Srs.commit on the card equals py_ec.msm at n = {COMMIT_GATE_N} and is None on "
+        f"zeros; ms a commitment (best of 5, host clock, the point back as python ints): "
+        + ", ".join(f"n = {n}: {ms:.3f}" for n, ms in timed.items()) + f" ({smi})")
+
+    # gates 1-2: the protocol and the three proofs
+    spec = demo_spec(10)
+    asg = demo_assignment(spec, seed=0)
+    protocol, rep = clock.proof("compile_protocol (vanilla k = 10)", lambda: compile_protocol(
+        spec, asg.fixed, asg.copies, srs), smi)
+    report["proofs"]["compile_protocol"] = rep
+    check(protocol.to_json() == json.loads((d / "protocol.json").read_text()),
+          "compile_protocol on the card != protocol.json")
+    rebuilt = {}
+    for name, scheme, tr in (("snark_00", "shplonk", "poseidon"),
+                             ("gwcsnark_00", "gwc", "poseidon"),
+                             ("evmsnark_00", "shplonk", "evm")):
+        sn, rep = clock.proof(f"gen_snark {name} ({scheme}, {tr})", lambda: gen_snark(
+            asg, protocol, srs, scheme, seed=0, transcript=tr), smi)
+        report["proofs"][name] = rep
+        check(sn.to_json() == json.loads((d / f"{name}.json").read_text()),
+              f"gen_snark on the card != {name}.json")
+        rebuilt[name] = (sn, scheme, tr)
+    log("# protocol.json, snark_00, gwcsnark_00 and evmsnark_00 rebuilt exactly, every "
+        "commitment on the card")
+    srs.commit = clock.fn
+
+    # gates 3-4: the rebuilt proofs verify
+    check(verify_snark_native(rebuilt["snark_00"][0], srs), "verify_snark_native rejects snark_00")
+    B = HOST_PROVING_BATCH
+    for name, (sn, scheme, tr) in rebuilt.items():
+        oks = batch_verify([sn] * B, srs, scheme, tr)
+        check(bool(oks.all()), f"batch_verify rejects the rebuilt {name}")
+        oks = batch_verify([tampered(sn)] + [sn] * (B - 1), srs, scheme, tr)
+        check(not bool(oks[0]) and bool(oks[1:].all()), f"{name}: the tampered lane")
+    log(f"# the rebuilt proofs through batch_verify at {B} lanes each (their scheme and "
+        f"transcript): all accept, a tampered instance rejects lane 0 alone; "
+        f"verify_snark_native accepts snark_00")
+
+    # gate 5: the IPA proofs at k = 11
+    zk_key = fx.ipa_proving_key()
+    keys = {True: zk_key, False: IpaProvingKey(zk_key.k, zk_key.g, zk_key.h)}
+    for key in keys.values():
+        key._msm = CommitClock(key._msm)
+
+    def rand(rng, n):
+        return [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+
+    files = {name: json.loads((fx.FIXTURES / f"ipa_{name}_k{fx.K}.json").read_text())
+             for name in ("openings", "bgh19", "as")}
+    for zk in (False, True):  # tests/test_torch_ipa.py::_make_opening(pk, zk, 0)
+        key = keys[zk]
+        rng = np.random.default_rng(1000 * zk)
+        p = rand(rng, key.n)
+        omega = rand(rng, 1)[0] if zk else None
+        c = key.commit(p, omega)
+        z = rand(rng, 1)[0]
+        tr = PoseidonTranscriptPy()
+        acc, rep = key._msm.proof(f"Ipa.create_proof (k = {fx.K}, zk {zk})", lambda: Ipa.
+                                  create_proof(key, p, z, omega, tr, seed=2000 + 100 * zk), smi)
+        report["proofs"][f"ipa_zk{int(zk)}"] = rep
+        got = {"c": fx.pt_hex(c), "z": fx.fr_hex(z), "v": fx.fr_hex(peval(p, z)),
+               **fx.streams_to_json(*tr.streams()), "acc": fx.acc_to_json(acc)}
+        check(got == files["openings"]["zk" if zk else "plain"][0],
+              f"IPA opening 0 (zk {zk}) != ipa_openings_k{fx.K}.json")
+    key = keys[False]
+    rng = np.random.default_rng(3000)  # _make_bgh19(pk, 0)
+    polys = [rand(rng, key.n) for _ in range(3)]
+    x = rand(rng, 1)[0]
+    queries = [(0, 1, peval(polys[0], x)), (0, 7, peval(polys[0], 7 * x % R)),
+               (1, 1, peval(polys[1], x)), (2, 1, peval(polys[2], x))]
+    tr = PoseidonTranscriptPy()
+    acc, rep = key._msm.proof(f"Bgh19.open (k = {fx.K})", lambda: Bgh19.open(
+        key, polys, [Query(*q) for q in queries], x, tr, seed=4000), smi)
+    report["proofs"]["bgh19"] = rep
+    got = {"commitments": [fx.pt_hex(key.commit(p)) for p in polys], "x": fx.fr_hex(x),
+           "queries": [[p, sh, fx.fr_hex(ev)] for p, sh, ev in queries],
+           **fx.streams_to_json(*tr.streams()), "acc": fx.acc_to_json(acc)}
+    check(got == files["bgh19"]["openings"][0], f"BGH19 opening 0 != ipa_bgh19_k{fx.K}.json")
+    fold = files["as"]["folds"][0]  # _make_fold(pk, False, the 16 accumulators, 5000)
+    accs = [fx.acc_from_json(a) for a in fold["accs"]]
+    tr = PoseidonTranscriptPy()
+    acc, rep = key._msm.proof(f"IpaAs.create_proof (16 accumulators, k = {fx.K})",
+                              lambda: IpaAs.create_proof(key, accs, tr, seed=5000), smi)
+    report["proofs"]["ipa_as"] = rep
+    got = {"zk": 0, "accs": fold["accs"], **fx.streams_to_json(*tr.streams()),
+           "acc": fx.acc_to_json(acc)}
+    check(got == fold, f"the IpaAs fold != ipa_as_k{fx.K}.json")
+    log("# IPA opening 0 (without and with zk), BGH19 opening 0 and the IpaAs fold of 16 "
+        "rebuilt exactly, every MSM on the card")
+    report["launches"] = {k: sum(r["launches"][k] for r in report["proofs"].values())
+                          for k in ("fold_buckets", "fold_segments", "bucket_reduce")}
+    return report
+
+
 def canon_point_words(w):
     """(..., 3, 8) point words -> their canonical Fq limbs, coordinate by
     coordinate (two lazy forms of one projective triple compare equal)."""
@@ -3631,6 +3844,13 @@ def main() -> int:
         f"{mesh['warm_start']['cold']['process_wall_s']:.2f} s, warm "
         f"{mesh['warm_start']['warm']['process_wall_s']:.2f} s")
     del points, scalars
+    t0 = time.time()
+    hp = host_proving_phase(dev, smi)
+    for row in kernels:
+        if row["name"] in hp["launches"]:
+            row["launches_host_proving"] = hp["launches"][row["name"]]
+    log(f"# host proving phase: {time.time() - t0:.1f}s; launches over its proofs "
+        f"{hp['launches']}")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

@@ -26,6 +26,8 @@ Loader interface:
   affine(P) -> pt              a point handle as the transcript absorbs it
   zero_scalar() -> S           the value of an empty Expr's constant
   accumulator_from_limbs([S]) -> (P, P)  decode an instance-encoded accumulator
+  load_svk(srs) -> g           the generator handle the PCS verifiers take
+                               (NativeLoader: `PlonkVerifier`)
   decide_all(srs, [(lhs, rhs)]) -> accept bit(s)  the pairing decide
 """
 
@@ -291,6 +293,18 @@ class NativeLoader:
 
     def accumulator_from_limbs(self, limbs: List[int]):
         return accumulator_from_limbs_int(limbs)
+
+    def load_svk(self, srs):
+        return srs.g
+
+    def decide_all(self, srs, accumulators: List) -> bool:
+        """e(lhs, g2)·e(rhs, −s_g2) == 1 for every accumulator, by the
+        python-int pairing (the reference's decider.rs:60-80)."""
+        from ..pairing import py_pairing as pp
+
+        neg_s_g2 = pp.g2_neg(srs.s_g2)
+        return all(pp.pairing_check([(lhs, srs.g2), (rhs, neg_s_g2)])
+                   for lhs, rhs in accumulators)
 
 
 NATIVE = NativeLoader()

@@ -3,6 +3,7 @@ from .pippenger import (
     extract_digits,
     msm,
     msm_checked,
+    msm_int,
     scalars_from_int,
 )
 
@@ -11,5 +12,6 @@ __all__ = [
     "extract_digits",
     "msm",
     "msm_checked",
+    "msm_int",
     "scalars_from_int",
 ]

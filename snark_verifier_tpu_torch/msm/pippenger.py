@@ -245,3 +245,33 @@ def msm_checked(points, scalars_u16, capacity: Optional[int] = None, c: int = C_
         if cap >= max(n, 8):
             return out  # capacity covers every point; overflow impossible
         cap = min(max(n, 8), cap * 4)
+
+
+def msm_int(bases, tables: dict, scalars, device=None):
+    """Σ sᵢ·basesᵢ over the first len(scalars) of `bases` (affine int
+    tuples) with python-int scalars -> an affine tuple of python ints, None
+    for the identity: a host prover's commitment.
+
+    device None means the CUDA card: one `msm_checked` over the bases' (N, 3,
+    16) limbs, converted and uploaded once per device into `tables` (keyed
+    by `device_key`), with the canonical scalars of `scalars_from_int`.  An
+    explicit "cpu" runs the python-int `py_ec.msm`.  Nothing falls back from
+    the card to the CPU: a missing card raises, as `resolve_device` does."""
+    from ..device import device_key
+    from ..ec import py_ec
+    from ..ec.g1 import from_affine_int, to_affine_int
+
+    dev = resolve_device(device)
+    n = len(scalars)
+    if n > len(bases):
+        raise ValueError(f"msm_int: {n} scalars for {len(bases)} bases")
+    scalars = [int(s) % FR.p for s in scalars]
+    if dev.type == "cpu":
+        return py_ec.msm(bases[:n], scalars)
+    key = device_key(dev)
+    if key not in tables:
+        tables[key] = from_affine_int(list(bases), device=dev)
+    if n == 0:
+        return None
+    out = msm_checked(tables[key][:n], scalars_from_int(scalars), device=dev)
+    return to_affine_int(out)

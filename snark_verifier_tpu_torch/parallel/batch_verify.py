@@ -48,9 +48,16 @@ def batch_succinct_verify_sharded(snarks: Sequence, srs, mesh: Mesh,
     """The succinct phase, the batch split over mesh axis `axis_name` (B
     must divide by its size) -> one list a shard, in mesh order, of that
     shard's (lhs, rhs) accumulators, each (B / D, 3, 8) on the shard's
-    device (the JAX package returns them as sharded arrays).  `timings`,
-    when given, gets the succinct phase's steps
-    (`sdk.aggregation.batch_succinct_verify`), summed over the shards."""
+    device.  `timings`, when given, gets the succinct phase's steps
+    (`sdk.aggregation.batch_succinct_verify`), summed over the shards.
+
+    The per-shard form is deliberate: the JAX package returns one (lhs,
+    rhs) a proof's accumulator as arrays sharded over the axis, and torch
+    has no sharded array.  Assembling each accumulator whole would copy
+    every shard's to the first device and back for the decide; kept per
+    shard, the accumulators never leave their device.
+    `batch_decide_sharded` takes this form, and concatenating the shards'
+    lists lane-wise gives the one-device batch's accumulators."""
     if not snarks:
         raise ValueError("batch_succinct_verify_sharded: empty batch")
     line = mesh.along(axis_name)
@@ -63,7 +70,10 @@ def batch_decide_sharded(accumulators: List[List], srs, mesh: Mesh,
                          axis_name: str = "batch"):
     """The pairing decide of each shard's accumulators on its own device ->
     (B,) bool on the mesh's first device: a lane accepts when all its
-    accumulators pass."""
+    accumulators pass.  `accumulators` is the per-shard form that
+    `batch_succinct_verify_sharded` returns (one list a shard, not the JAX
+    package's sharded arrays: torch has none), so no accumulator is
+    copied between devices; only the accept bits are assembled."""
     line = mesh.along(axis_name)
     if len(accumulators) != line.size:
         raise ValueError(f"batch_decide_sharded: {len(accumulators)} shards for "

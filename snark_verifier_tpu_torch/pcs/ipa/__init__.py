@@ -1,6 +1,6 @@
 """The IPA family: the inner-product-argument PCS, its accumulation scheme,
-BGH19 multi-open and the MSM decider (the JAX package's `pcs/ipa`), and
-their batch plans."""
+BGH19 multi-open and the MSM decider (the JAX package's `pcs/ipa`), their
+host provers, and their batch plans."""
 
 from .bgh19 import Bgh19
 from .ipa import (
@@ -8,6 +8,7 @@ from .ipa import (
     IpaAccumulator,
     IpaAs,
     IpaDecidingKey,
+    IpaProvingKey,
     IpaSuccinctVerifyingKey,
     decide,
     decide_all,
@@ -36,6 +37,7 @@ __all__ = [
     "IpaFold",
     "IpaOpening",
     "IpaPlan",
+    "IpaProvingKey",
     "IpaSuccinctVerifyingKey",
     "batch_bgh19_verify",
     "batch_ipa_as_verify",

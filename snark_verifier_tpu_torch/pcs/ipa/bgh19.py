@@ -9,8 +9,11 @@ with the two-phase batched inversion (bgh19.rs:205-231, 289-345), combines
 the commitments and evaluations with the powers of x₁, x₂ and x₄, and
 checks with one IPA succinct verify that the combination opens to 0 at x₃
 (bgh19.rs:56-95).  The shifts and the barycentric numerators `nell` are
-host ints, as in the JAX package.  The host prover (`Bgh19.open`) is not
-ported.
+host ints, as in the JAX package.  The host prover, `Bgh19.open` (the
+JAX package's :47), builds the proof from the verification identity:
+q_i = Σ x₁^t p_t, r_i the interpolation of q_i on the set's points,
+f = Σ x₂^i (q_i − r_i)/Π(X − z_ij); its commitment and its trailing IPA's
+MSMs run on the card (device None) or by `py_ec.msm` (device "cpu").
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from __future__ import annotations
 from typing import List
 
 from ...ff.spec import FR
+from ...utils import py_poly
 from ..kzg.multiopen import Query, bdfg_query_sets
-from .ipa import Ipa
+from .ipa import Ipa, IpaProvingKey
 
 R_MOD = FR.p
 
@@ -30,6 +34,54 @@ __all__ = ["Bgh19", "Query", "query_sets"]
 
 
 class Bgh19:
+    @staticmethod
+    def open(pk: IpaProvingKey, polys: List[List[int]], queries: List[Query], x: int,
+             transcript, seed: int = 7, device=None):
+        """The host prover: the queries carry host-int evals and shifts.
+        Writes the multiopen proof and its trailing IPA to `transcript` and
+        returns the IPA's host-int accumulator."""
+        sets = bdfg_query_sets(queries)
+        x_1 = transcript.squeeze_challenge()
+        x_2 = transcript.squeeze_challenge()
+
+        # q_i(X) = Σ_t x_1^t · p_{i, rev(t)}   (bgh19.rs's msm() reverses)
+        qs = []
+        for _, pids, _ in sets:
+            q, pw = [0], 1
+            for pid in reversed(pids):
+                q = py_poly.padd(q, py_poly.pscale(polys[pid], pw))
+                pw = pw * x_1 % R_MOD
+            qs.append(q)
+
+        # f(X) = Σ_i x_2^i · (q_{n-1-i} - r_{n-1-i}) / Π_j (X - z_ij)
+        f_poly, pw = [0], 1
+        for i in range(len(sets) - 1, -1, -1):
+            zs = [sh * x % R_MOD for sh in sets[i][0]]
+            q = qs[i]
+            num = py_poly.psub(q, py_poly.lagrange_interpolate(
+                [(z, py_poly.peval(q, z)) for z in zs]))
+            for z in zs:
+                num = py_poly.pdiv_linear(num, z)
+            f_poly = py_poly.padd(f_poly, py_poly.pscale(num, pw))
+            pw = pw * x_2 % R_MOD
+
+        transcript.write_ec_point(pk.commit(f_poly, device=device))
+        x_3 = transcript.squeeze_challenge()
+        q_evals = [py_poly.peval(q, x_3) for q in qs]
+        for qe in q_evals:
+            transcript.write_scalar(qe)
+        x_4 = transcript.squeeze_challenge()
+
+        # the final polynomial: x_4^n (f - f(x_3)) + Σ_i x_4^{n-1-i} (q_i - q_i(x_3));
+        # each constant is a coefficient-0 adjustment (G_0 is the constant basis)
+        final = [0]
+        items = [(f_poly, py_poly.peval(f_poly, x_3))] + list(zip(qs, q_evals))
+        for (poly, ev), k in zip(items, range(len(sets), -1, -1)):
+            adj = list(poly) or [0]
+            adj[0] = (adj[0] - ev) % R_MOD
+            final = py_poly.padd(final, py_poly.pscale(adj, pow(x_4, k, R_MOD)))
+        return Ipa.create_proof(pk, final, x_3, None, transcript, seed=seed, device=device)
+
     @staticmethod
     def read_proof(svk, queries: List[Query], transcript) -> dict:
         proof = {}

@@ -24,7 +24,7 @@ import json
 from pathlib import Path
 from typing import List, Tuple
 
-from .ipa import IpaAccumulator, IpaDecidingKey, IpaSuccinctVerifyingKey
+from .ipa import IpaAccumulator, IpaDecidingKey, IpaProvingKey, IpaSuccinctVerifyingKey
 from .plan import Bgh19Opening, IpaFold, IpaOpening
 
 FIXTURES = Path(__file__).resolve().parents[2] / "fixtures"
@@ -65,6 +65,14 @@ def _streams(d):
 
 def _load(name: str) -> dict:
     return json.loads((FIXTURES / name).read_text())
+
+
+@functools.lru_cache(maxsize=None)
+def ipa_proving_key() -> IpaProvingKey:
+    """The committed key with zk (G, H and S); the key without zk is
+    `IpaProvingKey(k, g, h)`."""
+    d = _load(f"ipa_key_k{K}.json")
+    return IpaProvingKey(d["k"], [hex_pt(p) for p in d["g"]], hex_pt(d["h"]), hex_pt(d["s"]))
 
 
 @functools.lru_cache(maxsize=None)

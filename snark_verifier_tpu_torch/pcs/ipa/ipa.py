@@ -25,8 +25,17 @@ Poseidon transcript, as in the JAX package).
     across: its device accumulators hold 16×16-bit Montgomery limbs, the
     port 8×32-bit words (`ec.from_jax_points`, `ff.from_jax_elems`).
 
-The host provers (`Ipa.create_proof`, `IpaProvingKey`, `IpaAs.create_proof`)
-are not ported: the tests use the JAX package's.
+The host provers: `IpaProvingKey` (:134; `rand`, `commit`, `svk`),
+`Ipa.create_proof` (:200) and `IpaAs.create_proof` (:366), python ints
+but for their MSMs, each one `msm_checked` on the card over the key's own
+bases G ‖ H ‖ S, uploaded once per device (device None), or `py_ec.msm`
+(device "cpu").  `Ipa.create_proof` keeps no folded bases: after i rounds
+the folded base j is Σ_t w_t·G[j + t·n/2^i], with w the interleaved
+products of the challenges so far, so each round's L and R, and the final
+U, are MSMs over G itself with their scalars expanded by w (the same
+points the JAX package's base folding makes, without its n scalar
+multiplications on the host).  Their randomness is the JAX package's
+`np.random.default_rng(seed)`, draw for draw.
 """
 
 from __future__ import annotations
@@ -39,12 +48,13 @@ import torch
 
 from ... import ff
 from ...device import device_key, resolve_device
-from ...ec import g1
+from ...ec import g1, py_ec
 from ...ec.g1 import from_affine_int, limbs_to_words
 from ...ff import FQW, np_limbs_to_words
 from ...ff.spec import FR
 from ...msm import cuda_ops
-from ...msm.pippenger import msm
+from ...msm.pippenger import msm, msm_int
+from ...utils.py_poly import peval
 
 R_MOD = FR.p
 
@@ -89,7 +99,62 @@ def _mont_words(values: Sequence[int]) -> np.ndarray:
     return np_limbs_to_words(arr)
 
 
+def _inner(a: Sequence[int], b: Sequence[int]) -> int:
+    return sum(x * y for x, y in zip(a, b)) % R_MOD
+
+
+def _rand_fr(rng) -> int:
+    """One scalar from the generator, as the JAX package's provers draw it."""
+    return int.from_bytes(rng.bytes(32)) % R_MOD
+
+
 # ----------------------------------------------------------------------- keys
+
+
+@dataclass
+class IpaProvingKey:
+    """The bases G (2^k affine int tuples), the blinder H and the zk base S
+    (the reference's ipa.rs:185-227)."""
+
+    k: int
+    g: List
+    h: Tuple
+    s: Optional[Tuple] = None
+    _tables: Dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def n(self) -> int:
+        return 1 << self.k
+
+    @property
+    def zk(self) -> bool:
+        return self.s is not None
+
+    @staticmethod
+    def rand(k: int, zk: bool = False, seed: int = 0) -> "IpaProvingKey":
+        """Random bases from `np.random.default_rng(seed)` (the reference's
+        ipa.rs:229-243), the JAX package's key for the same seed."""
+        rng = np.random.default_rng(seed)
+        scalars = [_rand_fr(rng) or 1 for _ in range((1 << k) + 2)]
+        pts = [py_ec.scalar_mul(py_ec.G1_GEN, s) for s in scalars]
+        g, h, s = pts[: 1 << k], pts[1 << k], pts[(1 << k) + 1]
+        return IpaProvingKey(k, g, h, s if zk else None)
+
+    def _msm(self, scalars: Sequence[int], device):
+        """Σ scalarsᵢ·basesᵢ over G ‖ H ‖ S (S the identity without zk)."""
+        return msm_int(list(self.g) + [self.h, self.s], self._tables, scalars, device)
+
+    def commit(self, coeffs: Sequence[int], omega: Optional[int] = None, device=None):
+        """Σ cᵢ·Gᵢ, plus ω·S with zk and ω given -> an affine int tuple: one
+        MSM on `device` (None: the card)."""
+        if len(coeffs) > self.n:
+            raise ValueError(f"commit: {len(coeffs)} coefficients for 2^{self.k} bases")
+        if self.s is None or omega is None:
+            return self._msm(coeffs, device)
+        return self._msm(list(coeffs) + [0] * (self.n - len(coeffs)) + [0, omega], device)
+
+    def svk(self) -> "IpaSuccinctVerifyingKey":
+        return IpaSuccinctVerifyingKey(self.k, self.g[0], self.h, self.s)
 
 
 @dataclass
@@ -174,7 +239,58 @@ def _affine_int_words(pt, device):
 
 
 class Ipa:
-    """The succinct verifier of one opening p(z) = v."""
+    """The host prover and the succinct verifier of one opening p(z) = v."""
+
+    @staticmethod
+    def create_proof(pk: IpaProvingKey, p: Sequence[int], z: int,
+                     omega: Optional[int] = None, transcript=None, seed: int = 1,
+                     device=None) -> IpaAccumulator:
+        """The prover (the reference's ipa.rs:40-123): writes the proof to
+        `transcript` (a python-int writer) and returns the host-int
+        accumulator.  Every MSM runs on `device` (None: the card)."""
+        rng = np.random.default_rng(seed)
+        n = pk.n
+        coeffs = [int(c) % R_MOD for c in p] + [0] * (n - len(p))
+
+        if pk.zk:
+            p_bar = [_rand_fr(rng) for _ in range(n)]
+            p_bar[0] = (p_bar[0] - peval(p_bar, z)) % R_MOD  # p_bar(z) = 0
+            omega_bar = _rand_fr(rng)
+            transcript.write_ec_point(pk.commit(p_bar, omega_bar, device))
+            alpha = transcript.squeeze_challenge()
+            transcript.write_scalar((omega + alpha * omega_bar) % R_MOD)
+            coeffs = [(a + alpha * b) % R_MOD for a, b in zip(coeffs, p_bar)]
+
+        xi_0 = transcript.squeeze_challenge()
+        zs = [1] * n
+        for i in range(1, n):
+            zs[i] = zs[i - 1] * z % R_MOD
+        weights = [1]  # the folded base j is Σ_t weights[t]·G[j + t·len(coeffs)]
+        xis = []
+        for _ in range(pk.k):
+            m = len(coeffs)
+            half = m // 2
+            sl, sr = [0] * (n + 1), [0] * (n + 1)
+            for t, w in enumerate(weights):
+                off = t * m
+                for j in range(half):
+                    sl[off + j] = coeffs[half + j] * w % R_MOD
+                    sr[off + half + j] = coeffs[j] * w % R_MOD
+            sl[n] = xi_0 * _inner(coeffs[half:], zs[:half]) % R_MOD  # ·H
+            sr[n] = xi_0 * _inner(coeffs[:half], zs[half:]) % R_MOD
+            transcript.write_ec_point(pk._msm(sl, device))
+            transcript.write_ec_point(pk._msm(sr, device))
+            xi = transcript.squeeze_challenge()
+            xi_inv = pow(xi, -1, R_MOD)
+            weights = [v for w in weights for v in (w, w * xi % R_MOD)]
+            coeffs = [(cl + xi_inv * cr) % R_MOD for cl, cr in zip(coeffs[:half], coeffs[half:])]
+            zs = [(zl + xi * zr) % R_MOD for zl, zr in zip(zs[:half], zs[half:])]
+            xis.append(xi)
+
+        u = pk._msm(weights, device)
+        transcript.write_ec_point(u)
+        transcript.write_scalar(coeffs[0])
+        return IpaAccumulator(xis, u)
 
     @staticmethod
     def read_proof(svk: IpaSuccinctVerifyingKey, transcript) -> dict:
@@ -220,6 +336,43 @@ class IpaAs:
     """The accumulation scheme: N accumulators folded into one by a fresh
     IPA over their α-combined h polynomials (the reference's
     ipa/accumulation.rs)."""
+
+    @staticmethod
+    def create_proof(pk: IpaProvingKey, instances: List[IpaAccumulator], transcript,
+                     seed: int = 2, device=None) -> IpaAccumulator:
+        """The host prover of the fold of `instances` (host-int
+        accumulators); every MSM runs on `device` (None: the card)."""
+        if len(instances) < 2:
+            raise ValueError("IpaAs folds at least two accumulators")
+        rng = np.random.default_rng(seed)
+        a_b_u = omega = None
+        if pk.zk:
+            a, b = _rand_fr(rng), _rand_fr(rng)
+            u = pk.commit([b, a], device=device)  # a·G₁ + b·G₀
+            transcript.write_scalar(a)
+            transcript.write_scalar(b)
+            transcript.write_ec_point(u)
+            a_b_u = (a, b, u)
+            omega = _rand_fr(rng)
+            transcript.write_scalar(omega)
+
+        for acc in instances:
+            for xi in acc.xi:
+                transcript.common_scalar(xi)
+            transcript.common_ec_point(acc.u)
+        alpha = transcript.squeeze_challenge()
+        z = transcript.squeeze_challenge()
+
+        hs = [h_coeffs_int(acc.xi) for acc in instances]
+        if a_b_u is not None:
+            hs.append([a_b_u[1], a_b_u[0]] + [0] * (pk.n - 2))
+        h = [0] * pk.n
+        pa = 1
+        for hc in hs:
+            for i, c in enumerate(hc):
+                h[i] = (h[i] + pa * c) % R_MOD
+            pa = pa * alpha % R_MOD
+        return Ipa.create_proof(pk, h, z, omega, transcript, seed=seed + 1, device=device)
 
     @staticmethod
     def read_proof(svk, instances: List[IpaAccumulator], transcript, L) -> dict:

@@ -1,5 +1,7 @@
 """The Snark container: the counterpart of the JAX package's `sdk/snark.py`
-(`Snark.load`, `validate`, `host_streams`, `proof_shape` :149).
+(`Snark.to_json`, `save`, `load`, `validate`, `host_streams`,
+`proof_shape` :149, `gen_dummy_snark` :163).  The JSON that `to_json` and
+`save` write is the JAX package's, key for key.
 
 A proof is kept as its pre-parsed transcript streams: Fr scalars and affine
 G1 points, python ints in transcript order.  `host_streams` turns them into
@@ -10,6 +12,7 @@ upload per stream.
 from __future__ import annotations
 
 import json
+import random
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -31,6 +34,14 @@ class Snark:
     scalars: List[int]  # proof scalar stream (transcript order)
     points: List[Tuple[int, int]]  # proof point stream (affine)
 
+    def to_json(self) -> dict:
+        return {
+            "protocol": self.protocol.to_json(),
+            "instances": [[hex(v) for v in col] for col in self.instances],
+            "scalars": [hex(s) for s in self.scalars],
+            "points": [[hex(x), hex(y)] for x, y in self.points],
+        }
+
     @staticmethod
     def from_json(d: dict) -> "Snark":
         toint = lambda v: int(v, 16)
@@ -40,6 +51,10 @@ class Snark:
             scalars=[toint(s) for s in d["scalars"]],
             points=[(toint(x), toint(y)) for x, y in d["points"]],
         )
+
+    def save(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f)
 
     @staticmethod
     def load(path: str) -> "Snark":
@@ -117,3 +132,20 @@ def proof_shape(protocol: PlonkProtocol, scheme_name: str) -> Tuple[int, int]:
     else:
         n_points += 2
     return n_scalars, n_points
+
+
+def gen_dummy_snark(protocol: PlonkProtocol, scheme_name: str = "shplonk",
+                    seed: int = 0) -> Snark:
+    """A snark of the right shape for `protocol` and the scheme, its
+    instances, scalars and points random (from `random.Random(seed)` and
+    `py_ec.rand_points(..., seed + 1)`, as the JAX package's): it walks the
+    transcript as a real proof does, and does not verify."""
+    rng = random.Random(seed)
+    n_scalars, n_points = proof_shape(protocol, scheme_name)
+    pts = py_ec.rand_points(n_points, seed=seed + 1)
+    return Snark(
+        protocol=protocol,
+        instances=[[rng.randrange(FR.p) for _ in range(n)] for n in protocol.num_instance],
+        scalars=[rng.randrange(FR.p) for _ in range(n_scalars)],
+        points=pts,
+    )

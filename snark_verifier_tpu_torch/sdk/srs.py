@@ -4,9 +4,12 @@ package's `sdk/srs.py` (`Srs`, `load_params`, G2 decoding).
 The succinct verifier needs the generator g = [τ⁰]G1 (the reference's
 KzgSuccinctVerifyingKey); the decide needs the Miller-loop lines of
 (g2, −s_g2) (the KzgDecidingKey), prepared once on the host and kept per
-device as words (`decider_coeffs`).  `toy_srs` makes the deterministic
-toy setup with a known trapdoor that tests and the pairing benchmark use.
-The file is halo2's `ParamsKZG` in the "Processed" layout:
+device as words (`decider_coeffs`).  The host provers commit through
+`Srs.commit`: one MSM on the card over the SRS's own bases, uploaded once
+per device.  `toy_srs` makes the deterministic toy setup with a known
+trapdoor that tests and the pairing benchmark use; `lagrange_commitments`
+derives its Lagrange basis from the trapdoor, and `save_params` writes it
+all back.  The file is halo2's `ParamsKZG` in the "Processed" layout:
     k: u32 LE
     g:          2^k G1 points, 32 B compressed each
     g_lagrange: 2^k G1 points, 32 B compressed each
@@ -20,7 +23,7 @@ import functools
 import hashlib
 import random
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +33,11 @@ from ..device import device_key
 from ..ec import py_ec
 from ..ec.g1 import from_affine_int_np
 from ..ff.spec import FQ, FR
+from ..msm.pippenger import msm_int
 from ..pairing import py_pairing as pp
 from ..pairing.pairing import coeffs_to_device, prepare_g2_coeffs
 from . import aot
-from .proof_io import g1_from_bytes
+from .proof_io import g1_from_bytes, g1_to_bytes
 
 
 @dataclass
@@ -47,10 +51,43 @@ class Srs:
     tau: Optional[int] = field(default=None, repr=False)  # toy_srs's trapdoor
     _g_words: Dict = field(default_factory=dict, repr=False, compare=False)
     _decider: Dict = field(default_factory=dict, repr=False, compare=False)
+    _g_limbs: Dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def g(self):
         return self.g1_powers[0]
+
+    def commit(self, coeffs: Sequence[int], device=None):
+        """Σ cᵢ·[τ^i]G1 -> an affine tuple of python ints (None for the
+        identity): the host provers' commitment.  device None means the
+        CUDA card: one `msm_checked` over the first len(coeffs) powers,
+        their (n, 3, 16) limbs uploaded once per device; "cpu" runs
+        `py_ec.msm` (`msm.pippenger.msm_int`)."""
+        if len(coeffs) > len(self.g1_powers):
+            raise ValueError(f"commit: {len(coeffs)} coefficients for an SRS of "
+                             f"{len(self.g1_powers)}")
+        return msm_int(self.g1_powers, self._g_limbs, coeffs, device)
+
+    def lagrange_commitments(self) -> List:
+        """The Lagrange-basis commitments [L_i(τ)]G1, i < n: `g_lagrange`
+        as `load_params` read it, or, when that list is empty, derived from
+        the toy trapdoor, L_i(τ) = ω^i (τ^n − 1) / (n (τ − ω^i)), and kept
+        in `g_lagrange` (the JAX package's `Srs.g_lagrange()`; here
+        `g_lagrange` stays the field that `load_params` fills)."""
+        if self.g_lagrange:
+            return self.g_lagrange
+        if self.tau is None:
+            raise ValueError("Lagrange commitments need the trapdoor or the file's data")
+        from ..verifier.plonk.protocol import Domain
+
+        n, tau = len(self.g1_powers), self.tau
+        d = Domain.bn254(n.bit_length() - 1)
+        znm1 = (pow(tau, n, FR.p) - 1) % FR.p
+        for i in range(n):
+            w = d.rotate(i)
+            li = w * znm1 % FR.p * pow(n * (tau - w) % FR.p, -1, FR.p) % FR.p
+            self.g_lagrange.append(py_ec.scalar_mul(py_ec.G1_GEN, li))
+        return self.g_lagrange
 
     def content_hash(self) -> str:
         """A stable digest of what the verifier takes from the SRS (g, g2,
@@ -113,6 +150,34 @@ def g2_from_bytes(b: bytes):
     if (y[0] & 1) != ysign:
         y = pp.f2_neg(y)
     return (x, y)
+
+
+def _g2_to_bytes(pt) -> bytes:
+    """A G2 point's 64-byte compressed form: x = c0 ‖ c1 little-endian, the
+    parity of y's c0 in bit 7 of byte 63; the identity all zeros."""
+    if pt is None:
+        return bytes(64)
+    (x0, x1), (y0, _) = pt
+    b = bytearray(int(x0).to_bytes(32, "little") + int(x1).to_bytes(32, "little"))
+    b[63] |= (y0 & 1) << 7
+    return bytes(b)
+
+
+def save_params(srs: Srs, path: str):
+    """Write `srs` in the 'Processed' ParamsKZG layout (the JAX package's
+    `save_params`, byte for byte); its Lagrange part is
+    `srs.lagrange_commitments()`."""
+    n = len(srs.g1_powers)
+    k = n.bit_length() - 1
+    if 1 << k != n:
+        raise ValueError("SRS size must be a power of two")
+    lag = srs.lagrange_commitments()
+    with open(path, "wb") as f:
+        f.write(int(k).to_bytes(4, "little"))
+        for pt in list(srs.g1_powers) + list(lag):
+            f.write(g1_to_bytes(pt))
+        f.write(_g2_to_bytes(srs.g2))
+        f.write(_g2_to_bytes(srs.s_g2))
 
 
 def load_params(path: str) -> Srs:

@@ -1,5 +1,10 @@
 from .evm_transcript import EvmTranscript, EvmTranscriptPy, PrecomputedChallengeTranscript
-from .poseidon_transcript import PoseidonTranscript, PoseidonTranscriptPy, fq_to_fr
+from .poseidon_transcript import (
+    PoseidonTranscript,
+    PoseidonTranscriptPy,
+    PoseidonTranscriptWriter,
+    fq_to_fr,
+)
 
 __all__ = ["EvmTranscript", "EvmTranscriptPy", "PoseidonTranscript", "PoseidonTranscriptPy",
-           "PrecomputedChallengeTranscript", "fq_to_fr"]
+           "PoseidonTranscriptWriter", "PrecomputedChallengeTranscript", "fq_to_fr"]

@@ -178,3 +178,15 @@ class EvmTranscriptPy:
 
     def read_n_ec_points(self, n: int) -> List:
         return [self.read_ec_point() for _ in range(n)]
+
+    # the prover's side: absorb and record the stream
+    def write_scalar(self, s: int):
+        self.common_scalar(s)
+        self._scalars.append(s % self.r)
+
+    def write_ec_point(self, pt):
+        self.common_ec_point(pt)
+        self._points.append(pt)
+
+    def streams(self):
+        return list(self._scalars), list(self._points)

@@ -21,12 +21,17 @@ stack of projective ones (the accumulation fold's M accumulator points: the affi
 normalisation and the map in one `svt_points_to_fr` launch); the next
 squeeze absorbs all 2M coordinates in one `svt_poseidon_absorb` launch, the
 same sponge as M `common_ec_point` calls.  `PoseidonTranscriptPy` is the
-python-int oracle.
+python-int oracle, and the host provers' writer (`write_scalar`,
+`write_ec_point`, `streams`).  `PoseidonTranscriptWriter` (the JAX
+package's :156) is the batched writer: it absorbs and records word
+handles, and `streams` stacks them in the reader's layout.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
+
+import torch
 
 from .. import errors
 from ..ff import points_to_fr
@@ -164,9 +169,49 @@ class PoseidonTranscriptPy:
         return [self.read_ec_point() for _ in range(n)]
 
     # the prover's side: absorb and record the stream
+    def write_scalar(self, s: int):
+        self.common_scalar(s)
+        self._scalars.append(s % self.r)
+
     def write_ec_point(self, pt):
         self.common_ec_point(pt)
         self._points.append(pt)
 
     def streams(self):
         return list(self._scalars), list(self._points)
+
+
+class PoseidonTranscriptWriter:
+    """Writing transcript over a batch on one device: it absorbs and records
+    scalars ((B, 8) Fr words) and affine points ((B, 2, 8) Fq words), both
+    Montgomery form, as `PoseidonTranscript` reads them back."""
+
+    def __init__(self, batch: int, device):
+        self.h = PoseidonSponge(batch, device)
+        self.scalars: List = []
+        self.points: List = []
+
+    def common_scalar(self, s):
+        self.h.update([s])
+
+    def common_ec_point(self, xy):
+        fr = fq_to_fr(xy)
+        self.h.update([fr[:, 0], fr[:, 1]])
+
+    def write_scalar(self, s):
+        self.common_scalar(s)
+        self.scalars.append(s)
+
+    def write_ec_point(self, xy):
+        self.common_ec_point(xy)
+        self.points.append(xy)
+
+    def squeeze_challenge(self):
+        return self.h.squeeze()
+
+    def streams(self):
+        """-> (scalars (B, n, 8), points (B, m, 2, 8)); None for an empty
+        stream."""
+        sc = torch.stack(self.scalars, 1) if self.scalars else None
+        pt = torch.stack(self.points, 1) if self.points else None
+        return sc, pt

@@ -251,6 +251,14 @@ class Domain:
             return pow(self.gen, rotation, R)
         return pow(self.gen_inv, -rotation, R)
 
+    @staticmethod
+    def bn254(k: int) -> "Domain":
+        """The standard BN254 Fr domain of size 2^k: ω the 2^k-th root of
+        unity made from Fr*'s generator 7 (halo2curves' ROOT_OF_UNITY)."""
+        s = FR.two_adicity
+        root = pow(7, (R - 1) >> s, R)  # a primitive 2^s-th root of unity
+        return Domain(k, pow(root, 1 << (s - k), R))
+
     def to_json(self):
         return {"k": self.k, "n": self.n, "n_inv": hex(self.n_inv), "gen": hex(self.gen),
                 "gen_inv": hex(self.gen_inv)}

@@ -8,7 +8,10 @@ counterpart of the JAX package's `verifier/plonk/verifier.py`.
   * PlonkSuccinctVerifier.verify -> [accumulator, *old_accumulators]
     (verifier/plonk.rs:58-92); the old accumulators are decoded from the
     instances the protocol's `accumulator_indices` name (3 × 88-bit limbs
-    per coordinate, `pcs/kzg/accumulator.py`).
+    per coordinate, `pcs/kzg/accumulator.py`);
+  * PlonkVerifier.verify = the succinct verify, then the loader's
+    `decide_all` (verifier/plonk.rs:125-134); `verify_snark_native` is
+    that under `NATIVE`, the host provers' self-check.
 
 The protocol is host data; scalars and points are loader handles.  Under
 `TapeLoader` one call records the protocol's Fr program
@@ -252,3 +255,28 @@ def succinct_verify_native(snark, srs, scheme_name: str = "shplonk",
     instances = [[v % R for v in col] for col in snark.instances]
     proof = PlonkProof.read(snark.protocol, instances, t, scheme, NATIVE)
     return PlonkSuccinctVerifier.verify(srs.g, snark.protocol, instances, proof, scheme, NATIVE)
+
+
+class PlonkVerifier:
+    """The succinct verify, then the pairing decide of every accumulator
+    (verifier/plonk.rs:125-134)."""
+
+    read_proof = PlonkSuccinctVerifier.read_proof
+
+    @staticmethod
+    def verify(srs, protocol, instances, proof, pcs_scheme, L):
+        accumulators = PlonkSuccinctVerifier.verify(
+            L.load_svk(srs), protocol, instances, proof, pcs_scheme, L)
+        return L.decide_all(srs, accumulators)
+
+
+def verify_snark_native(snark, srs, scheme_name: str = "shplonk",
+                        transcript: str = "poseidon") -> bool:
+    """The whole python-int verification of one `sdk.snark.Snark`: the
+    succinct verify (`succinct_verify_native`), then the python-int pairing
+    decide of every accumulator (the reference's native verifier, which its
+    SDK runs after every proof, snark-verifier-sdk/src/halo2.rs:124-138)."""
+    from ...loader.base import NATIVE
+
+    return bool(NATIVE.decide_all(srs, succinct_verify_native(snark, srs, scheme_name,
+                                                                 transcript)))

@@ -10,6 +10,7 @@ the verify MSM (`msm_windowed`), the bucket reduction and the MSM in affine
 form (their summation orders differ from the twins'); the pairing kernels
 canonically (they skip products by 1)."""
 
+import functools
 import json
 from pathlib import Path
 
@@ -1341,3 +1342,58 @@ def test_batch_verify_sharded_on_a_mesh_of_one_card_listed_twice(cuda):
     assert set(timings) == {"succinct_s", "decide_s", "stack_s", "plan_s", "read_s",
                             "gather_s", "fr_tape_s", "msm_s"}
     assert oks.tolist() == batch_verify(snarks, srs).tolist()
+
+
+# ------------------------------------------- host proving, commitments on the card
+
+
+@functools.lru_cache(maxsize=None)
+def _k10_srs():
+    d = Path(__file__).resolve().parent.parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    return load_params(str(d / "srs.bin"))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4, 5, 1023, 1024])
+def test_srs_commit_on_card_matches_py_ec(cuda, n):
+    srs = _k10_srs()
+    rng = np.random.default_rng(n)
+    coeffs = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
+    reset_launches()
+    got = srs.commit(coeffs)
+    assert got == py_ec.msm(srs.g1_powers[:n], coeffs)
+    assert got is None or all(type(v) is int for v in got)
+    assert LAUNCHES["bucket_reduce"] == (n > 0)
+    assert srs.commit([0] * 9) is None
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 1023, 1024, 2048])
+def test_ipa_key_commit_on_card_matches_py_ec(cuda, n):
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as fx
+
+    pk = fx.ipa_proving_key()
+    rng = np.random.default_rng(100 + n)
+    coeffs = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
+    omega = int.from_bytes(rng.bytes(32), "little") % FR.p
+    assert pk.commit(coeffs) == py_ec.msm(pk.g[:n], coeffs)
+    assert pk.commit(coeffs, omega) == py_ec.add(py_ec.msm(pk.g[:n], coeffs),
+                                                 py_ec.scalar_mul(pk.s, omega))
+    assert pk.commit([0] * n) is None
+
+
+def test_standard_plonk_proof_on_card_equals_cpu(cuda):
+    from snark_verifier_tpu_torch.sdk.srs import toy_srs
+    from snark_verifier_tpu_torch.system.standard_plonk import (
+        StandardPlonk,
+        build_protocol,
+        gen_snark,
+    )
+
+    srs = toy_srs(32)
+    c = StandardPlonk.rand(3, seed=7)
+    reset_launches()
+    protocol = build_protocol(c, srs)
+    on_card = gen_snark(c, protocol, srs, "shplonk")
+    # one msm a commitment: 6 fixed, 3 witness, the quotient's chunks, W and W'
+    assert LAUNCHES["bucket_reduce"] == 6 + 3 + protocol.quotient.num_chunk() + 2
+    on_cpu = gen_snark(c, build_protocol(c, srs, device="cpu"), srs, "shplonk", device="cpu")
+    assert on_card.to_json() == on_cpu.to_json()

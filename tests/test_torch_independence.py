@@ -72,6 +72,20 @@ import snark_verifier_tpu_torch.parallel.mesh
 import snark_verifier_tpu_torch.parallel.msm_sharded
 import snark_verifier_tpu_torch.parallel.comm_model
 import snark_verifier_tpu_torch.sdk.aot
+import snark_verifier_tpu_torch.utils.py_poly
+import snark_verifier_tpu_torch.pcs.kzg.prover_py
+import snark_verifier_tpu_torch.system.standard_plonk
+import snark_verifier_tpu_torch.system.linearized_plonk
+import snark_verifier_tpu_torch.system.vanilla_plonk
+import snark_verifier_tpu_torch.system.vanilla_fixtures
+import snark_verifier_tpu_torch.system.vk_digest
+from snark_verifier_tpu_torch.sdk.srs import save_params, toy_srs
+from snark_verifier_tpu_torch.sdk.snark import gen_dummy_snark
+from snark_verifier_tpu_torch.transcript import PoseidonTranscriptWriter
+from snark_verifier_tpu_torch.verifier.plonk.protocol import Domain
+from snark_verifier_tpu_torch.verifier.plonk.verifier import PlonkVerifier, verify_snark_native
+from snark_verifier_tpu_torch.pcs.ipa import IpaProvingKey
+assert Domain.bn254(3).n == 8 and hasattr(toy_srs(2), "commit")
 from snark_verifier_tpu_torch.parallel import (
     Mesh, batch_msm_sharded, batch_verify, batch_verify_sharded, msm_sharded,
 )
