@@ -231,6 +231,26 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    wall, its commitments' share (synchronized) and the host's, its
    commitments and `msm` calls, and the kernels' launches it adds (the
    kernels line's `launches_host_proving`).
+27. the EVM verifier, the CLI and the native oracle (host code beside the
+   card): (a) `sdk.evm.gen_evm_verifier_report` for the evmsnark protocol
+   (vanilla k = 10, SHPLONK, `srs.bin`): the Yul's bytes, the generation's
+   seconds, the estimated gas and code size (under EIP-170's 24,576); the
+   in-process interpreter on each of the 16 `evmsnark_*` proofs' EVM bytes
+   and on lane 0 with `instances[0][0]` + 1, gas_used and seconds an
+   execution; gates: the 16 accepted, the tampered one reverted, each
+   verdict equal to the card's `batch_verify(the 16 + the tampered,
+   "shplonk", "evm")` lane by lane; (b) the CLI in this process,
+   `__main__.main([...])` on the card: verify (SHPLONK and GWC19),
+   aggregate --n 4, aggregate-mixed, tree --n 16 --fanout 4, bench-msm
+   --log2n 20 and gen-evm-verifier --k 3, each its PASS, wall, cost-meter
+   span and kernel launches (the kernels line's `launches_cli`); gates:
+   every command passes, the tree's meter counts 20 MSMs, 80 terms and 4
+   pairings (2 MSMs and 2·N terms a fold of N, 2 pairings a decide: two
+   trees of four group folds of 4 and a root fold of 4, two decides),
+   gen-evm-verifier launches nothing; bench-msm's points/s beside step 4's;
+   (c) `utils.native` (g++, the port's `csrc/host/bn254.cpp`): `available()`
+   and `native.msm` over [1..1,024]·G with numpy seed 27's scalars equal to
+   the card's `msm` and to k_total·G.
 
 Prints the `nvidia-smi` name/power-limit line, then one JSON line with every
 kernel, then the last line {"ok": true, "device": {...}}.  Any failed check
@@ -245,6 +265,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -3436,6 +3457,154 @@ def host_proving_phase(dev, smi):
     return report
 
 
+# ------------------------------ step 27: the EVM verifier, the CLI, the oracle
+
+EIP170_LIMIT = 24576
+CLI_COMMANDS = (
+    ("verify shplonk", ["verify", "--scheme", "shplonk"]),
+    ("verify gwc", ["verify", "--scheme", "gwc"]),
+    ("aggregate", ["aggregate", "--n", "4"]),
+    ("aggregate-mixed", ["aggregate-mixed"]),
+    ("tree", ["tree", "--n", "16", "--fanout", "4"]),
+    ("bench-msm", ["bench-msm", "--log2n", str(LOG2N)]),
+    ("gen-evm-verifier", ["gen-evm-verifier", "--k", "3", "--out", None]),
+)
+# two trees (honest, then leaf 0 tampered) of 16 leaves at fanout 4: four
+# group folds of N = 4 and a root fold of N = 4 each, then one decide each
+TREE_METER = {"msm": 2 * 5 * 2, "msm_terms": 2 * 5 * 2 * 4, "pairing": 2 * 2}
+NATIVE_N = 1024
+
+
+def evm_verifier_phase(dev, smi):
+    """Step 27a: the generated EVM verifier of the evmsnark protocol, run by
+    the port's Yul interpreter on the 16 committed proofs and a tampered
+    one, each verdict held to the card's keccak `batch_verify`."""
+    import torch
+    from snark_verifier_tpu_torch.loader.yul_interp import execute_yul
+    from snark_verifier_tpu_torch.parallel import batch_verify
+    from snark_verifier_tpu_torch.sdk.evm import encode_calldata, gen_evm_verifier_report
+    from snark_verifier_tpu_torch.sdk.proof_io import proof_to_bytes
+
+    srs, snarks = load_fixtures("evmsnark")
+    t0 = time.perf_counter()
+    yul, rep = gen_evm_verifier_report(snarks[0].protocol, srs, "shplonk")
+    gen_s = time.perf_counter() - t0
+    check(rep["estimated_code_size"] < EIP170_LIMIT,
+          f"estimated code size {rep['estimated_code_size']} >= {EIP170_LIMIT}")
+    log(f"# 27a gen_evm_verifier (evmsnark protocol, vanilla k = 10, shplonk, srs.bin): "
+        f"{len(yul)} B of Yul in {gen_s:.3f} s; estimated gas {rep['estimated_gas']}, "
+        f"estimated code size {rep['estimated_code_size']} (host CPU of {smi})")
+    lanes = list(snarks) + [tampered(snarks[0])]
+    verdicts, gas, secs = [], [], []
+    for s in lanes:
+        cd = encode_calldata(s.instances, proof_to_bytes(s, "shplonk", fmt="evm"))
+        t0 = time.perf_counter()
+        ok, g, _ = execute_yul(yul, cd)
+        secs.append(time.perf_counter() - t0)
+        verdicts.append(ok)
+        gas.append(g)
+    check(verdicts == [True] * len(snarks) + [False],
+          f"the EVM verifier's verdicts {verdicts}: the 16 must accept, the tampered revert")
+    bits = [bool(v) for v in batch_verify(lanes, srs, "shplonk", "evm", device=dev)]
+    torch.cuda.synchronize()
+    check(bits == verdicts, f"the EVM verdicts {verdicts} != the card's batch_verify {bits}")
+    honest = gas[:-1]
+    log(f"# 27a evm_verify: the 16 evmsnark proofs accepted, gas_used {min(honest)}..."
+        f"{max(honest)}; lane 0 tampered reverted at gas {gas[-1]}; "
+        f"{sum(secs) / len(secs):.3f} s an execution ({min(secs):.3f}...{max(secs):.3f}, "
+        f"host CPU of {smi}); every verdict equals the card's batch_verify(..., \"shplonk\", "
+        f"\"evm\") lane by lane")
+    return {"yul_bytes": len(yul), "gen_s": gen_s, **rep, "gas_used": [min(honest),
+            max(honest)], "tampered_gas": gas[-1], "exec_s": sum(secs) / len(secs)}
+
+
+def cli_phase(kernels, msm_best_s, smi):
+    """Step 27b: the CLI's commands in this process on the card, each with
+    its PASS, wall, cost-meter span and kernel launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from snark_verifier_tpu_torch.__main__ import main as cli_main
+    from snark_verifier_tpu_torch.msm import cuda_ops
+    from snark_verifier_tpu_torch.utils.timing import METER
+
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv in CLI_COMMANDS:
+            argv = [a if a is not None else str(Path(tmp) / "verifier.yul") for a in argv]
+            METER.spans.pop(argv[0], None)
+            out, err = io.StringIO(), io.StringIO()
+            cuda_ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in cuda_ops.LAUNCHES.items() if v}
+            text = out.getvalue()
+            for line in text.splitlines():
+                log(f"#   {label}: {line}")
+            check("PASS" in text.splitlines(), f"CLI {label}: no PASS")
+            check("# cost-meter" in err.getvalue(), f"CLI {label}: no cost-meter report")
+            span = dict(METER.spans.get(argv[0], {}))
+            report[label] = {"wall_s": wall, "meter": span, "launches": launches}
+            log(f"# 27b CLI {' '.join(argv)}: PASS in {wall:.2f} s (wall, {smi}); "
+                f"cost-meter {span}; launches {launches}")
+            if label == "bench-msm":
+                m = re.search(r"best of 3 ([0-9.]+) ms = ([0-9.]+) points/s", text)
+                check(m is not None, "bench-msm printed no points/s")
+                report[label].update(ms=float(m.group(1)), points_per_s=float(m.group(2)))
+    check(report["tree"]["meter"] == TREE_METER,
+          f"tree's cost meter {report['tree']['meter']} != {TREE_METER}")
+    check(not report["gen-evm-verifier"]["launches"], "gen-evm-verifier launched kernels")
+    n = 1 << LOG2N
+    b = report["bench-msm"]
+    log(f"# 27b bench-msm 2^{LOG2N}: {b['ms']:.2f} ms = {b['points_per_s']:.1f} points/s beside "
+        f"step 4's best {msm_best_s * 1e3:.2f} ms = {n / msm_best_s:.1f} points/s "
+        f"(ratio {b['ms'] / (msm_best_s * 1e3):.3f})")
+    for row in kernels:
+        counts = {label: r["launches"][row["name"]] for label, r in report.items()
+                  if row["name"] in r["launches"]}
+        row["launches_cli"] = counts
+    return report
+
+
+def native_phase(dev, smi):
+    """Step 27c: the g++-built host core against the card's msm."""
+    import torch
+    from snark_verifier_tpu_torch.ec import py_ec, to_affine_int
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.msm import msm, scalars_from_int
+    from snark_verifier_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "utils.native is not available on the card host (no g++?)")
+    build_s = time.perf_counter() - t0
+    limbs = native.enumerate_points_dev(NATIVE_N)  # [1..n]·G, the layout msm takes
+    pts = to_affine_int(torch.from_numpy(limbs.astype(np.int64)))
+    rng = np.random.default_rng(27)
+    ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(NATIVE_N)]
+    t0 = time.perf_counter()
+    host = native.msm(pts, ks)
+    host_s = time.perf_counter() - t0
+    out, ovf = msm(limbs, scalars_from_int(ks), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ovf = msm(limbs, scalars_from_int(ks), device=dev)
+    card = to_affine_int(out)
+    card_s = time.perf_counter() - t0
+    want = py_ec.scalar_mul(py_ec.G1_GEN, sum(k * (i + 1) for i, k in enumerate(ks)) % FR.p)
+    check(not bool(ovf) and card == host == want,
+          "native.msm, the card's msm and k_total·G disagree at n = 1,024")
+    log(f"# 27c native: available (g++ build and load {build_s:.2f} s); native.msm at n = "
+        f"{NATIVE_N} == the card's msm == k_total·G; native {host_s * 1e3:.2f} ms, the card's "
+        f"msm call {card_s * 1e3:.2f} ms (host clock, {smi})")
+    return {"build_s": build_s, "native_ms": host_s * 1e3, "card_ms": card_s * 1e3}
+
+
 def canon_point_words(w):
     """(..., 3, 8) point words -> their canonical Fq limbs, coordinate by
     coordinate (two lazy forms of one projective triple compare equal)."""
@@ -3851,6 +4020,17 @@ def main() -> int:
             row["launches_host_proving"] = hp["launches"][row["name"]]
     log(f"# host proving phase: {time.time() - t0:.1f}s; launches over its proofs "
         f"{hp['launches']}")
+
+    t0 = time.time()
+    evm = evm_verifier_phase(dev, smi)
+    log(f"# 27a EVM verifier phase: {time.time() - t0:.1f}s; gas_used {evm['gas_used']}")
+    t0 = time.time()
+    cli = cli_phase(kernels, msm_best, smi)
+    log(f"# 27b CLI phase: {time.time() - t0:.1f}s; walls (s) "
+        f"{ {k: round(v['wall_s'], 2) for k, v in cli.items()} }")
+    t0 = time.time()
+    native_phase(dev, smi)
+    log(f"# 27c native phase: {time.time() - t0:.1f}s")
 
     check("jax" not in sys.modules and "snark_verifier_tpu" not in sys.modules,
           "the port pulled in jax or the JAX package")

@@ -10,8 +10,10 @@ verifier with SHPLONK or GWC19 and the Poseidon transcript
 (`parallel.batch_verify`), the pairing decide, and the KZG accumulation
 fold with the 1-card recursion tree (`sdk.aggregation.aggregate_and_decide`,
 `sdk.tree_aggregation.tree_aggregate_root`), on hand-written Hopper kernels
-(csrc/).  Entry points run on the CUDA card unless the caller passes
-device="cpu", where every kernel's plain PyTorch twin runs instead.
+(csrc/), and the host code around them: the provers, the EVM verifier
+generator (`sdk.evm`) and the CLI (`python -m snark_verifier_tpu_torch`).
+Entry points run on the CUDA card unless the caller passes device="cpu"
+(`--cpu` on the CLI), where every kernel's plain PyTorch twin runs instead.
 """
 
 from .device import resolve_device

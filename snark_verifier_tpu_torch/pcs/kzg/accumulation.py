@@ -26,7 +26,9 @@ groups of g (the largest divisor of N in [2, 32]) folded as one batch of
 independent transcripts, then the fold of the group accumulators; N ≤ 32,
 or N without such a divisor, folds once.  The group size and the two
 levels are part of the transcript's definition.  `create_proof` is the
-python-int prover, the port's own oracle.
+python-int prover, the port's own oracle.  Each fold call counts 2 MSMs and
+2·N terms (N with the blind pair) into `utils.timing.METER`, the JAX
+package's rule, once a call.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ...ff import FQW, FRW
 from ...ff.spec import FR
 from ...msm import cuda_ops
 from ...transcript.poseidon_transcript import PoseidonTranscript
+from ...utils.timing import METER
 
 MAX_CHAIN = 32  # the most accumulators one fold transcript absorbs in fold_hierarchical
 
@@ -154,6 +157,8 @@ class KzgAs:
         pair appended) -> (lhs, rhs), each (B, 3, 8)."""
         if proof["blind"] is not None:
             pairs = torch.cat([pairs, torch.stack(proof["blind"], 1)[:, None]], 1)
+        METER.count("msm", 2)
+        METER.count("msm_terms", 2 * pairs.shape[1])
         return _weighted_msm(pairs, powers(proof["r"].contiguous(), pairs.shape[1]))
 
     @staticmethod

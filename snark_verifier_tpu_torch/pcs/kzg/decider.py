@@ -2,7 +2,8 @@
 e(lhs, g2) · e(rhs, −s·g2) == 1, one multi-Miller loop and one final
 exponentiation per accumulator.  The counterpart of the JAX package's
 `pcs/kzg/decider.py` (`decide` :19-37, `decide_all` :40-44); the G2 lines
-come prepared from the SRS (`Srs.decider_coeffs`).
+come prepared from the SRS (`Srs.decider_coeffs`).  Each `decide` call
+counts 2 pairings into `utils.timing.METER`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ...pairing.pairing import pairing_check
+from ...utils.timing import METER
 
 
 def decide(srs, lhs, rhs):
@@ -22,6 +24,7 @@ def decide(srs, lhs, rhs):
     lines collapse into Fq2, which the easy part of the final
     exponentiation sends to 1.  So a lane whose lhs and rhs are both the
     identity decides true."""
+    METER.count("pairing", 2)
     lhs, rhs = torch.broadcast_tensors(lhs, rhs)
     batch = lhs.shape[:-2]
     pts = torch.stack([lhs, rhs], dim=-3).reshape(-1, 2, 3, 8)  # (n, pair, coord, 8)

@@ -1,7 +1,8 @@
 """Batched succinct verification and accumulator aggregation: the
 counterpart of the JAX package's `sdk/aggregation.py` (`_stack_streams`
-:40, `_stack_instances` :50, `batch_succinct_verify` :80, `aggregate`
-:110, `aggregate_and_decide` :124, `aggregate_heterogeneous` :146).
+:40, `_stack_instances` :50, `batch_succinct_verify` :80, `batch_verify`
+:102, `aggregate` :110, `aggregate_and_decide` :124,
+`aggregate_heterogeneous` :146).
 
 B snarks of one protocol verify as one batch on one device: their streams
 are stacked on the host and uploaded once per stream, the transcript reads
@@ -155,6 +156,18 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     outs = _step(timings, "fr_tape_s", dev, lambda: plan.scalars(inputs))
     return _step(timings, "msm_s", dev,
                  lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs, lanes))
+
+
+def batch_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",
+                 transcript: str = "poseidon", device=None, timings: dict = None):
+    """Verify B same-protocol snarks -> (B,) bool, one accept bit a proof:
+    the JAX package's `sdk.aggregation.batch_verify`, the name its users and
+    examples call.  It is `parallel.batch_verify.batch_verify` (the succinct
+    phase, then the pairing decide, on `device`, None meaning the CUDA
+    card), imported here at call time: that module imports this one."""
+    from ..parallel.batch_verify import batch_verify as verify
+
+    return verify(snarks, srs, scheme_name, transcript, device, timings)
 
 
 def stack_pairs(accs) -> torch.Tensor:

@@ -1397,3 +1397,36 @@ def test_standard_plonk_proof_on_card_equals_cpu(cuda):
     assert LAUNCHES["bucket_reduce"] == 6 + 3 + protocol.quotient.num_chunk() + 2
     on_cpu = gen_snark(c, build_protocol(c, srs, device="cpu"), srs, "shplonk", device="cpu")
     assert on_card.to_json() == on_cpu.to_json()
+
+
+# ------------------------------------------------ the CLI on the card
+
+
+@pytest.mark.parametrize("argv, launched", [
+    (["verify"], ("fr_tape", "msm_windowed", "miller_loop", "final_exp")),
+    (["verify", "--scheme", "gwc"], ("fr_tape", "msm_windowed", "miller_loop", "final_exp")),
+    (["aggregate", "--n", "4"], ("fr_tape", "fr_powers", "msm_windowed", "miller_loop")),
+    (["tree", "--n", "16", "--fanout", "4"], ("fr_tape", "fr_powers", "msm_windowed",
+                                               "miller_loop")),
+])
+def test_cli_commands_on_card(cuda, capsys, argv, launched):
+    """verify, aggregate and tree through `__main__.main` on the card: each
+    prints PASS after its own checks (a tampered proof or leaf rejects) and
+    launches its path's kernels; the cost meter counts the fold and the
+    decide by the JAX package's rules."""
+    from snark_verifier_tpu_torch.__main__ import main
+    from snark_verifier_tpu_torch.utils.timing import METER
+
+    METER.spans.pop(argv[0], None)
+    reset_launches()
+    main(argv)
+    torch.cuda.synchronize()
+    out = capsys.readouterr()
+    assert "PASS" in out.out and "# cost-meter" in out.err
+    for k in launched:
+        assert LAUNCHES[k] > 0, (k, dict(LAUNCHES))
+    span = METER.spans[argv[0]]
+    if argv[0] == "tree":  # two trees of 4 group folds of 4 and one root fold of 4
+        assert span == {"msm": 20, "msm_terms": 80, "pairing": 4}
+    if argv[0] == "aggregate":  # one batch decide, two folds of 4, two decides
+        assert span == {"msm": 4, "msm_terms": 16, "pairing": 6}

@@ -98,6 +98,24 @@ from snark_verifier_tpu_torch.pcs.ipa import (
 assert all(hasattr(c, "from_jax") for c in (IpaAccumulator, IpaDecidingKey,
                                             IpaSuccinctVerifyingKey))
 snark_verifier_tpu_torch.pcs.ipa.fixtures.ipa_keys()
+import snark_verifier_tpu_torch.verifier.cost
+import snark_verifier_tpu_torch.loader.yul_interp
+import snark_verifier_tpu_torch.loader.evm_loader
+import snark_verifier_tpu_torch.loader.evm_debug
+import snark_verifier_tpu_torch.sdk.evm
+import snark_verifier_tpu_torch.utils.timing
+import snark_verifier_tpu_torch.sdk.bincode_io
+import snark_verifier_tpu_torch.hash.poseidon_optimized
+import snark_verifier_tpu_torch.utils.hypercube
+import snark_verifier_tpu_torch.utils.native
+import snark_verifier_tpu_torch.__main__
+import snark_verifier_tpu_torch.examples.verify_standard_plonk
+import snark_verifier_tpu_torch.examples.verify_vanilla_plonk
+import snark_verifier_tpu_torch.examples.aggregate_proofs
+import snark_verifier_tpu_torch.examples.aggregate_mixed
+import snark_verifier_tpu_torch.examples.gen_evm_verifier
+from snark_verifier_tpu_torch.sdk.aggregation import batch_verify as sdk_batch_verify
+from snark_verifier_tpu_torch.utils.timing import METER
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "snark_verifier_tpu")]
 assert not bad, bad
 print("OK")
@@ -132,3 +150,23 @@ def test_chip_smoke_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cli_help_without_jax():
+    """`python -m snark_verifier_tpu_torch --help` under the block: every
+    command listed, nothing of jax or the JAX package imported."""
+    code = _BLOCK + """
+import runpy
+sys.argv = ["snark_verifier_tpu_torch", "--help"]
+try:
+    runpy.run_module("snark_verifier_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "snark_verifier_tpu")]
+assert not bad, bad
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    for cmd in ("verify", "aggregate", "aggregate-mixed", "tree", "bench-msm",
+                "gen-evm-verifier"):
+        assert cmd in proc.stdout
