@@ -295,9 +295,16 @@ CHAIN_FLOOR_MS_PER_MUL = 136 * 2 / 1.98e9 * 1e3
 MULADDS_PER_ADD = 12 * MULADDS_PER_FQ_MUL
 MULADDS_PER_DOUBLE = 8 * MULADDS_PER_FQ_MUL
 POINT_BYTES = 96
-# svt_msm_windowed (csrc/msm_loops.cu): a warp per proof, a group of 32
-# bases (one a lane) at a time, 64 windows of 4 bits.
-MSMW_WINDOWS = 64
+# svt_msm_windowed (csrc/msm_loops.cuh): a ladder a team of T lanes over
+# the 32 windows of 4 bits of a GLV half (ec/glv.py), T and the proofs a
+# block from cuda_ops.msm_windowed_layout.
+MSMW_WINDOWS = 32
+# Dependent Fq multiplies of one group operation on a team of T lanes
+# (csrc/g1_team.cuh; T = 1 is g1.cuh on one lane, T = 6 one product a lane
+# and layer).  The least is 2 an operation, every product of a layer at
+# once.
+G1_ADD_CHAIN = {1: 12, 6: 2}
+G1_DOUBLE_CHAIN = {1: 8, 6: 2}
 # hadeshash poseidonperm_x5_254_3: the permutation of (0, 1, 2) (T = 3, R_F = 8,
 # R_P = 57), the reference's Poseidon test vector.
 PERM_X5_254_3 = [
@@ -365,21 +372,39 @@ def bound_ms(n_bytes, n_muladds):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def msm_windowed_ops(n):
-    """(adds, doubles) of the windowed MSM of n bases as the reference runs
-    it: a table of 14 adds a base; per window a tree of n - 1 adds, one add
-    into the accumulator and 4 doublings."""
-    return 14 * n + MSMW_WINDOWS * n, 4 * MSMW_WINDOWS
+def msm_windowed_muladds(n):
+    """Multiply-adds of the windowed MSM of n bases, the smaller of two
+    schedules' counts: the reference's over the 64 windows of a whole
+    scalar (a table of 14 adds a base; per window a tree of n - 1 adds, one
+    add into the accumulator and 4 doublings: 78 n adds, 256 doublings), and
+    the GLV halves' (ec/glv.py: the same 78 n adds over 2 n half-scalars of
+    32 windows, 128 doublings, and 15 products by beta a base for the
+    table of phi(P))."""
+    dbls = min(256 * MULADDS_PER_DOUBLE,
+               128 * MULADDS_PER_DOUBLE + 15 * n * MULADDS_PER_FQ_MUL)
+    return 78 * n * MULADDS_PER_ADD + dbls
 
 
-def msm_windowed_chain_muls(n):
-    """Fq multiplies on one lane's chain in svt_msm_windowed: per group of
-    32 bases its table (14 adds), its ladder (63 windows of 4 doublings and
-    an add) and the add into its sum; then the warp's 5-level shuffle tree."""
-    groups = -(-n // 32)
-    adds = groups * (14 + (MSMW_WINDOWS - 1) + 1) + 5
-    doubles = groups * 4 * (MSMW_WINDOWS - 1)
-    return 12 * adds + 8 * doubles
+def msm_windowed_chain_muls(B, n, sms, least=False):
+    """Fq multiplies on one team's chain in svt_msm_windowed at the
+    wrapper's layout for B proofs of n bases on `sms` SMs: per ladder its
+    table (14 adds), 32 windows of 2 adds (the top one's first into the
+    identity) with the product by beta of the second's entry, 4 doublings
+    before each but the top one, and the add into the team's sum; then the
+    proof's tree over its tp teams.  The kernel's own at its team size, or
+    with `least` 2 an operation on the same operations (each layer's
+    products at once; the products by beta off the chain)."""
+    from snark_verifier_tpu_torch.msm import cuda_ops
+
+    team, per_block = cuda_ops.msm_windowed_layout(B, n, sms)
+    tp, _ = cuda_ops.msm_windowed_geometry(n, team, per_block)
+    ladders = -(-n // tp)
+    adds = ladders * (14 + 2 * MSMW_WINDOWS + 1) + (tp - 1).bit_length()
+    doubles = ladders * 4 * (MSMW_WINDOWS - 1)
+    if least:
+        return 2 * (adds + doubles)
+    return (G1_ADD_CHAIN[team] * adds + G1_DOUBLE_CHAIN[team] * doubles
+            + MSMW_WINDOWS * ladders)
 
 
 def bucket_reduce_ops(W, nb, c):
@@ -521,10 +546,14 @@ def final_exp_depth(least=False):
 
 
 # Fq multiplies on the top window's chain in svt_bucket_reduce: 29 adds
-# (its lane's running sums 13, the suffix scan 5, the lane weight 1, two
-# shuffle trees 10) and 251 doublings (the lane weight 3, the window's
-# 2^248 scale 248).
-BUCKET_REDUCE_CHAIN_MULS = 12 * 29 + 8 * 251
+# (its team's running sums 13, the suffix scan 5, the team weight 1, two
+# xor trees 10) and 251 doublings (the team weight 3, the window's 2^248
+# scale 248), on teams of BUCKET_REDUCE_TEAM lanes (csrc/msm_loops.cuh:
+# RED_T); the least, 2 an operation.
+BUCKET_REDUCE_TEAM = 6
+BUCKET_REDUCE_CHAIN_MULS = (G1_ADD_CHAIN[BUCKET_REDUCE_TEAM] * 29
+                            + G1_DOUBLE_CHAIN[BUCKET_REDUCE_TEAM] * 251)
+BUCKET_REDUCE_LEAST_CHAIN_MULS = 2 * (29 + 251)
 
 
 def ptxas_usage(fragment):
@@ -944,8 +973,9 @@ def verify_phase(dev, kernels, errs):
     its launch counts)."""
     import torch
 
+    from snark_verifier_tpu_torch.ec import from_affine_int, limbs_to_words, py_ec
     from snark_verifier_tpu_torch.ec import to_affine_int, words_to_limbs
-    from snark_verifier_tpu_torch.ff import FRW, digits4, fr_tape
+    from snark_verifier_tpu_torch.ff import FR, FRW, digits4, fr_tape
     from snark_verifier_tpu_torch.hash import absorb, absorb_plain, permute, permute_plain
     from snark_verifier_tpu_torch.msm import cuda_ops
     from snark_verifier_tpu_torch.pairing import pairing
@@ -1228,22 +1258,41 @@ def verify_phase(dev, kernels, errs):
     err = affine_err(got, want)
     check(err == 0, "msm_windowed differs from its plain version")
     ms = time_ms(lambda: cuda_ops.msm_windowed(pts, scs), 20)
-    w_adds, w_dbls = msm_windowed_ops(n)
     bms, by = bound_ms(pts.numel() * 4 + scs.numel() * 4 + B * POINT_BYTES,
-                       B * (w_adds * MULADDS_PER_ADD + w_dbls * MULADDS_PER_DOUBLE))
-    chain = msm_windowed_chain_muls(n)
+                       B * msm_windowed_muladds(n))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain = msm_windowed_chain_muls(B, n, sms)
+    least = msm_windowed_chain_muls(B, n, sms, least=True)
     floor = chain * CHAIN_FLOOR_MS_PER_MUL
     ms_one = time_ms(lambda: cuda_ops.msm_windowed(pts[:1].contiguous(), scs[:1].contiguous()),
                      20)
+    # The tree's fold level (64, 32), random bases and scalars.
+    rng = np.random.default_rng(64)
+    base = limbs_to_words(from_affine_int(py_ec.rand_points(32, seed=64), device=dev))
+    pts64 = base.expand(64, 32, 3, 8).contiguous()
+    ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(64 * 32)]
+    raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks), dtype="<i4")
+    scs64 = torch.from_numpy(raw.reshape(64, 32, 8).copy()).to(dev)
+    err64 = affine_err(cuda_ops.msm_windowed(pts64, scs64),
+                       cuda_ops.msm_windowed_plain(pts64, digits4(scs64)))
+    check(err64 == 0, "msm_windowed differs from its plain version at (64, 32)")
+    ms64 = time_ms(lambda: cuda_ops.msm_windowed(pts64, scs64), 20)
+    layouts = {shape: cuda_ops.msm_windowed_layout(*shape, sms)
+               for shape in ((B, n), (1, n), (64, 32))}
+    chains = {shape: (msm_windowed_chain_muls(*shape, sms),
+                      msm_windowed_chain_muls(*shape, sms, least=True)) for shape in layouts}
     log(f"# msm_windowed at {tuple(pts.shape[:2])}: {ms:.4f} ms (bound {bms:.4f} ms, {by}; "
-        f"chain floor {floor:.4f} ms = {chain} multiplies on a lane); B=1 {ms_one:.4f} ms; "
-        f"plain {plain_ms:.1f} ms; affine-equal to the plain version")
+        f"chain floor {floor:.4f} ms = {chain} multiplies on a team, the least {least}); B=1 "
+        f"{ms_one:.4f} ms; (64, 32) {ms64:.4f} ms; (team, proofs a block) {layouts}, chains "
+        f"(kernel, least) {chains}; plain {plain_ms:.1f} ms; affine-equal to the plain version")
     kernels.append(dict(
-        name="msm_windowed", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_loops.cu",
+        name="msm_windowed", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_loops.cuh",
         replaces="snark_verifier_tpu/ec/curve.py:194",
         also_replaces=["snark_verifier_tpu/ec/curve.py:245"], launches=launches["msm_windowed"],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        shape=list(pts.shape), chain_floor_ms=floor, ms_b1=ms_one, tolerance="exact, affine"))
+        max_abs_err=max(err, err64), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None, shape=list(pts.shape), chain_floor_ms=floor, chain_muls=chain,
+        least_chain_muls=least, ms_b1=ms_one, ms_64x32=ms64,
+        layouts={str(k): v for k, v in layouts.items()}, tolerance="exact, affine"))
     return B / best, (seen_ml[0], seen_fe[0]), launches
 
 
@@ -2694,10 +2743,10 @@ def ipa_openings_phase(dev, kernels):
     check(msm_err == 0, "ipa: msm_windowed differs from its plain version")
     msm_ms = kernel_ms(lambda: cuda_ops.msm_windowed(pts, scs), 10)
     n = pts.shape[1]
-    w_adds, w_dbls = msm_windowed_ops(n)
     mbms, mby = bound_ms(pts.numel() * 4 + scs.numel() * 4 + B * POINT_BYTES,
-                         B * (w_adds * MULADDS_PER_ADD + w_dbls * MULADDS_PER_DOUBLE))
-    mfloor = msm_windowed_chain_muls(n) * CHAIN_FLOOR_MS_PER_MUL
+                         B * msm_windowed_muladds(n))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mfloor = msm_windowed_chain_muls(B, n, sms) * CHAIN_FLOOR_MS_PER_MUL
     log(f"# ipa fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8): "
         f"{tape_ms:.4f} ms (bound {bms:.6f} ms, {by}; chain floor {floor:.4f} ms); plain "
         f"{tape_plain:.1f} ms; == run_plain word for word")
@@ -3851,16 +3900,21 @@ def main() -> int:
     bms, by = bound_ms(stacked.numel() * 4 + POINT_BYTES,
                        r_adds * MULADDS_PER_ADD + r_dbls * MULADDS_PER_DOUBLE)
     floor = BUCKET_REDUCE_CHAIN_MULS * CHAIN_FLOOR_MS_PER_MUL
+    use = ptxas_usage("bucket_reduce_kernel")
     log(f"# bucket_reduce at {tuple(stacked.shape[:2])}: {ms:.4f} ms (bound {bms:.6f} ms, "
-        f"{by}; chain floor {floor:.4f} ms = {BUCKET_REDUCE_CHAIN_MULS} multiplies); plain "
+        f"{by}; chain floor {floor:.4f} ms = {BUCKET_REDUCE_CHAIN_MULS} multiplies on teams of "
+        f"{BUCKET_REDUCE_TEAM}, the least {BUCKET_REDUCE_LEAST_CHAIN_MULS}); ptxas {use}; plain "
         f"{red_plain_ms:.1f} ms; affine-equal to the plain version")
     kernels.append(dict(
-        name="bucket_reduce", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_loops.cu",
+        name="bucket_reduce", route="cuda", source="snark_verifier_tpu_torch/csrc/msm_loops.cuh",
         replaces="snark_verifier_tpu/msm/pippenger.py:276",
         also_replaces=["snark_verifier_tpu/msm/pippenger.py:284"],
         launches=launches["bucket_reduce"], max_abs_err=errs["bucket_reduce"], ms=ms,
         plain_ms=red_plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        shape=list(stacked.shape), chain_floor_ms=floor, tolerance="exact, affine"))
+        shape=list(stacked.shape), chain_floor_ms=floor, chain_muls=BUCKET_REDUCE_CHAIN_MULS,
+        least_chain_muls=BUCKET_REDUCE_LEAST_CHAIN_MULS, team=BUCKET_REDUCE_TEAM,
+        ptxas_registers=use["registers"], ptxas_spill_bytes=use["spill_bytes"],
+        tolerance="exact, affine"))
 
     ms = time_ms(lambda: cuda_ops.add(saw, sbw), 20)
     plain = time_ms(lambda: cuda_ops.add_plain(saw, sbw), 3, warmup=1)

@@ -6,7 +6,7 @@ one card: the only fair comparison of two versions of a kernel.
 
 `DIR` is the csrc/ directory of the other checkout (for example one unpacked
 with `git archive <commit> snark_verifier_tpu_torch/csrc`).  Its
-`fold_kernels.cu`, `msm_kernels.cu` and `poseidon_kernels.cu` (and, where
+`fold_kernels.cu`, `msm_kernels.cu`, `msm_loops.cu` and `poseidon_kernels.cu` (and, where
 it has them, `field_kernels.cu`, `keccak_kernels.cu`,
 `accumulation_kernels.cu` and `ipa_kernels.cu`) are built side by side
 with nvcc, each against the headers beside it, and its entry points are
@@ -51,14 +51,20 @@ other checkout must be one whose `svt_fold_buckets` takes it):
   batch's (1,024, 16, 2) (held to `points_to_fr_plain`), each timed once
   queued behind a spin of the card (`kernel_ms`: the kernels' own time) and
   once as called (`time_ms`: the host's time per launch included);
-* `svt_g1_add(a, b, out, n, stream)` and `svt_g1_double(a, out, n, stream)`
-  driven by the loops that launched them one group operation at a time
-  before `svt_msm_windowed` and `svt_bucket_reduce` replaced them: the verify
-  MSM at (1,024, 26) (26 bases tiled, numpy-seeded scalars; `digits4` and a
-  table of 14 add launches, then per window 4 double launches, a gather, a
-  tree of add launches and one more add), and the weighted bucket sums plus
-  Horner over the MSM's own (32, 256) bucket sums (a suffix scan and a tree
-  of add launches, then 8 double launches and one add launch per window);
+* `svt_msm_windowed` and `svt_bucket_reduce` (`msm_loops.cuh`), the point
+  loops: the verify MSM at (1,024, 26), (1,024, 34), (1,024, 4), (1,024,
+  17), (64, 32), (2, 32) and (1, 26) (bases tiled, numpy-seeded scalars),
+  the parent called with its own arguments (with the layout this checkout
+  picks where it takes one), beside this checkout's wrapper and beside each
+  team size at its own blocks (rows `msm_windowed_team`, `chosen` where it
+  is the wrapper's); and the weighted bucket sums plus window combine over
+  the 2^`log2n` MSM's own (32, 256) bucket sums, beside this checkout's
+  `svt_bucket_reduce`; all queued behind a spin of the card.  With
+  `--only loop_variants` (not in the default run: its library takes many
+  minutes to build) also the variants of `csrc/probe/point_loop_variants.cu`,
+  built as its own library: for teams of 2 or more the products exchanged
+  by shuffles (`msm_windowed_shuffle`), and `svt_bucket_reduce` at every
+  team size with either exchange (`bucket_reduce_team`);
 * where the other checkout has it: `svt_ipa_h_coeffs(xi, k, s, out,
   stream)` at k = 5, 11 and 20 (ξ from numpy seed 24, s = 1 and a random
   s), each version held to `h_coeffs_plain` and to the other word for
@@ -101,9 +107,9 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARENT_UNITS = {
     "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
                      "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P]},
-    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
-                    "svt_g1_add": [_P, _P, _P, _LL, _P],
-                    "svt_g1_double": [_P, _P, _LL, _P]},
+    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P]},
+    "msm_loops": {"svt_msm_windowed": [_P, _P, _LL, _I, _P, _P],
+                  "svt_bucket_reduce": [_P, _P, _P, _P]},
     "poseidon_kernels": {"svt_poseidon_load_constants": [_P, _P],
                          "svt_poseidon_permute": [_P, _P, _LL, _P]},
     # optional: compared where the other checkout exports them
@@ -216,8 +222,9 @@ def main() -> int:
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None, help="also write the rows to this file")
     ap.add_argument("--only", default=None,
-                    help="comma-separated parts to run: fq_mul_chain, msm (the folds and the "
-                         "point loops), poseidon_permute, field_inv, keccak_read, fr_powers, "
+                    help="comma-separated parts to run: fq_mul_chain, msm (the folds), "
+                         "msm_loops (the point loops), loop_variants (msm_loops and the "
+                         "probe's variants), poseidon_permute, field_inv, keccak_read, fr_powers, "
                          "points_to_fr, h_coeffs, to_affine (default all)")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
@@ -239,6 +246,14 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.time()
+    variants_build = None
+    loop_variants = only is not None and "loop_variants" in only
+    if loop_variants:  # the point loops' other variants, this checkout's probe
+        (_build.BUILD_DIR / "compare").mkdir(parents=True, exist_ok=True)
+        variants_build = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+             str(_build.BUILD_DIR / "compare" / "libpoint_loop_variants.so"),
+             str(_build.SRC_DIR / "probe" / "point_loop_variants.cu")])
     parent = build_parent(args.parent, _build.BUILD_DIR / "compare")
     other = None
     if selected("h_coeffs"):  # the other store route, this checkout's probe
@@ -249,6 +264,8 @@ def main() -> int:
         other = ctypes.CDLL(str(lib)).svt_ipa_h_coeffs_vec
         other.argtypes, other.restype = [_P, _I, _P, _P, _P], ctypes.c_int
     _build.load_library()
+    if variants_build is not None and variants_build.wait():
+        raise RuntimeError("nvcc failed for csrc/probe/point_loop_variants.cu")
     print(f"# card: {card}; builds {time.time() - t0:.1f}s", flush=True)
     rows = []
 
@@ -291,8 +308,10 @@ def main() -> int:
                     cuda_ops.fq_mul_chain_plain(a, b, ch), 10, B=B, ch=ch,
                     muls=B * ch)
 
-    if selected("msm"):
-        # ----------------------------------------------------------- bucket fold
+    def msm_slots():
+        """The 2^log2n MSM's points [1..n]·G (and the identity after them),
+        numpy-seeded scalars, and its slot indices: every main window's and
+        the top window's."""
         n = 1 << args.log2n
         pts = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))
         pt = py_ec.G1_GEN
@@ -308,6 +327,11 @@ def main() -> int:
         tcap = max(cap, pip.top_capacity(n, 8))
         idx_all, _ = pip._slot_indices(digits[:-1], 256, cap)
         idx_top, _ = pip._slot_indices(digits[-1:], pip.top_range(8), tcap)
+        return n, points_ext, idx_all, idx_top
+
+    if selected("msm"):
+        # ----------------------------------------------------------- bucket fold
+        n, points_ext, idx_all, idx_top = msm_slots()
         idx_main = idx_all[:1]
         for label, ix in (("one main window", idx_main[0].contiguous()),
                           ("top window, whole", idx_top[0].contiguous())):
@@ -390,82 +414,84 @@ def main() -> int:
                         level=i, shape=list(prev.shape[:2]), grouping=list(grp),
                         this_team=cuda_ops.grouping_team(NB, prev.shape[1], grp, sms))
                 prev = cuda_ops.fold_segments(prev, *grp)
-        del mat
-
-        buckets = pip.bucket_sums(points_ext, idx_all, idx_top[0])  # the MSM's (32, 256)
-        del points_ext, pts, digits, idx_all
+        del mat, points_ext, idx_all, idx_top
         torch.cuda.empty_cache()
 
-        # ------------------------------- the point loops against their kernels
-        def p_add(x, y):
-            shape = x.shape
-            x, y = x.reshape(-1, 3, 8).contiguous(), y.reshape(-1, 3, 8).contiguous()
-            out = torch.empty_like(x)
-            call(parent["svt_g1_add"], x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0])
-            return out.view(shape)
+    if selected("msm_loops") or loop_variants:
+        # ------------------------ the point loops: the parent's kernels beside
+        loops_src = (args.parent / "msm_loops.cu").read_text()
+        parent_layout = "int team" in re.search(r"int svt_msm_windowed\((.*?)\)", loops_src,
+                                                re.S).group(1)
+        if parent_layout:
+            parent["svt_msm_windowed"].argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-        def p_double(x):
-            shape = x.shape
-            x = x.reshape(-1, 3, 8).contiguous()
-            out = torch.empty_like(x)
-            call(parent["svt_g1_double"], x.data_ptr(), out.data_ptr(), x.shape[0])
-            return out.view(shape)
+        def p_msm_windowed(bases, scalars, out):
+            B, nb = bases.shape[:2]
+            layout = cuda_ops.msm_windowed_layout(B, nb, sms) if parent_layout else ()
+            call(parent["svt_msm_windowed"], bases.data_ptr(), scalars.data_ptr(), B, nb,
+                 *layout, out.data_ptr())
 
-        def p_tree_sum(x):  # along axis 1
-            x = x.movedim(1, 0)
-            while x.shape[0] > 1:
-                half = x.shape[0] // 2
-                x = torch.cat([p_add(x[:half], x[half : 2 * half]), x[2 * half :]], 0)
-            return x[0]
-
-        def p_msm_windowed(bases, scalars):
-            """The parent's verify MSM: its loop over its add/double kernels."""
-            digs = digits4(scalars)
-            tab, acc = [cuda_ops.identity(bases.shape[:2], dev), bases], bases
-            for _ in range(14):
-                acc = p_add(acc, bases)
-                tab.append(acc)
-            tab = torch.stack(tab, dim=2)
-            acc = cuda_ops.identity(bases.shape[:1], dev)
-            for w in range(digs.shape[-1] - 1, -1, -1):
-                for _ in range(4):
-                    acc = p_double(acc)
-                idx = digs[..., w][..., None, None, None]
-                sel = torch.take_along_dim(tab, idx, dim=2).squeeze(2)
-                acc = p_add(acc, p_tree_sum(sel))
-            return acc
-
-        def p_bucket_reduce(b):
-            """The parent's weighted bucket sums and Horner loop."""
-            s = b[:, 1:].flip(1)
-            width, d = s.shape[1], 1
-            while d < width:
-                s = torch.cat([s[:, :d], p_add(s[:, d:], s[:, : width - d])], dim=1)
-                d *= 2
-            while s.shape[1] > 1:
-                half = s.shape[1] // 2
-                s = torch.cat([p_add(s[:, :half], s[:, half : 2 * half]), s[:, 2 * half :]], dim=1)
-            acc = cuda_ops.identity((1,), dev)
-            for w in range(s.shape[0] - 1, -1, -1):
-                for _ in range(8):
-                    acc = p_double(acc)
-                acc = p_add(acc, s[w : w + 1, 0])
-            return acc
-
+        if loop_variants:
+            variants = ctypes.CDLL(str(_build.BUILD_DIR / "compare" /
+                                       "libpoint_loop_variants.so"))
+            msm_shuffle = variants.svt_msm_windowed_shuffle
+            msm_shuffle.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P]
+            reduce_variant = variants.svt_bucket_reduce_variant
+            reduce_variant.argtypes = [_P, _P, _P, _I, _I, _P]
         rng = np.random.default_rng(6)
-        B, nb = 1024, 26
-        bases = limbs_to_words(from_affine_int(py_ec.rand_points(nb, seed=6), device=dev))
-        bases = bases.expand(B, nb, 3, 8).contiguous()
-        ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(B * nb)]
-        raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks), dtype="<i4")
-        scs = torch.from_numpy(raw.reshape(B, nb, 8).copy()).to(dev)
-        compare("msm_windowed", lambda: p_msm_windowed(bases, scs),
-                lambda: cuda_ops.msm_windowed(bases, scs), p_msm_windowed(bases, scs), affine_err,
-                cuda_ops.msm_windowed_plain(bases, digits4(scs)), 5, shape=[B, nb])
-        compare("bucket_reduce", lambda: p_bucket_reduce(buckets),
-                lambda: pip.bucket_reduce(buckets, 8), p_bucket_reduce(buckets), affine_err,
-                pip.bucket_reduce_plain(buckets, 8), 5, shape=list(buckets.shape[:2]))
-        del buckets, bases, scs
+        for B, nb in ((1024, 26), (1024, 34), (1024, 4), (1024, 17), (64, 32), (2, 32),
+                      (1, 26)):
+            bases = limbs_to_words(from_affine_int(py_ec.rand_points(nb, seed=6), device=dev))
+            bases = bases.expand(B, nb, 3, 8).contiguous()
+            ks = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(B * nb)]
+            raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks), dtype="<i4")
+            scs = torch.from_numpy(raw.reshape(B, nb, 8).copy()).to(dev)
+            want = cuda_ops.msm_windowed_plain(bases, digits4(scs))
+            out = torch.empty((B, 3, 8), dtype=torch.int32, device=dev)
+            p_msm_windowed(bases, scs, out)
+            layout = cuda_ops.msm_windowed_layout(B, nb, sms)
+            compare("msm_windowed", lambda: p_msm_windowed(bases, scs, out),
+                    lambda: cuda_ops.msm_windowed(bases, scs), out, affine_err, want, 10,
+                    timer=kernel_ms, shape=[B, nb], layout=list(layout))
+            for team in cuda_ops.MSMW_TEAMS:  # every team size, beside the parent
+                lay = (team, cuda_ops.msm_windowed_per_block(B, nb, team, sms))
+                compare("msm_windowed_team", lambda: p_msm_windowed(bases, scs, out),
+                        lambda: cuda_ops._msm_windowed_at(bases, scs, *lay), out, affine_err,
+                        want, 10, timer=kernel_ms, shape=[B, nb], layout=list(lay),
+                        chosen=lay == layout)
+                if loop_variants and team > 1:  # the products exchanged by shuffles
+                    out_s = torch.empty_like(out)
+                    compare("msm_windowed_shuffle", lambda: p_msm_windowed(bases, scs, out),
+                            lambda: call(msm_shuffle, bases.data_ptr(), scs.data_ptr(), B, nb,
+                                         *lay, out_s.data_ptr()) or out_s,
+                            out, affine_err, want, 10, timer=kernel_ms, shape=[B, nb],
+                            layout=list(lay))
+            del bases, scs, want
+
+        n, points_ext, idx_all, idx_top = msm_slots()
+        buckets = pip.bucket_sums(points_ext, idx_all, idx_top[0])  # the MSM's (32, 256)
+        del points_ext, idx_all, idx_top
+        want = pip.bucket_reduce_plain(buckets, 8)
+        part = torch.empty(32 * 24 + 1, dtype=torch.int32, device=dev)
+        out = torch.empty((1, 3, 8), dtype=torch.int32, device=dev)
+
+        def p_bucket_reduce():
+            call(parent["svt_bucket_reduce"], buckets.data_ptr(), part.data_ptr(),
+                 out.data_ptr())
+
+        p_bucket_reduce()
+        compare("bucket_reduce", p_bucket_reduce, lambda: pip.bucket_reduce(buckets, 8), out,
+                affine_err, want, 20, timer=kernel_ms, shape=list(buckets.shape[:2]))
+        for team in (1, 2, 4, 6) if loop_variants else ():
+            for shuffle in (0, 1) if team > 1 else (0,):
+                out_t = torch.empty((1, 3, 8), dtype=torch.int32, device=dev)
+                compare("bucket_reduce_team", p_bucket_reduce,
+                        lambda: call(reduce_variant, buckets.data_ptr(), part.data_ptr(),
+                                     out_t.data_ptr(), team, shuffle) or out_t,
+                        out, affine_err, want, 20, timer=kernel_ms,
+                        shape=list(buckets.shape[:2]), team=team, shuffle=bool(shuffle))
+        del buckets
 
     if selected("poseidon_permute"):
         # --------------------------------------------------------------- Poseidon

@@ -73,17 +73,6 @@ __device__ __forceinline__ void g1_shfl_xor(G1& q, const G1& p, int mask) {
   }
 }
 
-// q = the point held by lane (lane + delta) of the warp; a lane past the
-// last gets its own point back (every lane calls it).
-__device__ __forceinline__ void g1_shfl_down(G1& q, const G1& p, int delta) {
-#pragma unroll
-  for (int i = 0; i < FQ_WORDS; i++) {
-    q.x[i] = __shfl_down_sync(0xffffffffu, p.x[i], delta);
-    q.y[i] = __shfl_down_sync(0xffffffffu, p.y[i], delta);
-    q.z[i] = __shfl_down_sync(0xffffffffu, p.z[i], delta);
-  }
-}
-
 // o = p + q.  o may alias p or q: both are read before o is written.
 __device__ __forceinline__ void g1_add(G1& o, const G1& p, const G1& q) {
   uint32_t t0[FQ_WORDS], t1[FQ_WORDS], t2[FQ_WORDS], t3[FQ_WORDS], t4[FQ_WORDS],

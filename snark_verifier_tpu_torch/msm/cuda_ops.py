@@ -11,7 +11,7 @@ Points are (..., 3, 8) int32 tensors in the kernels' word layout (ec/g1.py).
 | `fold_buckets`, `fold_buckets_split` | `svt_fold_buckets` (msm_kernels.cu) | `msm/pippenger.py::_fold_buckets_pallas` (gather + `fold_buckets_grid_pk` :490 / `fold_buckets_grid` :560) |
 | `fold_level`, `fold_halving`, `fold_grid` | `svt_fold_segments` (fold_kernels.cu) | `_pallas_fold_level` :246, `_pallas_fold_halving` :326, `_pallas_fold_grid` :589 |
 | `g1_add_chain`, `fq_mul_chain`, `fq_sqr_chain` | `svt_g1_add_chain`, `svt_fq_mul_chain` (fold_kernels.cu) | the probe `benchmarks/micro_packed_dissect.py` :48 |
-| `msm_windowed` | `svt_msm_windowed` (msm_loops.cu) | `ec/curve.py::CurveOps.msm_windowed` :194 with `tree_sum` :245 (XLA) |
+| `msm_windowed` | `svt_msm_windowed` (msm_loops.cuh) | `ec/curve.py::CurveOps.msm_windowed` :194 with `tree_sum` :245 (XLA) |
 | `h_coeffs` | `svt_ipa_h_coeffs` (ipa_kernels.cu) | `pcs/ipa/ipa.py::h_coeffs_dev` :95 and decide's `to_repr_u16` :346 (XLA) |
 
 Each wrapper checks device, dtype, shape, contiguity and alignment.  For a
@@ -522,12 +522,82 @@ def msm_windowed_plain(pts, digits, c: int = 4):
     return acc
 
 
+# The verify MSM's schedules (csrc/msm_loops.cuh): a ladder a lane (T = 1)
+# or a team of 6 (csrc/g1_team.cuh: one product a lane and layer; teams of
+# 2 and 4 measured no better, PERF.md), at most 8 warps a block.  A team of
+# 6 shortens a ladder's chain (0.48 against 0.87 ms alone) but issues ~3.3x
+# its instructions, so it wins only while the B n ladders leave most of the
+# card's lanes idle, and only where each ladder has a team of its own (n at
+# most the 40 teams of a block).  kernel_compare.py's seven shapes on an
+# H100 (132 SMs, PERF.md) put the crossover between (1,024, 4), 4,096
+# ladders (T = 6 0.53 ms, T = 1 0.86), and (1,024, 17), 17,408 (T = 6 1.85,
+# T = 1 1.28).  MSMW_TEAM_LADDERS_PER_SM (6,336 ladders on 132 SMs) sits
+# in that bracket, nearer its low end: T = 1 keeps one chain's latency
+# until a scheduler holds a second warp, while a team's six lanes a ladder
+# crowd the schedulers six times sooner.
+MSMW_TEAMS = (1, 6)
+MSMW_MAX_WARPS = 8
+MSMW_TEAM_LADDERS_PER_SM = 48
+
+
+def msm_windowed_geometry(n: int, team: int, per_block: int):
+    """(tp, warps) of an `svt_msm_windowed` block of `per_block` proofs of
+    n bases on teams of `team` lanes, as the C entry point lays it out: tp
+    teams a proof (every base its own team while the block's 8 warps hold
+    them, else teams loop over the bases), teams of 32 // team lanes a warp,
+    back to back."""
+    whole = 32 // team
+    tp = min(max(n, 1), MSMW_MAX_WARPS * whole // per_block)
+    return tp, -(-per_block * tp // whole)
+
+
+def msm_windowed_per_block(B: int, n: int, team: int, sms: int) -> int:
+    """Proofs a block: few enough that the blocks fill a card of `sms` SMs
+    before any SM takes a second (or a third, ...), and whole proofs in a
+    block while one base a team fits."""
+    max_teams = MSMW_MAX_WARPS * (32 // team)
+    k = 1
+    while True:
+        per_block = -(-B // (k * sms))
+        if per_block * max(n, 1) <= max_teams or per_block == 1:
+            return per_block
+        k += 1
+
+
+def msm_windowed_layout(B: int, n: int, sms: int):
+    """(team, per_block) for an `svt_msm_windowed` launch of B proofs of n
+    bases on a card of `sms` SMs: T = 1, one lane a ladder, where the
+    ladders fill the card (the verify batch of 1,024) or outnumber a
+    block's teams; a team of 6 where a few proofs leave the card idle and
+    one chain's latency is the time."""
+    few = B * n <= MSMW_TEAM_LADDERS_PER_SM * sms and n <= MSMW_MAX_WARPS * (32 // 6)
+    team = 6 if few else 1
+    return team, msm_windowed_per_block(B, n, team, sms)
+
+
+def _msm_windowed_at(pts, scalars, team: int, per_block: int):
+    """One `svt_msm_windowed` launch at the layout (team, per_block) on
+    tensors `msm_windowed` has checked; every layout gives the same points
+    (tests and kernel_compare.py force one)."""
+    if team not in MSMW_TEAMS or not 1 <= per_block <= MSMW_MAX_WARPS * (32 // team):
+        raise ValueError(f"msm_windowed: layout ({team}, {per_block})")
+    B, n = pts.shape[:2]
+    if n >= 1 << 31:
+        raise ValueError("msm_windowed: more bases than an int32 counts")
+    out = torch.empty((B, 3, 8), dtype=torch.int32, device=pts.device)
+    if B:
+        _launch("msm_windowed", load_library().svt_msm_windowed, pts.data_ptr(),
+                scalars.data_ptr(), B, n, team, per_block, out.data_ptr(), device=pts.device)
+    return out
+
+
 def msm_windowed(pts, scalars, c: int = 4):
     """Σ_i scalar_i · pts_i for each proof: pts (B, n, 3, 8) projective
-    words, scalars (B, n, 8) canonical Fr words -> (B, 3, 8), over the 64
-    windows of 4 bits of `ff.digits4`.  On the card one launch of
-    `svt_msm_windowed` (csrc/msm_loops.cu); on the CPU `msm_windowed_plain`.
-    Only c = 4, the verify path's window, is taken."""
+    words, scalars (B, n, 8) canonical Fr words -> (B, 3, 8).  On the card
+    one launch of `svt_msm_windowed` (csrc/msm_loops.cuh: each scalar split
+    by GLV, ec/glv.py, into two halves of 32 windows of 4 bits) with the
+    (team, per_block) of `msm_windowed_layout`; on the CPU
+    `msm_windowed_plain`.  Only c = 4, the verify path's window, is taken."""
     if c != 4:
         raise ValueError(f"msm_windowed: c={c}; the kernel reads 4-bit windows only")
     _check("msm_windowed", pts, 4, (3, 8))
@@ -538,14 +608,8 @@ def msm_windowed(pts, scalars, c: int = 4):
                          f"{tuple(scalars.shape[:2])} scalars")
     if pts.device.type == "cpu":
         return msm_windowed_plain(pts, digits4(scalars), c)
-    B, n = pts.shape[:2]
-    if n >= 1 << 31:
-        raise ValueError("msm_windowed: more bases than an int32 counts")
-    out = torch.empty((B, 3, 8), dtype=torch.int32, device=pts.device)
-    if B:
-        _launch("msm_windowed", load_library().svt_msm_windowed, pts.data_ptr(),
-                scalars.data_ptr(), B, n, out.data_ptr(), device=pts.device)
-    return out
+    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
+    return _msm_windowed_at(pts, scalars, *msm_windowed_layout(*pts.shape[:2], sms))
 
 
 def affine_xy(pt):

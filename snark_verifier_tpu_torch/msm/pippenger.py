@@ -12,9 +12,9 @@ Same window/bucket semantics and the same static shapes:
      the JAX package (pippenger.py:307-311), whose few long rows are split
      into segments, folded, and their partial sums folded again;
   3. Σ_w 2^(c·w) Σ_b b·B_{w,b} (`bucket_reduce`): the weighted bucket sums
-     and the window combine in one launch of `svt_bucket_reduce`, a warp per
-     window (csrc/msm_loops.cu); its plain version is the JAX package's
-     suffix scan, tree sum and Horner loop.
+     and the window combine in one launch of `svt_bucket_reduce`, a block
+     of 32 teams a window (csrc/msm_loops.cuh); its plain version is the
+     JAX package's suffix scan, tree sum and Horner loop.
 
 The JAX package's `msm_rns` (the RNS layout for the TPU's int8 matrix unit)
 has no separate counterpart: on the GPU `msm` does its job.  The port needs
@@ -156,7 +156,7 @@ def bucket_reduce_plain(buckets, c: int):
 def bucket_reduce(buckets, c: int = C_BITS):
     """Every window's bucket sums (W, 2^c, 3, 8) -> (1, 3, 8) =
     Σ_w 2^(c·w) Σ_{b>=1} b·B_{w,b}.  On the card one launch of
-    `svt_bucket_reduce` (csrc/msm_loops.cu), which takes c = 8 only; on the
+    `svt_bucket_reduce` (csrc/msm_loops.cuh), which takes c = 8 only; on the
     CPU `bucket_reduce_plain`."""
     _check("bucket_reduce", buckets, 4, (3, 8))
     if tuple(buckets.shape[:2]) != (n_windows(c), 1 << c):

@@ -225,6 +225,30 @@ def test_msm_windowed_kernel_matches_plain_and_oracle(cuda, B, n):
     assert ga == [py_ec.msm(a, [k % FR.p for k in row]) for a, row in zip(aff, ks)]
 
 
+@pytest.mark.parametrize("team", cuda_ops.MSMW_TEAMS)
+@pytest.mark.parametrize("B,n,per_block", [(3, 26, 2), (2, 33, 1), (5, 1, 4), (3, 0, 2)])
+def test_msm_windowed_every_team_matches_oracle(cuda, team, B, n, per_block):
+    """Every team size at a forced layout: a ragged last block (B odd), a
+    proof with more bases than a block of teams 6 holds with two proofs
+    (n = 33), one base, no bases (the identity)."""
+    rng = np.random.default_rng(500 + n)
+    aff = [py_ec.rand_points(n, seed=510 + b) for b in range(B)]
+    ks = [[int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)] for _ in range(B)]
+    if n:
+        aff[0][0] = None
+        ks[-1][0] = FR.p - 1
+    pts = limbs_to_words(from_affine_int([p for row in aff for p in row], device=cuda))
+    pts = pts.reshape(B, n, 3, 8).contiguous()
+    sc = _scalar_words([k for row in ks for k in row], cuda).reshape(B, n, 8).contiguous()
+    cuda_ops.reset_launches()
+    got = cuda_ops._msm_windowed_at(pts, sc, team, per_block)
+    assert cuda_ops.LAUNCHES["msm_windowed"] == 1
+    ga = to_affine_int(words_to_limbs(got))
+    assert ga == [py_ec.msm(a, row) if n else None for a, row in zip(aff, ks)]
+    if n:
+        assert ga == to_affine_int(words_to_limbs(cuda_ops.msm_windowed_plain(pts, digits4(sc))))
+
+
 def test_msm_windowed_kernel_at_the_verify_shape(cuda):
     """(1024, 26), the verify batch's MSM: 26 bases tiled over the batch
     with each proof's own scalars, against the plain version on the card."""

@@ -36,6 +36,7 @@ def test_port_imports_without_jax():
 import snark_verifier_tpu_torch
 import snark_verifier_tpu_torch._build
 import snark_verifier_tpu_torch.ec
+import snark_verifier_tpu_torch.ec.glv
 import snark_verifier_tpu_torch.ff
 import snark_verifier_tpu_torch.msm
 import snark_verifier_tpu_torch.msm.cuda_ops
