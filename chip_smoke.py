@@ -25,7 +25,9 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    points/s; `bucket_reduce` against its plain version on that call's
    (32, 256) bucket sums, in affine form;
 5. kernel timings with CUDA events at the main path's shapes, beside each
-   kernel's bound and its plain twin's time;
+   kernel's bound and its plain twin's time; `add` and `double` also at a
+   throughput shape, 2^19 of the MSM's bases, each equal to its plain
+   version;
 6. the add-chain probe: CH = 16 chained RC15 adds, Fq multiplies and Fq
    squares at B = 256 and 2^17, bit-identical to 16 steps of their plain
    versions (the lone add's µs at B = 256 is each fold level's chain floor
@@ -59,8 +61,10 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    succinct and decide phases and the succinct phase's steps as
    `batch_verify` records them in its `timings`; `fr_tape`
    (on the batch's own gathered inputs and on the tampered batch's, exact
-   canonical words), `msm_windowed`, `miller_loop` and `final_exp` against
-   their plain versions on that call's own inputs;
+   canonical words, at the wrapper's team size and at every other; its
+   team schedule's steps, each team's time at B = 1,024 and 1, and the
+   three chained inversions' time), `msm_windowed`, `miller_loop` and
+   `final_exp` against their plain versions on that call's own inputs;
 10. the pairing phase (bench.py's bench_pairing): the decide of B = 256
    valid accumulators lhs = τ·rhs on the port's toy_srs(8, seed=0xA11CE),
    best-of-3 checks/s; gates: all accept, lhs + G in lane 0 rejects lane 0
@@ -1168,24 +1172,34 @@ def verify_phase(dev, kernels, errs):
             row["launches"] += launches[row["name"]]
 
     # The Fr program against its plain version on the batch's own gathered
-    # inputs and on the tampered batch's, exact canonical words.
+    # inputs and on the tampered batch's, exact canonical words, at the
+    # wrapper's team size and at every other.
     tape = plan.tape
-    err, plain_ms = 0, None
+    team = fr_tape.TEAM
+    err, plain_ms, values = 0, None, []
     for label, (tp, ins) in zip(("batch", "tampered batch"), seen_tape):
         got = fr_tape.run(tp, ins)
         torch.cuda.synchronize()
         t0 = time.time()
-        want = fr_tape.run_plain(tp, ins)
+        want = fr_tape.run_plain(tp, ins, None if values else values)
         torch.cuda.synchronize()
         plain_ms = plain_ms or (time.time() - t0) * 1e3
         e = word_err(got, want)
         check(e == 0, f"fr_tape differs from run_plain on the {label}'s inputs")
+        for t in fr_tape.TEAMS:
+            check(word_err(fr_tape.run(tp, ins, team=t), want) == 0,
+                  f"fr_tape at team {t} differs from run_plain on the {label}'s inputs")
         err = max(err, e)
     ins = seen_tape[0][1]
     check(not torch.equal(ins, seen_tape[1][1]), "the tampered batch's Fr inputs did not move")
     ins1 = ins[:, :1].contiguous()
-    ms = time_ms(lambda: fr_tape.run(tape, ins), 50)
-    ms1 = time_ms(lambda: fr_tape.run(tape, ins1), 50)
+    check(word_err(fr_tape.run(tape, ins1), fr_tape.run_plain(tape, ins1)) == 0,
+          "fr_tape differs from run_plain at B = 1")
+    ms = kernel_ms(lambda: fr_tape.run(tape, ins), 50)
+    ms1 = kernel_ms(lambda: fr_tape.run(tape, ins1), 50)
+    team_ms = {t: [kernel_ms(lambda: fr_tape.run(tape, ins, team=t), 20),
+                   kernel_ms(lambda: fr_tape.run(tape, ins1, team=t), 20)]
+               for t in fr_tape.TEAMS}
     # The plan's three inversions alone (chained, then one output): their
     # share of the kernel's time.
     slot0, in0 = fr_tape.SLOT << fr_tape.KIND_SHIFT, fr_tape.INPUT << fr_tape.KIND_SHIFT
@@ -1195,29 +1209,36 @@ def verify_phase(dev, kernels, errs):
                               inputs=["x"], outputs=["x^-3"], n_slots=1)
     check(tape.op_counts()["inv"] == 3, "the plan's inversion count changed")
     ins_inv = ins[:1].contiguous()
-    ms_inv = time_ms(lambda: fr_tape.run(inv_tape, ins_inv), 50)
+    check(word_err(fr_tape.run(inv_tape, ins_inv), fr_tape.run_plain(inv_tape, ins_inv)) == 0,
+          "fr_tape's three chained inversions differ from run_plain")
+    ms_inv = kernel_ms(lambda: fr_tape.run(inv_tape, ins_inv), 50)
     # The bound and the chain floor count the least work the function needs
-    # (squares at fe_sqr's cost, OUT a reduction, INV an addition chain);
-    # `muls_per_lane` is the kernel's own count of multiplies.
+    # (squares at fe_sqr's cost, OUT a reduction, INV the smaller of an
+    # addition chain and the binary GCD for these values: fr_tape_work);
+    # `muls_per_lane` and `chain_muls` are the reference's Fermat counts.
+    work = fr_tape_work(tape, ins, values)
+    bms, by, floor = work["bound_ms"], work["bound_by"], work["chain_floor_ms"]
     muls, chain = tape.muls(), tape.chain_muls()
-    least = tape.row_muladds(least=True)
-    least_work, least_chain = int(least.sum()), tape.chain(least)
-    least_muls = least_work / MULADDS_PER_FQ_MUL
-    nbytes = (ins.shape[0] + len(tape.outputs)) * B * 32 + tape.rows.nbytes + tape.consts.nbytes
-    bms, by = bound_ms(nbytes, B * least_work)
-    floor = least_chain * CHAIN_FLOOR_MS_PER_MUL / MULADDS_PER_FQ_MUL
-    clocks = ms1 / (muls * CHAIN_FLOOR_MS_PER_MUL) * 272
+    sched = fr_tape_sched_info(tape, team)
     use = ptxas_usage("fr_tape_kernel")
-    regs, stack = use["registers"], use["stack_bytes"]
-    smem = tape.n_slots * 8 * 32 * 4
-    log(f"# fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8): {ms:.4f} ms, "
-        f"B=1 {ms1:.4f} ms (bound {bms:.6f} ms, {by}, from the least {least_muls:.1f} multiplies "
-        f"a lane; chain floor {floor:.4f} ms = the least longest chain, {least_chain} "
-        f"multiply-adds; the kernel runs {muls} multiplies a lane, {chain} of them chained, "
-        f"{clocks:.0f} clocks per multiply alone; the three inversions alone {ms_inv:.4f} ms = "
-        f"{ms_inv / ms:.1%}); plain {plain_ms:.1f} ms; slots "
-        f"{tape.n_slots} in shared memory ({smem} B a block), ptxas {regs} registers, "
-        f"{stack} B stack; == run_plain on the batch's and the tampered batch's inputs")
+    regs, stack, spills = use["registers"], use["stack_bytes"], use["spill_bytes"]
+    smem = (sched["schedule_slots"] + len(tape.inputs) + tape.consts.shape[0]) * 32 * 32 // team
+    log(f"# fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8), team {team} "
+        f"({sched['steps']} steps, {sched['multiply_steps']} of products, "
+        f"{sched['invert_steps']} of inversions; {len(tape.rows)} rows): {ms:.4f} ms, B=1 "
+        f"{ms1:.4f} ms (kernel time); by team (B={B}, B=1): "
+        + ", ".join(f"{t}: {a:.4f}, {b:.4f}" for t, (a, b) in team_ms.items())
+        + f"; bound {bms:.6f} ms ({by}; the least {work['least_muladds']} multiply-adds, an "
+        f"INV the smaller of the addition chain's {work['inv_chain_muladds']} and the GCD's "
+        f"{work['inv_gcd_muladds_mean']:.0f} on average, rounds mean "
+        f"{work['inv_rounds_mean']:.2f} max {work['inv_rounds_max']}); chain floor "
+        f"{floor:.4f} ms (an INV on the chain the smaller of {work['inv_chain_clocks']} and "
+        f"{max(work['inv_gcd_clocks'])} clocks); the reference runs {muls} multiplies a lane, "
+        f"{chain} chained; the three inversions alone {ms_inv:.4f} ms = {ms_inv / ms:.1%}; "
+        f"plain {plain_ms:.1f} ms; {sched['schedule_slots']} slots, {len(tape.inputs)} inputs "
+        f"and {tape.consts.shape[0]} constants in shared memory ({smem} B a block), ptxas "
+        f"{regs} registers, {stack} B stack, {spills} B spills; == run_plain on the batch's and "
+        f"the tampered batch's inputs at every team size and at B = 1")
     kernels.append(dict(
         name="fr_tape", route="cuda", source="snark_verifier_tpu_torch/csrc/fr_tape.cu",
         replaces="snark_verifier_tpu/ff/jnp_field.py:145",
@@ -1226,11 +1247,14 @@ def verify_phase(dev, kernels, errs):
                        "snark_verifier_tpu/parallel/batch_verify.py:86"],
         launches=launches["fr_tape"], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape=list(ins.shape), ms_b1=ms1, chain_floor_ms=floor,
-        chain_muls=chain, muls_per_lane=muls, least_muls_per_lane=least_muls,
-        least_chain_muladds=least_chain, inversions_ms=ms_inv, rows=len(tape.rows),
-        slots=tape.n_slots,
-        slot_layout="shared memory [slot][word][lane]", shared_bytes=smem,
-        ptxas_registers=regs, ptxas_stack_bytes=stack, tolerance="exact, canonical"))
+        team_ms={str(t): v for t, v in team_ms.items()}, **sched,
+        reference_chain_muls=chain, reference_muls_per_lane=muls,
+        least_muladds=work["least_muladds"], inv_chain_muladds=work["inv_chain_muladds"],
+        inv_gcd_muladds_mean=work["inv_gcd_muladds_mean"], inv_rounds_max=work["inv_rounds_max"],
+        inversions_ms=ms_inv, rows=len(tape.rows), slots=tape.n_slots,
+        slot_layout="shared memory [slot][lane][word]", shared_bytes=smem,
+        ptxas_registers=regs, ptxas_stack_bytes=stack, ptxas_spill_bytes=spills,
+        timed="kernel_ms: queued behind a spin of the card", tolerance="exact, canonical"))
 
     # The verify MSM against its plain version on the batch's own bases and
     # scalars, captured from one more call.
@@ -1891,6 +1915,61 @@ def inv_work(rounds):
     n_ops = sum(rounds) * (INV_STEPS * INV_STEP_OPS + INV_ROUND_MULADDS)
     floor = max(rounds) * (INV_STEPS * INV_STEP_CLOCKS + INV_UPDATE_CLOCKS) / CLOCK_HZ * 1e3
     return 2 * 32 * len(rounds), n_ops, floor
+
+
+def fr_tape_work(tape, ins, values):
+    """svt_fr_tape's bound and chain floor on these inputs, given
+    `run_plain`'s row values: {bound_ms, bound_by, chain_floor_ms, ...}.
+    The least work a lane: a product's 136 multiply-adds (a square's 108),
+    OUT a reduction (72), and an INV the smaller of the least addition chain
+    for x^(r - 2) (`inv_least_muladds`) and the binary GCD's operations for
+    the rounds this lane's value takes (`gcd_rounds`, `inv_work`); summed
+    over the lanes.  The chain floor: the longest dependent chain at 2
+    clocks a multiply-add, an INV the smaller of the chain's and the GCD's
+    chain floor for the batch's slowest lane."""
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.ff import fr_tape as ft
+
+    B = ins.shape[1]
+    rows = tape.rows.tolist()
+    writer, inv_rounds = {}, []
+    for i, (op, dst, s1, _) in enumerate(rows):
+        if op == ft.INV:
+            kind, idx = s1 >> ft.KIND_SHIFT, s1 & ft.INDEX_MASK
+            x = (values[writer[idx]] if kind == ft.SLOT else ins[idx] if kind == ft.INPUT
+                 else tape.device_arrays(ins.device)[1][idx]).expand(B, 8)
+            inv_rounds.append([gcd_rounds(v, FR.p) for v in word_ints(x)])
+        if op != ft.OUT:
+            writer[dst] = i
+    least = tape.row_muladds(least=True)
+    chain_inv = ft.inv_least_muladds()
+    gcd_lane = INV_STEPS * INV_STEP_OPS + INV_ROUND_MULADDS  # operations a round
+    work = B * int(least[np.array([r[0] != ft.INV for r in rows], bool)].sum())
+    work += sum(min(chain_inv, r * gcd_lane) for lanes in inv_rounds for r in lanes)
+    clocks = 2 * least.astype(np.float64)  # 2 clocks a dependent multiply-add
+    gcd_clocks = [max(lanes) * (INV_STEPS * INV_STEP_CLOCKS + INV_UPDATE_CLOCKS)
+                  for lanes in inv_rounds]
+    k = 0
+    for i, r in enumerate(rows):
+        if r[0] == ft.INV:
+            clocks[i] = min(2 * chain_inv, gcd_clocks[k])
+            k += 1
+    n_bytes = (ins.shape[0] + len(tape.outputs)) * B * 32 + tape.rows.nbytes + tape.consts.nbytes
+    bms, by = bound_ms(n_bytes, work)
+    flat = [r for lanes in inv_rounds for r in lanes]
+    return dict(bound_ms=bms, bound_by=by, chain_floor_ms=tape.chain(clocks) / CLOCK_HZ * 1e3,
+                least_muladds=work, inv_chain_muladds=chain_inv,
+                inv_gcd_muladds_mean=(sum(flat) / len(flat) * gcd_lane) if flat else None,
+                inv_rounds_mean=(sum(flat) / len(flat)) if flat else None,
+                inv_rounds_max=max(flat) if flat else None,
+                inv_chain_clocks=2 * chain_inv, inv_gcd_clocks=gcd_clocks)
+
+
+def fr_tape_sched_info(tape, team):
+    s = tape.schedule(team)
+    c = s.counts()
+    return dict(team=team, steps=c["steps"], multiply_steps=c["product_steps"] + c["square_steps"],
+                invert_steps=c["invert_steps"], schedule_slots=s.n_slots)
 
 
 def evm_phase(dev, kernels):
@@ -2723,15 +2802,16 @@ def ipa_openings_phase(dev, kernels):
     got = fr_tape.run(tape, ins)
     torch.cuda.synchronize()
     t0 = time.time()
-    want = fr_tape.run_plain(tape, ins)
+    values = []
+    want = fr_tape.run_plain(tape, ins, values)
     torch.cuda.synchronize()
     tape_plain = (time.time() - t0) * 1e3
     tape_err = word_err(got, want)
     check(tape_err == 0, "ipa: fr_tape differs from run_plain on the batch's inputs")
     tape_ms = kernel_ms(lambda: fr_tape.run(tape, ins), 20)
-    least = tape.row_muladds(least=True)
-    bms, by = bound_ms((ins.shape[0] + len(tape.outputs)) * B * 32, B * int(least.sum()))
-    floor = tape.chain(least) * CHAIN_FLOOR_MS_PER_MUL / MULADDS_PER_FQ_MUL
+    work = fr_tape_work(tape, ins, values)
+    bms, by, floor = work["bound_ms"], work["bound_by"], work["chain_floor_ms"]
+    sched = fr_tape_sched_info(tape, fr_tape.TEAM)
     pts, scs = seen_msm[0]
     got = cuda_ops.msm_windowed(pts, scs)
     torch.cuda.synchronize()
@@ -2747,7 +2827,8 @@ def ipa_openings_phase(dev, kernels):
                          B * msm_windowed_muladds(n))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mfloor = msm_windowed_chain_muls(B, n, sms) * CHAIN_FLOOR_MS_PER_MUL
-    log(f"# ipa fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8): "
+    log(f"# ipa fr_tape at ({ins.shape[0]}, {B}, 8) -> ({len(tape.outputs)}, {B}, 8), team "
+        f"{sched['team']} ({sched['steps']} steps, {sched['multiply_steps']} of products): "
         f"{tape_ms:.4f} ms (bound {bms:.6f} ms, {by}; chain floor {floor:.4f} ms); plain "
         f"{tape_plain:.1f} ms; == run_plain word for word")
     log(f"# ipa msm_windowed at {tuple(pts.shape[:2])}: {msm_ms:.4f} ms (bound {mbms:.4f} ms, "
@@ -2756,7 +2837,7 @@ def ipa_openings_phase(dev, kernels):
         if row["name"] == "fr_tape":
             row.update(ipa_shape=list(ins.shape), ipa_ms=tape_ms, ipa_bound_ms=bms,
                        ipa_chain_floor_ms=floor, ipa_plain_ms=tape_plain, ipa_max_abs_err=tape_err,
-                       ipa_rows=len(tape.rows), launches_ipa=1)
+                       ipa_rows=len(tape.rows), ipa_steps=sched["steps"], launches_ipa=1)
         if row["name"] == "msm_windowed":
             row.update(ipa_shape=list(pts.shape), ipa_ms=msm_ms, ipa_bound_ms=mbms,
                        ipa_chain_floor_ms=mfloor, ipa_plain_ms=msm_plain, ipa_max_abs_err=msm_err,
@@ -3981,15 +4062,26 @@ def main() -> int:
         top_bound_ms=fold_bounds["top"][0], launches_fold_segments_msm=launches["fold_segments"],
         split_rows=split_in_use, top_split_sweep_ms=split_sweep))
 
-    # add throughput at a large batch (the ladder's last step), for PERF.md
+    # svt_g1_add and svt_g1_double at a throughput shape, 2^19 points of the
+    # MSM's bases, each beside its plain version and its bound (the kernel
+    # time, queued behind a spin of the card); the rows' own shapes stay.
     big = 1 << 19
-    ba, bb2 = pts_w[:big].contiguous(), pts_w[big:].contiguous()
-    ms_big = time_ms(lambda: cuda_ops.add(ba, bb2), 10)
-    ms_dbig = time_ms(lambda: cuda_ops.double(ba), 10)
-    log(f"# add at B=2^19: {ms_big:.4f} ms ({big / ms_big / 1e6:.3f} G adds/s, bound "
-        f"{bound_ms(3 * POINT_BYTES * big, MULADDS_PER_ADD * big)[0]:.4f} ms); "
-        f"double at B=2^19: {ms_dbig:.4f} ms (bound "
-        f"{bound_ms(2 * POINT_BYTES * big, MULADDS_PER_DOUBLE * big)[0]:.4f} ms)")
+    ba, bb2 = pts_w[:big].contiguous(), pts_w[big:2 * big].contiguous()
+    for kname, fn, plain_fn, args, muladds, n_points in (
+            ("add", cuda_ops.add, cuda_ops.add_plain, (ba, bb2), MULADDS_PER_ADD, 3),
+            ("double", cuda_ops.double, cuda_ops.double_plain, (ba,), MULADDS_PER_DOUBLE, 2)):
+        t_err = int((canon_words(fn(*args)) - canon_words(plain_fn(*args))).abs().max())
+        check(t_err == 0, f"{kname} kernel disagrees with its twin at {big} points")
+        t_ms = kernel_ms(lambda: fn(*args), 20)
+        t_plain = time_ms(lambda: plain_fn(*args), 1, warmup=0)
+        t_bms, t_by = bound_ms(n_points * POINT_BYTES * big, muladds * big)
+        row = next(r for r in kernels if r["name"] == kname)
+        row.update(throughput_shape=[big, 3, 8], throughput_ms=t_ms, throughput_plain_ms=t_plain,
+                   throughput_bound_ms=t_bms, throughput_bound_by=t_by,
+                   throughput_max_abs_err=t_err)
+        log(f"# {kname} at B=2^19: {t_ms:.4f} ms (kernel time; {big / t_ms / 1e6:.3f} G a s; "
+            f"bound {t_bms:.4f} ms, {t_by}: {t_bms / t_ms:.1%} of it); plain {t_plain:.1f} ms; "
+            f"== the plain version")
     del pts_w, points_ext, digits, sa, sb, saw, sbw, ba, bb2, stacked  # points, scalars: steps 24-25
     del idx_all, idx_rows, idx_main, idx_top, idx_t, pe, d_all
     torch.cuda.empty_cache()

@@ -74,6 +74,15 @@ other checkout must be one whose `svt_fold_buckets` takes it):
   tables, a tile's canonical words staged in shared memory and stored 16
   bytes a thread), built as its own library (rows of kind
   `ipa_h_coeffs_vec`, whose "parent" columns are that route's);
+* where the other checkout has it: `svt_fr_tape`, the recorded Fr program,
+  called as the other checkout declares it (the tape's rows in order, or
+  a team schedule where its entry point takes a team), beside this
+  checkout's wrapper at every team size (rows `fr_tape_team`, `chosen`
+  where the team is the wrapper's), each held to `run_plain` word for
+  word: the SHPLONK tape on the 16 vanilla fixtures' gathered inputs at
+  (35, 1,024) and (35, 1), the GWC19 tape on the `gwcsnark` fixtures' at
+  1,024, the IPA k = 11 and ick keccak tapes on random lazy words at
+  1,024 (`fr_tape_cases`); kernel time, queued behind a spin of the card;
 * `to_affine` (this checkout alone): the keccak read's normalisation of
   instance commitments, one `svt_points_to_fr` launch with `map_fr=False`,
   beside the two launches of `cuda_ops.affine_xy` (`svt_field_inv`,
@@ -119,8 +128,10 @@ PARENT_UNITS = {
     "keccak_kernels": {"svt_keccak_squeeze": [_P, _P, _I, _P, _I, _P, _P, _P, _LL, _P]},
     "accumulation_kernels": {"svt_fr_powers": [_P, _I, _P, _LL, _P]},
     "ipa_kernels": {"svt_ipa_h_coeffs": [_P, _I, _P, _P, _P]},
+    "fr_tape": {"svt_fr_tape": [_P, _I, _P, _P, _P, _LL, _I, _P]},
 }
-OPTIONAL_UNITS = ("field_kernels", "keccak_kernels", "accumulation_kernels", "ipa_kernels")
+OPTIONAL_UNITS = ("field_kernels", "keccak_kernels", "accumulation_kernels", "ipa_kernels",
+                  "fr_tape")
 
 
 def build_parent(csrc: Path, out_dir: Path):
@@ -214,6 +225,57 @@ def rand_lazy_words(rng, shape, p, device):
     return limbs_to_words(torch.from_numpy(raw.astype(np.int64).reshape(*shape, 16))).to(device)
 
 
+def fr_tape_cases(dev):
+    """[(name, tape, inputs)]: the recorded SHPLONK (vanilla k=10) tape on
+    the 16 fixtures' gathered inputs tiled to 1,024 and on its first lane;
+    the GWC19 tape on the 16 `gwcsnark` fixtures' at 1,024; the IPA k = 11
+    tape and the ick keccak tape (the evmsnark protocol with an instance
+    committing key and its instance column queried, chip_smoke.py step 21)
+    on random lazy words at 1,024 (numpy seed 19)."""
+    import copy
+
+    import torch
+    from snark_verifier_tpu_torch.ec import py_ec
+    from snark_verifier_tpu_torch.ff import FR
+    from snark_verifier_tpu_torch.loader.base import TorchLoader
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as ipa_fx
+    from snark_verifier_tpu_torch.pcs.ipa import ipa_plan
+    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21, Gwc19
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+    from snark_verifier_tpu_torch.sdk.snark import Snark
+    from snark_verifier_tpu_torch.transcript import PoseidonTranscript
+    from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
+    from snark_verifier_tpu_torch.verifier.plonk.protocol import Query
+
+    fx = Path(__file__).resolve().parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    B = 1024
+    cases = []
+    for name, prefix, multiopen, scheme in (("shplonk", "snark", Bdfg21, "shplonk"),
+                                           ("gwc19", "gwcsnark", Gwc19, "gwc")):
+        base = [Snark.load(str(fx / f"{prefix}_{i:02d}.json")) for i in range(16)]
+        snarks = [base[i % 16] for i in range(B)]
+        plan = succinct_plan(base[0].protocol, multiopen, scheme, "poseidon")
+        sc, pts = agg._stack_streams(snarks, dev)
+        inst = agg._stack_instances(snarks, dev)
+        reads = plan.read(inst, PoseidonTranscript(sc, pts, dev), TorchLoader(B, dev))
+        ins = plan.gather(inst, reads, B).contiguous()
+        cases.append((name, plan.tape, ins))
+        if name == "shplonk":
+            cases.append((name, plan.tape, ins[:, :1].contiguous()))
+    proto = copy.deepcopy(Snark.load(str(fx / "evmsnark_00.json")).protocol)
+    proto.instance_committing_key = {
+        "bases": py_ec.rand_points(proto.num_instance[0], seed=23),
+        "constant": py_ec.rand_points(1, seed=24)[0]}
+    iq = Query(len(proto.preprocessed), 0)
+    proto.evaluations.append(iq)
+    proto.queries.append(iq)
+    rng = np.random.default_rng(19)
+    for name, tape in (("ipa_k11", ipa_plan("ipa", ipa_fx.ipa_keys()[0].svk, device=dev).tape),
+                       ("ick_keccak", succinct_plan(proto, Bdfg21, "shplonk", "evm").tape)):
+        cases.append((name, tape, rand_lazy_words(rng, (len(tape.inputs), B), FR.p, dev)))
+    return cases
+
+
 def main() -> int:
     import torch
 
@@ -225,7 +287,7 @@ def main() -> int:
                     help="comma-separated parts to run: fq_mul_chain, msm (the folds), "
                          "msm_loops (the point loops), loop_variants (msm_loops and the "
                          "probe's variants), poseidon_permute, field_inv, keccak_read, fr_powers, "
-                         "points_to_fr, h_coeffs, to_affine (default all)")
+                         "points_to_fr, h_coeffs, to_affine, fr_tape (default all)")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -668,6 +730,46 @@ def main() -> int:
                 r = rows[-1]
                 r.update(parent_gb_per_s=n_bytes / max(r["parent_ms"]) / 1e6,
                          this_gb_per_s=n_bytes / max(r["this_ms"]) / 1e6)
+
+    # ---------------------------------------------- the recorded Fr programs
+    if "svt_fr_tape" in parent and selected("fr_tape"):
+        from snark_verifier_tpu_torch.ff import fr_tape
+
+        sig = re.search(r"int svt_fr_tape\((.*?)\)", (args.parent / "fr_tape.cu").read_text(),
+                        re.S).group(1)
+        parent_teams = "int team" in sig
+        if parent_teams:
+            parent["svt_fr_tape"].argtypes = [_P, _I, _I, _P, _I, _P, _I, _P, _LL, _I, _P]
+
+        def p_tape(tape, ins, out):
+            """The parent's kernel: the tape's rows in order, or (a parent
+            that takes a team) this checkout's schedule at the wrapper's team."""
+            B = ins.shape[1]
+            consts = tape.device_arrays(dev)[1]
+            if parent_teams:
+                sched = tape.schedule(fr_tape.TEAM)
+                call(parent["svt_fr_tape"], sched.device_steps(dev).data_ptr(), sched.n_steps,
+                     sched.team, consts.data_ptr(), consts.shape[0], ins.data_ptr(),
+                     ins.shape[0], out.data_ptr(), B, sched.n_slots)
+            else:
+                call(parent["svt_fr_tape"], tape.device_arrays(dev)[0].data_ptr(),
+                     len(tape.rows), consts.data_ptr(), ins.data_ptr(), out.data_ptr(), B,
+                     tape.n_slots)
+            return out
+
+        for name, tape, ins in fr_tape_cases(dev):
+            B = ins.shape[1]
+            out = torch.empty((len(tape.outputs), B, 8), dtype=torch.int32, device=dev)
+            want = fr_tape.run_plain(tape, ins)
+            p_tape(tape, ins, out)
+            chosen = fr_tape.TEAM
+            for team in fr_tape.TEAMS:
+                compare("fr_tape_team", lambda: p_tape(tape, ins, out),
+                        lambda: fr_tape.run(tape, ins, team=team), out, word_err, want, 20,
+                        timer=kernel_ms, tape=name, shape=list(ins.shape), rows=len(tape.rows),
+                        team=team, chosen=team == chosen,
+                        **{k: v for k, v in tape.schedule(team).counts().items()},
+                        slots=tape.schedule(team).n_slots)
 
     # -------------------------- the keccak read's normalisation, one launch
     if selected("to_affine"):

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "svt_field_canon": [_I, _P, _P, _LL, _P],
     "svt_points_to_fr": [_P, _I, _P, _LL, _P],
     # fr_tape.cu
-    "svt_fr_tape": [_P, _I, _P, _P, _P, _LL, _I, _P],
+    "svt_fr_tape": [_P, _I, _I, _P, _I, _P, _I, _P, _LL, _I, _P],
     # poseidon_kernels.cu
     "svt_poseidon_load_constants": [_P, _P],
     "svt_poseidon_permute": [_P, _P, _LL, _P],

@@ -109,9 +109,16 @@ def test_vanilla_k10_plan_counts():
                                 "one_if_zero": 23, "zero_if_zero": 23, "out": 26}
     assert tape.n_slots == 40 <= ft.MAX_SLOTS
     assert (len(tape.inputs), len(tape.outputs), plan.n_points) == (35, 26, 16)
+    # the reference's counts (an INV as Fermat's 381 multiplies)
     assert tape.muls() == 328 + 26 + 3 * ft.INV_MULS == 1497
     # the CPE's inversion runs beside SHPLONK's first; its second follows
     assert 2 * ft.INV_MULS < tape.chain_muls() == 797 < 3 * ft.INV_MULS
+    assert tape.chain((tape.rows[:, 0] == ft.INV).astype(int)) == 2  # INV rows on the chain
+    # the kernel's team schedules: steps, multiply steps, inversion steps
+    got = {t: tape.schedule(t).counts() for t in ft.TEAMS}
+    assert {t: (c["steps"], c["product_steps"] + c["square_steps"], c["invert_steps"])
+            for t, c in got.items()} == {1: (594, 354, 3), 2: (305, 181, 2), 4: (168, 96, 2),
+                                         8: (109, 63, 2)}
     # every operand names a live slot, an input row or a constant
     kinds = tape.rows[:, 2:] >> ft.KIND_SHIFT
     idx = tape.rows[:, 2:] & ft.INDEX_MASK

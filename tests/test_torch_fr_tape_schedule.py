@@ -1,8 +1,14 @@
-"""svt_fr_tape's own C++ (csrc/fr_tape.cu), run on the host against the
-plain interpreter `ff/fr_tape.py::run_plain`: a schedule twin.  The kernel
-squares where both operands are one value, reads its operands from a
-[slot][word][lane] slot file, and picks its ops by row; this test runs that
-code, lane by lane.
+"""svt_fr_tape's own C++ (csrc/fr_tape.cu, with the real csrc/fe_inv.cuh),
+run on the host against the plain interpreter `ff/fr_tape.py::run_plain`:
+a schedule twin.  The kernel runs a tape's team schedule
+(`ff/fr_tape.py::schedule`): a team of T threads a lane, a step's rows one
+a thread, a `__syncwarp` between steps, a [slot][lane][word] slot file in
+shared memory read and written 16 bytes at a time; this test runs that
+code as the card does, a std::thread per thread of the warp and a
+std::barrier of the 32 for `__syncwarp` (a thread that reads a slot before
+its writer's step has passed the barrier, or after a later step has
+reused it, shows as a wrong value; the slot file starts each block filled
+with a pattern).
 
 `svt_fr_powers` (csrc/accumulation_kernels.cu) runs as the kernel runs it,
 a warp a transcript: one std::thread per lane, `__shfl_up_sync` and
@@ -14,10 +20,12 @@ both sides of the warp's 32 lanes and of its chunk carries.
 g++ compiles the sources with the launch syntax stripped, a stub of the CUDA
 runtime, and a portable C++ stand-in for csrc/fq.cuh's field functions for
 both fields (whose inline-PTX carry chains tests/test_torch_mul_schedule.py
-runs word by word).  The program is the recorded vanilla PLONK k=10 plan;
-the lanes are two fixture proofs' gathered inputs, one of random lazy
-words, and one of zeros (every batch inversion then meets zeros).  Skips
-inside the test where no g++ is found.
+runs word by word).  The programs are the recorded vanilla PLONK k=10
+(SHPLONK), GWC19 and IPA k = 11 plans and a hand-made tape through every
+op, at every team size (1, 2, 4, 8) and at the wrapper's choice; the
+batch is ragged (5 lanes): two fixture proofs' gathered inputs, random lazy
+words and zeros (every batch inversion then meets zeros).  Skips inside the
+test where no g++ is found.
 
 Tolerance: exact, word for word on the canonical outputs."""
 
@@ -34,7 +42,9 @@ from snark_verifier_tpu_torch.ff import FQ, FR, limbs_to_words
 from snark_verifier_tpu_torch.ff import fr_tape as ft
 from snark_verifier_tpu_torch.loader.base import TorchLoader
 from snark_verifier_tpu_torch.pcs.kzg.accumulation import powers_plain
-from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
+from snark_verifier_tpu_torch.pcs.ipa import fixtures as ipa_fx
+from snark_verifier_tpu_torch.pcs.ipa import ipa_plan
+from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21, Gwc19
 from snark_verifier_tpu_torch.sdk import aggregation as agg
 from snark_verifier_tpu_torch.sdk.snark import Snark
 from snark_verifier_tpu_torch.transcript import PoseidonTranscript
@@ -140,31 +150,53 @@ template <int F> inline void fe_inv(uint32_t r[8], const uint32_t a[8]) {
     "oq": _words((1 << 256) % FQ.p), "or_": _words((1 << 256) % FR.p),
 })
 
-# Reads (B, n_rows, n_in, n_out, n_const), the rows, the constants and the
-# inputs; runs every lane through the kernel's own body.
+# A warp's lanes are threads: threadIdx is each thread's own, __syncwarp a
+# barrier of the warp's 32 threads.
+TEAM_RUNTIME_STUB = RUNTIME_STUB.replace("extern dim3_ threadIdx, blockIdx;", r"""
+extern thread_local dim3_ threadIdx, blockIdx;
+#include <barrier>
+extern thread_local std::barrier<>* svt_warp_barrier;
+inline void __syncwarp(unsigned = 0xffffffffu) { svt_warp_barrier->arrive_and_wait(); }
+""")
+
+# Reads (B, n_steps, team, n_in, n_out, n_const, n_slots), the schedule's steps, the
+# constants and the inputs; runs the grid a block at a time, a thread per
+# thread of the block's warp, through the kernel's own body.  The slot file
+# is filled with a pattern before each block, so a read of a slot no row of
+# the block wrote shows as a wrong value.
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <thread>
 #include <vector>
 #include "cuda_runtime.h"
-dim3_ threadIdx, blockIdx;
+thread_local dim3_ threadIdx, blockIdx;
+thread_local std::barrier<>* svt_warp_barrier;
 #include "fr_tape.cpp"
-namespace svt { uint32_t tape_slot_file[TAPE_MAX_SLOTS * FQ_WORDS * TAPE_LANES]; }
+namespace svt { uint4 tape_slot_file[TAPE_SMEM_BYTES / 16]; }
 static std::vector<uint32_t> rd(FILE* f, size_t n) {
   std::vector<uint32_t> v(n ? n : 1);
   if (n && fread(v.data(), 4, n, f) != n) exit(3);
   return v; }
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
-  long long h[5];
-  if (fread(h, 8, 5, f) != 5) return 2;
-  const long long B = h[0], n_rows = h[1], n_in = h[2], n_out = h[3], n_const = h[4];
-  auto rows = rd(f, n_rows * 4), consts = rd(f, n_const * 8), in = rd(f, n_in * B * 8);
-  std::vector<uint32_t> out(n_out * B * 8);
-  for (long long b = 0; b < B; b++) {
-    blockIdx.x = b / 32; threadIdx.x = b % 32;
-    svt::fr_tape_kernel((const int4*)rows.data(), (int)n_rows, consts.data(), in.data(),
-                        out.data(), B);
+  long long h[7];
+  if (fread(h, 8, 7, f) != 7) return 2;
+  const long long B = h[0], n_steps = h[1], team = h[2], n_in = h[3], n_out = h[4], n_const = h[5],
+                  n_slots = h[6];
+  auto steps = rd(f, n_steps * team * 4), consts = rd(f, n_const * 8), in = rd(f, n_in * B * 8);
+  std::vector<uint32_t> out(n_out * B * 8, 0xdeadbeefu);
+  const long long lanes = 32 / team;
+  for (long long blk = 0; blk < (B + lanes - 1) / lanes; blk++) {
+    for (auto& q : svt::tape_slot_file) q = uint4{0xa5a5a5a5u, 0x5a5a5a5au, 0xa5a5a5a5u, 0x5a5a5a5au};
+    std::barrier<> warp(32);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < 32; t++)
+      threads.emplace_back([&, t] {
+        blockIdx.x = (unsigned)blk; threadIdx.x = t; svt_warp_barrier = &warp;
+        svt::fr_tape_kernel((const int4*)steps.data(), (int)n_steps, (int)team, (int)n_slots,
+                            consts.data(), (int)n_const, in.data(), (int)n_in, out.data(), B); });
+    for (auto& th : threads) th.join();
   }
   FILE* o = fopen(argv[2], "wb");
   fwrite(out.data(), 4, out.size(), o);
@@ -183,25 +215,32 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
+    """run(tape, inputs, team) -> the kernel's outputs under g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to run the kernel's C++ on the host")
     d = tmp_path_factory.mktemp("fr_tape_schedule")
-    (d / "cuda_runtime.h").write_text(RUNTIME_STUB)
-    (d / "fq.cuh").write_text(FIELD_STUB)
+    (d / "cuda_runtime.h").write_text(TEAM_RUNTIME_STUB)
+    # fq.cuh's functions without its Fermat fe_inv: the kernel's INV is
+    # fe_inv.cuh's binary GCD, and one that called fe_inv would not build
+    (d / "fq.cuh").write_text(FIELD_STUB[:FIELD_STUB.index("template <int F> inline void fe_inv")]
+                              + "}  // namespace svt\n")
+    (d / "fe_inv.cuh").write_text((CSRC / "fe_inv.cuh").read_text())
     src = (CSRC / "fr_tape.cu").read_text()
     (d / "fr_tape.cpp").write_text(re.sub(r"<<<.*?>>>", "", src, flags=re.S))
     (d / "harness.cpp").write_text(HARNESS)
-    subprocess.run([gxx, "-std=c++17", "-O2", "-I", str(d), "-o", str(d / "harness"),
-                    str(d / "harness.cpp")], check=True, capture_output=True, timeout=300)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-I", str(d), "-o",
+                    str(d / "harness"), str(d / "harness.cpp")], check=True, capture_output=True,
+                   timeout=300)
 
-    def run(tape, inputs):
+    def run(tape, inputs, team):
+        sched = tape.schedule(team)
         B = inputs.shape[1]
-        inp, out = d / "in.bin", d / "out.bin"
+        inp, out = d / f"in_{team}.bin", d / f"out_{team}.bin"
         with open(inp, "wb") as f:
-            f.write(np.array([B, len(tape.rows), inputs.shape[0], len(tape.outputs),
-                              tape.consts.shape[0]], np.int64).tobytes())
-            f.write(np.ascontiguousarray(tape.rows).tobytes())
+            f.write(np.array([B, sched.n_steps, team, inputs.shape[0], len(tape.outputs),
+                              tape.consts.shape[0], sched.n_slots], np.int64).tobytes())
+            f.write(np.ascontiguousarray(sched.steps).tobytes())
             f.write(np.ascontiguousarray(tape.consts).tobytes())
             f.write(inputs.contiguous().numpy().tobytes())
         subprocess.run([str(d / "harness"), str(inp), str(out)], check=True, timeout=300)
@@ -219,8 +258,9 @@ def _lazy_words(rng, n):
 
 @pytest.fixture(scope="module")
 def plan_inputs():
-    """The vanilla_k10 plan and a (n_in, 4, 8) input block: fixtures 0 and 1
-    as the transcript reads them, random lazy words, zeros."""
+    """The vanilla_k10 plan and a (n_in, 5, 8) input block: fixtures 0 and 1
+    as the transcript reads them, random lazy words, zeros, random lazy
+    words (a ragged batch at every team size but 32 / 32)."""
     snarks = [Snark.load(str(FIXTURES / f"snark_{i:02d}.json")) for i in range(2)]
     plan = succinct_plan(snarks[0].protocol, Bdfg21, "shplonk", "poseidon")
     dev = torch.device("cpu")
@@ -229,18 +269,44 @@ def plan_inputs():
     reads = plan.read(inst, PoseidonTranscript(sc, pts, dev), TorchLoader(2, dev))
     fixture = plan.gather(inst, reads, 2)
     n_in = fixture.shape[0]
-    rand = _lazy_words(np.random.default_rng(6), n_in)[:, None]
+    rand = _lazy_words(np.random.default_rng(6), 2 * n_in).reshape(2, n_in, 8).transpose(0, 1)
     zeros = torch.zeros((n_in, 1, 8), dtype=torch.int32)
-    return plan, torch.cat([fixture, rand, zeros], 1).contiguous()
+    return plan, torch.cat([fixture, rand[:, :1], zeros, rand[:, 1:]], 1).contiguous()
 
 
-def test_kernel_body_matches_run_plain(harness, plan_inputs):
+@pytest.fixture(scope="module")
+def tapes(plan_inputs):
+    """{name: (tape, inputs, run_plain's outputs)}: the vanilla_k10 plan on
+    `plan_inputs`; the GWC19 plan and the IPA k = 11 plan on four lanes of
+    random lazy words and one of zeros."""
     plan, inputs = plan_inputs
-    want = ft.run_plain(plan.tape, inputs)
-    got = harness(plan.tape, inputs)
+    gwc = succinct_plan(Snark.load(str(FIXTURES / "gwcsnark_00.json")).protocol, Gwc19, "gwc",
+                        "poseidon").tape
+    ipa = ipa_plan("ipa", ipa_fx.ipa_keys()[0].svk, device="cpu").tape
+    out = {"shplonk": (plan.tape, inputs)}
+    for k, (name, tape) in enumerate((("gwc19", gwc), ("ipa_k11", ipa))):
+        n_in = len(tape.inputs)
+        rand = _lazy_words(np.random.default_rng(40 + k), 4 * n_in).reshape(4, n_in, 8)
+        ins = torch.cat([rand[:3], torch.zeros((1, n_in, 8), dtype=torch.int32), rand[3:]])
+        out[name] = (tape, ins.transpose(0, 1).contiguous())
+    return {name: (tape, ins, ft.run_plain(tape, ins)) for name, (tape, ins) in out.items()}
+
+
+def test_kernel_body_matches_run_plain(harness, tapes):
+    tape, inputs, want = tapes["shplonk"]
+    got = harness(tape, inputs, ft.TEAM)
     assert torch.equal(got, want)
     assert not torch.equal(want[:, 0], want[:, 1])
     assert not torch.equal(want[:, 2], want[:, 3])
+
+
+@pytest.mark.parametrize("team", ft.TEAMS)
+@pytest.mark.parametrize("name", ["shplonk", "gwc19", "ipa_k11"])
+def test_team_kernel_body_matches_run_plain(harness, tapes, name, team):
+    """Every team size on a ragged batch of 5 (the last block's lanes past
+    B run the steps and store nothing): word for word."""
+    tape, inputs, want = tapes[name]
+    assert torch.equal(harness(tape, inputs, team), want)
 
 
 def test_kernel_body_squares_and_selects(harness):
@@ -273,7 +339,8 @@ def test_kernel_body_squares_and_selects(harness):
     y = torch.cat([_lazy_words(rng, 2), torch.zeros((1, 8), dtype=torch.int32)])
     inputs = torch.stack([x, y], 0).contiguous()
     want = ft.run_plain(tape, inputs)
-    assert torch.equal(harness(tape, inputs), want)
+    for team in ft.TEAMS:
+        assert torch.equal(harness(tape, inputs, team), want), team
     # the lane with y = 0: ONE_IF_ZERO gives 1, ZERO_IF_ZERO 0
     assert want[1, 2].tolist() == [1] + [0] * 7 and not bool(want[2, 2].any())
     assert bool(want[2, :2].any(-1).all())

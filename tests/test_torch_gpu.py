@@ -485,39 +485,68 @@ def test_batch_succinct_verify_on_card_matches_oracle(cuda):
     assert got == [succinct_verify_native(s, srs)[0] for s in snarks]
 
 
-def _fr_tape_inputs(device, B):
-    """The vanilla_k10 plan and its (n_in, B, 8) input block for the 16
-    fixtures tiled to B lanes, as the verify path gathers it."""
-    from snark_verifier_tpu_torch.loader.base import TorchLoader
-    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21
-    from snark_verifier_tpu_torch.sdk import aggregation as agg
-    from snark_verifier_tpu_torch.transcript import PoseidonTranscript
+@functools.lru_cache(maxsize=None)
+def _fr_tape_plans():
+    """The recorded SHPLONK and GWC19 plans (vanilla k=10) and the IPA k =
+    11 plan's tape."""
+    from snark_verifier_tpu_torch.pcs.ipa import fixtures as ipa_fx
+    from snark_verifier_tpu_torch.pcs.ipa import ipa_plan
+    from snark_verifier_tpu_torch.pcs.kzg.multiopen import Bdfg21, Gwc19
     from snark_verifier_tpu_torch.verifier.plonk.plan import succinct_plan
 
     d = Path(__file__).resolve().parent.parent / "benchmarks" / "fixtures" / "vanilla_k10"
-    base = [Snark.load(str(d / f"snark_{i:02d}.json")) for i in range(16)]
+    first = lambda prefix: Snark.load(str(d / f"{prefix}_00.json")).protocol
+    return {"shplonk": succinct_plan(first("snark"), Bdfg21, "shplonk", "poseidon"),
+            "gwc19": succinct_plan(first("gwcsnark"), Gwc19, "gwc", "poseidon"),
+            "ipa_k11": ipa_plan("ipa", ipa_fx.ipa_keys()[0].svk, device="cpu").tape}
+
+
+def _fr_tape_inputs(device, B, name="shplonk"):
+    """A tape and its (n_in, B, 8) input block: for SHPLONK and GWC19 the 16
+    fixtures tiled to B lanes, as the verify path gathers them; for IPA
+    random lazy words (numpy seed 19, 0, r and 2r first)."""
+    from snark_verifier_tpu_torch.loader.base import TorchLoader
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+    from snark_verifier_tpu_torch.transcript import PoseidonTranscript
+
+    plan = _fr_tape_plans()[name]
+    if name == "ipa_k11":
+        rng = np.random.default_rng(19)
+        n = len(plan.inputs) * B
+        vals = [int.from_bytes(rng.bytes(32), "little") % (2 * FR.p + 1) for _ in range(n)]
+        vals[:3] = [0, FR.p, 2 * FR.p][:n]
+        words = [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in vals]
+        ins = torch.tensor(np.array(words, np.uint32).view(np.int32).reshape(-1, B, 8),
+                           device=device)
+        return plan, ins
+    prefix = "snark" if name == "shplonk" else "gwcsnark"
+    d = Path(__file__).resolve().parent.parent / "benchmarks" / "fixtures" / "vanilla_k10"
+    base = [Snark.load(str(d / f"{prefix}_{i:02d}.json")) for i in range(16)]
     snarks = [base[i % 16] for i in range(B)]
-    plan = succinct_plan(base[0].protocol, Bdfg21, "shplonk", "poseidon")
     sc, pts = agg._stack_streams(snarks, device)
     inst = agg._stack_instances(snarks, device)
     reads = plan.read(inst, PoseidonTranscript(sc, pts, device), TorchLoader(B, device))
-    return plan, plan.gather(inst, reads, B)
+    return plan.tape, plan.gather(inst, reads, B).contiguous()
 
 
-@pytest.mark.parametrize("B", [1024, 1])
+@pytest.mark.parametrize("B", [1024, 33, 1])
 def test_fr_tape_kernel_matches_run_plain(cuda, B):
+    """The kernel at the wrapper's team size and at every other, on the
+    SHPLONK, GWC19 and IPA tapes: one launch a call, word for word."""
     from snark_verifier_tpu_torch.ff import fr_tape
 
-    plan, inputs = _fr_tape_inputs(cuda, B)
-    reset_launches()
-    got = fr_tape.run(plan.tape, inputs)
-    assert LAUNCHES["fr_tape"] == 1
-    want = fr_tape.run_plain(plan.tape, inputs)
-    torch.cuda.synchronize()
-    assert got.shape == (26, B, 8)
-    assert torch.equal(got, want)
-    with pytest.raises(ValueError):  # the kernel's wrapper takes no CPU tensor
-        fr_tape.run(plan.tape, inputs.cpu())
+    for name in ("shplonk", "gwc19", "ipa_k11"):
+        tape, inputs = _fr_tape_inputs(cuda, B, name)
+        want = fr_tape.run_plain(tape, inputs)
+        for team in (None,) + fr_tape.TEAMS:
+            reset_launches()
+            got = fr_tape.run(tape, inputs, team=team)
+            assert LAUNCHES["fr_tape"] == 1
+            torch.cuda.synchronize()
+            assert got.shape == (len(tape.outputs), B, 8)
+            assert torch.equal(got, want), (name, team)
+        with pytest.raises(ValueError):  # the kernel's wrapper takes no CPU tensor
+            fr_tape.run(tape, inputs.cpu())
 
 
 def test_wrappers_reject_on_card(cuda):
