@@ -8,8 +8,10 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 1. environment: the card's name, the device count and its power limit;
 2. builds the CUDA kernels from this checkout's sources (nvcc, sm_90a);
 3. holds each kernel against its plain PyTorch twin on the card: `add` and
-   `double` at B = 65,536 (with identity, P == Q and P == -Q lanes) exactly,
-   after canonicalization (their launches here are reported as
+   `double` at B = 65,536 (with identity, P == Q and P == -Q lanes) and at
+   the ragged batches of `RAGGED_N` (the sharded fold's (2, 3, 8) among
+   them) exactly, after canonicalization (the kernels write canonical
+   words, the twins lazy ones; their launches here are reported as
    `launches_kat`; of the paths only step 25's sharded MSM launches `add`,
    for the fold of its partials); `fold_buckets` at
    the MSM's real shapes, in affine form: one main window (256, 4,624), all
@@ -27,7 +29,7 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
 5. kernel timings with CUDA events at the main path's shapes, beside each
    kernel's bound and its plain twin's time; `add` and `double` also at a
    throughput shape, 2^19 of the MSM's bases, each equal to its plain
-   version;
+   version after canonicalization, with their ptxas registers and spills;
 6. the add-chain probe: CH = 16 chained RC15 adds, Fq multiplies and Fq
    squares at B = 256 and 2^17, bit-identical to 16 steps of their plain
    versions (the lone add's µs at B = 256 is each fold level's chain floor
@@ -296,8 +298,21 @@ MULS_PER_PERMUTATION = 828  # 8 full rounds of 9 + 9, 57 partial rounds of 3 + 9
 # at a batch too small to give a scheduler a second warp.
 POSEIDON_CHAIN_MULS = 65 * 6
 CHAIN_FLOOR_MS_PER_MUL = 136 * 2 / 1.98e9 * 1e3
-MULADDS_PER_ADD = 12 * MULADDS_PER_FQ_MUL
-MULADDS_PER_DOUBLE = 8 * MULADDS_PER_FQ_MUL
+# The least multiply-adds of a group operation: the add's layer 2 as three
+# sums of two products with one reduction each (csrc/fq.cuh's fe_mul_sum,
+# 200 multiply-adds: 2 * 64 + 8 + 64), 6 * 136 + 3 * 200; the double's Y3
+# as one such sum and its two squares at 36 products (108), 4 * 136 + 2 *
+# 108 + 200.  g1.cuh's formulas run 12 and 8 products (1632, 1088).
+MULADDS_PER_SUM_OF_PRODUCTS = 200
+MULADDS_PER_FQ_SQR = 108
+MULADDS_PER_ADD = 6 * MULADDS_PER_FQ_MUL + 3 * MULADDS_PER_SUM_OF_PRODUCTS
+MULADDS_PER_DOUBLE = (4 * MULADDS_PER_FQ_MUL + 2 * MULADDS_PER_FQ_SQR
+                      + MULADDS_PER_SUM_OF_PRODUCTS)
+# Batch sizes at which `add` and `double` are held to their plain versions
+# besides CHECK_B: the sharded fold's 2, a tile's edges (csrc/msm_kernels.cu
+# walks tiles of 128 points) and batches over one wave of persistent blocks
+# (132 SMs x 5 blocks x 128 points) with a ragged last tile.
+RAGGED_N = (2, 127, 129, 1000, 132 * 5 * 128 + 77)
 POINT_BYTES = 96
 # svt_msm_windowed (csrc/msm_loops.cuh): a ladder a team of T lanes over
 # the 32 windows of 4 bits of a GLV half (ec/glv.py), T and the proofs a
@@ -3817,7 +3832,18 @@ def main() -> int:
     check(errs["double"] == 0, "double kernel disagrees with its twin")
     log(f"# double: lazy words bit-identical to the twin's: {torch.equal(out_k, out_p)}")
     check(to_affine_int(words_to_limbs(out_k[1:2])) == [py_ec.double(P5)], "double of P wrong")
-    log(f"# add/double vs twin at B={CHECK_B}: canonical-equal")
+    for nr in RAGGED_N:  # ragged batches: canonical words equal to the twins' after canon
+        ra, rb = limbs_to_words(rand_coords(nr)), limbs_to_words(rand_coords(nr))
+        for label, fn, plain, ins in (("add", cuda_ops.add, cuda_ops.add_plain, (ra, rb)),
+                                      ("double", cuda_ops.double, cuda_ops.double_plain, (ra,))):
+            got = fn(*ins)
+            err = int((canon_words(got) - canon_words(plain(*ins))).abs().max())
+            check(err == 0, f"{label} kernel disagrees with its twin at {nr} points")
+            check(torch.equal(words_to_limbs(got), canon_words(got)),
+                  f"{label} kernel wrote words at or above p at {nr} points")
+            errs[label] = max(errs[label], err)
+    log(f"# add/double vs twin at B={CHECK_B} and {RAGGED_N}: canonical-equal; the kernels' "
+        f"words canonical")
     kat = {k: cuda_ops.LAUNCHES[k] for k in ("add", "double")}
 
     # ------------------------------------------------- main path's inputs
@@ -4070,6 +4096,7 @@ def main() -> int:
     for kname, fn, plain_fn, args, muladds, n_points in (
             ("add", cuda_ops.add, cuda_ops.add_plain, (ba, bb2), MULADDS_PER_ADD, 3),
             ("double", cuda_ops.double, cuda_ops.double_plain, (ba,), MULADDS_PER_DOUBLE, 2)):
+        use = ptxas_usage(f"g1_batch_kernelILi{len(args)}E")
         t_err = int((canon_words(fn(*args)) - canon_words(plain_fn(*args))).abs().max())
         check(t_err == 0, f"{kname} kernel disagrees with its twin at {big} points")
         t_ms = kernel_ms(lambda: fn(*args), 20)
@@ -4078,10 +4105,11 @@ def main() -> int:
         row = next(r for r in kernels if r["name"] == kname)
         row.update(throughput_shape=[big, 3, 8], throughput_ms=t_ms, throughput_plain_ms=t_plain,
                    throughput_bound_ms=t_bms, throughput_bound_by=t_by,
-                   throughput_max_abs_err=t_err)
+                   throughput_max_abs_err=t_err, ptxas_registers=use["registers"],
+                   ptxas_spill_bytes=use["spill_bytes"], ptxas_smem_bytes=use["smem_bytes"])
         log(f"# {kname} at B=2^19: {t_ms:.4f} ms (kernel time; {big / t_ms / 1e6:.3f} G a s; "
             f"bound {t_bms:.4f} ms, {t_by}: {t_bms / t_ms:.1%} of it); plain {t_plain:.1f} ms; "
-            f"== the plain version")
+            f"== the plain version after canon; ptxas {use}")
     del pts_w, points_ext, digits, sa, sb, saw, sbw, ba, bb2, stacked  # points, scalars: steps 24-25
     del idx_all, idx_rows, idx_main, idx_top, idx_t, pe, d_all
     torch.cuda.empty_cache()

@@ -91,6 +91,19 @@ other checkout must be one whose `svt_fold_buckets` takes it):
   (`affine_xy`'s lazy words after `canon`); the "parent" columns are
   `affine_xy`'s.
 
+* `svt_g1_add(a, b, out, n, stream)` and `svt_g1_double(a, out, n,
+  stream)` (alone: `--only g1_batch`) at n = 2^(`log2n` - 1) (the ladder's points
+  [1..n]·G against [n+1..2n]·G), 1,000 and 2 (the sharded MSM's first fold
+  level), the parent's lazy words and this checkout's canonical ones each
+  held to the plain version after `canon`; beside this checkout's wrapper,
+  each variant of `csrc/probe/g1_batch_variants.cu` in `G1_VARIANTS` (the
+  shared reduction on or off, bulk or direct loads, 3 to 6 blocks an SM;
+  rows `g1_add_variant` and
+  `g1_double_variant`, whose "parent" columns are the variant's), built as
+  its own library; kernel time, queued behind a spin of the card, with the
+  bound (the least multiply-adds, 1,416 an add and 960 a double, against
+  the bytes) and each side's share of it;
+
 This checkout's kernels run through their wrappers on the same tensors.
 Each pair is timed with CUDA events in the order parent, this, this, parent,
 and both outputs are held against the plain PyTorch version: multiplies and
@@ -116,7 +129,8 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARENT_UNITS = {
     "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
                      "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P]},
-    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P]},
+    "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
+                    "svt_g1_add": [_P, _P, _P, _LL, _P], "svt_g1_double": [_P, _P, _LL, _P]},
     "msm_loops": {"svt_msm_windowed": [_P, _P, _LL, _I, _P, _P],
                   "svt_bucket_reduce": [_P, _P, _P, _P]},
     "poseidon_kernels": {"svt_poseidon_load_constants": [_P, _P],
@@ -129,6 +143,13 @@ PARENT_UNITS = {
     "accumulation_kernels": {"svt_fr_powers": [_P, _I, _P, _LL, _P]},
     "ipa_kernels": {"svt_ipa_h_coeffs": [_P, _I, _P, _P, _P]},
     "fr_tape": {"svt_fr_tape": [_P, _I, _P, _P, _P, _LL, _I, _P]},
+}
+# The batch kernels' variants timed beside the library (sum, bulk, blocks an
+# SM): csrc/probe/g1_batch_variants.cu.
+G1_VARIANTS = {
+    "g1_add": [(s, b, 3) for s in (1, 0) for b in (1, 0)] + [(1, b, 4) for b in (1, 0)],
+    "g1_double": [(s, b, 3) for s in (1, 0) for b in (1, 0)]
+                 + [(1, b, k) for k in (4, 5, 6) for b in (1, 0)],
 }
 OPTIONAL_UNITS = ("field_kernels", "keccak_kernels", "accumulation_kernels", "ipa_kernels",
                   "fr_tape")
@@ -284,7 +305,8 @@ def main() -> int:
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None, help="also write the rows to this file")
     ap.add_argument("--only", default=None,
-                    help="comma-separated parts to run: fq_mul_chain, msm (the folds), "
+                    help="comma-separated parts to run: g1_batch (svt_g1_add, "
+                         "svt_g1_double and the probe's variants), fq_mul_chain, msm (the folds), "
                          "msm_loops (the point loops), loop_variants (msm_loops and the "
                          "probe's variants), poseidon_permute, field_inv, keccak_read, fr_powers, "
                          "points_to_fr, h_coeffs, to_affine, fr_tape (default all)")
@@ -316,6 +338,14 @@ def main() -> int:
             [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
              str(_build.BUILD_DIR / "compare" / "libpoint_loop_variants.so"),
              str(_build.SRC_DIR / "probe" / "point_loop_variants.cu")])
+    g1_build = None
+    if selected("g1_batch"):  # the batch kernels' other variants, this checkout's probe
+        (_build.BUILD_DIR / "compare").mkdir(parents=True, exist_ok=True)
+        g1_build = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / "compare" / "libg1_batch_variants.so"),
+             str(_build.SRC_DIR / "probe" / "g1_batch_variants.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     parent = build_parent(args.parent, _build.BUILD_DIR / "compare")
     other = None
     if selected("h_coeffs"):  # the other store route, this checkout's probe
@@ -328,6 +358,17 @@ def main() -> int:
     _build.load_library()
     if variants_build is not None and variants_build.wait():
         raise RuntimeError("nvcc failed for csrc/probe/point_loop_variants.cu")
+    variants, variants_log = {}, ""
+    if g1_build is not None:
+        variants_log = g1_build.communicate()[0]
+        if g1_build.returncode:
+            raise RuntimeError(f"nvcc failed for csrc/probe/g1_batch_variants.cu:\n{variants_log}")
+        lib = ctypes.CDLL(str(_build.BUILD_DIR / "compare" / "libg1_batch_variants.so"))
+        variants = {"g1_add": lib.svt_g1_add_variant, "g1_double": lib.svt_g1_double_variant}
+        variants["g1_add"].argtypes = [_I, _I, _I, _P, _P, _P, _LL, _P]
+        variants["g1_double"].argtypes = [_I, _I, _I, _P, _P, _LL, _P]
+        for f in variants.values():
+            f.restype = ctypes.c_int
     print(f"# card: {card}; builds {time.time() - t0:.1f}s", flush=True)
     rows = []
 
@@ -370,17 +411,22 @@ def main() -> int:
                     cuda_ops.fq_mul_chain_plain(a, b, ch), 10, B=B, ch=ch,
                     muls=B * ch)
 
-    def msm_slots():
-        """The 2^log2n MSM's points [1..n]·G (and the identity after them),
-        numpy-seeded scalars, and its slot indices: every main window's and
-        the top window's."""
-        n = 1 << args.log2n
+    def ladder_points():
+        """The 2^log2n MSM's points [1..n]·G, (n, 3, 8) words."""
         pts = limbs_to_words(from_affine_int([py_ec.G1_GEN], device=dev))
         pt = py_ec.G1_GEN
         for _ in range(args.log2n):  # pts[i] = (i+1)·G by a doubling ladder
             step = limbs_to_words(from_affine_int([pt], device=dev)).expand_as(pts).contiguous()
             pts = torch.cat([pts, cuda_ops.add(pts, step)], 0)
             pt = py_ec.double(pt)
+        return pts
+
+    def msm_slots():
+        """The 2^log2n MSM's points [1..n]·G (and the identity after them),
+        numpy-seeded scalars, and its slot indices: every main window's and
+        the top window's."""
+        n = 1 << args.log2n
+        pts = ladder_points()
         points_ext = torch.cat([pts, pip._identity(1, dev)], 0)
         rng_k = np.random.default_rng(42)
         ks = [int.from_bytes(rng_k.bytes(32), "little") % FR.p for _ in range(n)]
@@ -390,6 +436,59 @@ def main() -> int:
         idx_all, _ = pip._slot_indices(digits[:-1], 256, cap)
         idx_top, _ = pip._slot_indices(digits[-1:], pip.top_range(8), tcap)
         return n, points_ext, idx_all, idx_top
+
+    if selected("g1_batch"):
+        # ------------------------------------------ the batch add and double
+        from snark_verifier_tpu_torch.ec import words_to_limbs
+        from snark_verifier_tpu_torch.ff import FQ_FIELD
+
+        lines = (_build.build_log + variants_log).splitlines()
+        for i, line in enumerate(lines):  # each variant's registers, stack and spills
+            if "entry function" in line and "g1_batch_kernel" in line:
+                name = re.search(r"'(\S+)'", line).group(1)
+                usage = " ".join(x.strip() for x in lines[i + 1:i + 4] if "Function" not in x)
+                print(f"# ptxas {name}: {usage}", flush=True)
+
+        def canon_err(got, want):
+            """Words apart after canon: the parent's kernels write lazy
+            words, this checkout's canonical ones."""
+            return word_err(FQ_FIELD.canon(words_to_limbs(got)),
+                            FQ_FIELD.canon(words_to_limbs(want)))
+
+        pts = ladder_points()
+        half = pts.shape[0] // 2
+        for n in (half, 1000, 2):
+            a, b = pts[:n].contiguous(), pts[half:half + n].contiguous()
+            reps = 50 if n > 1000 else 40
+            for op, fn, plain, ins, muladds, n_bytes in (
+                    ("g1_add", cuda_ops.add, cuda_ops.add_plain, (a, b), 1416, 288),
+                    ("g1_double", cuda_ops.double, cuda_ops.double_plain, (a,), 960, 192)):
+                want = plain(*ins)
+                ptrs = [x.data_ptr() for x in ins]
+                bound = max(n * n_bytes / 3.35e12, n * muladds / (64 * 132 * 1.98e9)) * 1e3
+                out = torch.empty_like(a)
+
+                def run_parent(op=op, ptrs=ptrs, out=out, n=n):
+                    call(parent["svt_" + op], *ptrs, out.data_ptr(), n)
+
+                run_parent()
+                compare(op, run_parent, lambda: fn(*ins), out, canon_err, want, reps,
+                        timer=kernel_ms, n=n, bound_ms=bound)
+                r = rows[-1]
+                r.update(parent_bound_share=bound / max(r["parent_ms"]),
+                         this_bound_share=bound / max(r["this_ms"]))
+                for sum_, bulk, blocks in G1_VARIANTS[op]:
+                    vout = torch.empty_like(a)
+
+                    def run_v(op=op, ptrs=ptrs, vout=vout, n=n, v=(sum_, bulk, blocks)):
+                        call(variants[op], *v, *ptrs, vout.data_ptr(), n)
+
+                    run_v()
+                    compare(op + "_variant", run_v, lambda: fn(*ins), vout, canon_err, want,
+                            reps, timer=kernel_ms, n=n, bound_ms=bound, sum=sum_, bulk=bulk,
+                            blocks=blocks, parent="csrc/probe/g1_batch_variants.cu "
+                                                  f"(sum={sum_}, bulk={bulk}, blocks={blocks})")
+        del pts
 
     if selected("msm"):
         # ----------------------------------------------------------- bucket fold

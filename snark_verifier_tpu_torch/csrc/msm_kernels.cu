@@ -8,6 +8,9 @@
 //                 _rc15_add_2d): the RC15 complete add of two point batches.
 // * svt_g1_double replaces msm/pallas_ops.py::double (_unop_kernel ->
 //                 _rc15_double_2d): the RC15 complete doubling.
+//                 Both write canonical words: the same projective triple
+//                 as the plain version's lazy words after canon, in [0, p)
+//                 -- lazy input to any caller (msm_sharded._tree_fold).
 // * svt_fold_buckets replaces msm/pippenger.py::_fold_buckets_pallas: the
 //                 XLA gather of the slot-index matrix plus the Pallas bucket
 //                 fold (pallas_ops.py::fold_buckets_grid_pk and
@@ -17,16 +20,54 @@
 //                 on the JAX path at 2^20).
 //
 // What bounds them on an H100 SXM: the integer multiply throughput, 64
-// 32-bit multiply-adds per SM per clock, 132 SMs at 1.98 GHz = 16.7e12/s.
-// An add is 12 Fq muls = 12 * 136 = 1632 multiply-adds: 97.5 ps of the card.
-// Its bytes: two 96-byte points in, one out = 288 B at 3.35 TB/s = 86 ps.
-// A double: 8 * 136 = 1088 multiply-adds = 65 ps, against 192 B = 57 ps.
-// So the add and double kernels sit just above the ridge, on the multiply
-// side, and the fold, which reads one 96-byte point (+ a 4-byte index) per
-// add, is multiply-bound three times over.  Integer Montgomery arithmetic
-// has no tensor-core path (wgmma takes floating point and int8 tiles), and
-// its 64-bit products run at half that rate (fq.cuh), so half of the
-// bound is the most this multiply can reach.
+// 32-bit multiply-adds per SM per clock, 132 SMs at 1.98 GHz = 16.7e12/s,
+// and 3.35 TB/s.  The batch add's least work is 6 products and 3 sums of
+// two products sharing a reduction (fq.cuh's fe_mul_sum): 6 * 136 + 3 *
+// 200 = 1416 multiply-adds, 84.8 ps of the card, against its bytes, two
+// 96-byte points in and one out = 288 B = 86.0 ps: on the ridge, by a
+// hair on the bytes' side.  The batch double: 4 products, 2 squares (36
+// products, 8 digits and 64 m*p: 108 multiply-adds each) and one sum =
+// 544 + 216 + 200 = 960 multiply-adds, 57.5 ps, against 192 B = 57.3 ps.
+// The fold (g1.cuh's g1_add: 12 * 136 = 1632 a point, reading one 96-byte
+// point and a 4-byte index) is multiply-bound three times over.  Integer
+// Montgomery arithmetic has no tensor-core path (wgmma takes floating point
+// and int8 tiles), and its 64-bit products run at half that rate (fq.cuh),
+// so half of the bound is the most this multiply can reach.
+//
+// What the batch kernels' design does about it (g1_batch_kernel).  A
+// thread's add is one long chain of dependent carry chains, so the time is
+// set by how many warps an SM holds (residency), then by the multiplies:
+// * persistent blocks: 128 threads, a point a thread, walk tiles of 128
+//   points with a stride of the grid, min(tiles, BLOCKS an SM), BLOCKS the
+//   launch bound's: the add 4 (126 registers, no spills), the double 5
+//   (95): four and five warps a scheduler whatever the batch, where one
+//   block of 256 threads an SM (above 128 registers) held two;
+// * layer 2 of the add ends in three sums of two products (X3 = t3 t1m +
+//   t4 (-yb), Y3 = t1m z3l + yb t0_3, Z3 = z3l t4 + t0_3 t3) and the
+//   double's Y3 = t0m y3l + t2 z8 in one: fe_mul_sum, one reduction a sum
+//   (1632 -> 1416 multiply-adds an add, 1088 -> 1016 a double, 960 with
+//   the squares' 36 products).  Its result lies below
+//   2.52p, so every coordinate goes through fe_canon before the store (the
+//   lazy [0, 2p] words of g1.cuh need no such step, and the output
+//   contract became canonical words for both kernels);
+// * the double's tiles arrive by TMA: a tile's rows are contiguous (128 *
+//   96 B), and one thread copies them into a ring of two stages in shared
+//   memory with 1-D bulk loads (bulk.cuh), completed on an mbarrier a
+//   stage; the next load into a stage is issued as soon as its tile is in
+//   registers, so the loads of a block's next two tiles overlap its own
+//   multiplies, and the results leave, staged in shared memory, as one
+//   bulk store a tile.  The rows stay [point][word] as they land: a 16-byte
+//   read of a 96-byte row costs a 2-way bank conflict, six times a point,
+//   beside ~1,000 wide multiplies.  The add loads and stores its rows
+//   directly (16 bytes a thread): its ring and staging (61 KB a block at
+//   two stages, 37 KB at one) measured 1% slower at 4 blocks, where only
+//   one stage fits.
+// The template keeps every variant (separate reductions: g1.cuh's formulas
+// then fe_canon; bulk or direct copies; 3 to 6 blocks an SM); the library
+// instantiates the one that measured fastest for each operation (NVIDIA
+// H100 80GB HBM3, 700 W, kernel_compare.py --only g1_batch at 2^19: the add
+// 0.157 -> 0.117 ms, the double 0.081 -> 0.078 ms), and
+// csrc/probe/g1_batch_variants.cu builds the others from this file.
 //
 // What the fold's design does about it.  Its time is the latency of each
 // thread's chain of dependent adds unless enough independent chains are
@@ -51,43 +92,254 @@
 // 700 W; chip_smoke.py).  What is left on the table: points
 // in array-of-structures rows (96-byte stride, six 16-byte loads per lane);
 // one thread still carries a whole 256-bit product.  The add and double
-// kernels stay as the counterparts of the two Pallas kernels; no main path
-// launches them since msm_loops.cu took over the loops that did.
+// kernels stay as the counterparts of the two Pallas kernels; of the main
+// paths only the sharded MSM's fold of its partial sums launches the add.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bulk.cuh"
 #include "g1.cuh"
 
 namespace svt {
 
-constexpr int PT_THREADS = 256;
 constexpr int FOLD_BLOCK = 128;
 // Resident fold blocks per SM that the register bound allows for; the
 // wrapper's choice of team (cuda_ops._fold_team) counts on the same number.
 constexpr int FOLD_BLOCKS_PER_SM = 3;
 
-__global__ void __launch_bounds__(PT_THREADS)
-    g1_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                  uint32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * PT_THREADS + threadIdx.x;
-  if (i >= n) return;
-  G1 p, q;
-  g1_load(p, a + i * G1_WORDS);
-  g1_load(q, b + i * G1_WORDS);
-  g1_add(p, p, q);
-  g1_store(out + i * G1_WORDS, p);
+// ---- the batch add and double ------------------------------------------
+
+constexpr int G1B_THREADS = 128;  // a tile: a point a thread
+constexpr int G1B_TILE_WORDS = G1B_THREADS * G1_WORDS;
+constexpr int G1B_TILE_BYTES = G1B_TILE_WORDS * 4;
+constexpr int SM_SMEM_BYTES = 233472;  // an H100 SM's shared memory, 1 KB a block reserved
+
+// The library's variant of each operation (IN inputs): one reduction a sum
+// of two products; the add with direct copies at 4 blocks an SM, the
+// double with bulk copies at 5.
+constexpr bool G1B_SUM = true;
+template <int IN>
+constexpr bool g1b_bulk() {
+  return IN == 1;
+}
+template <int IN>
+constexpr int g1b_blocks() {
+  return IN == 2 ? 4 : 5;
 }
 
-__global__ void __launch_bounds__(PT_THREADS)
-    g1_double_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * PT_THREADS + threadIdx.x;
-  if (i >= n) return;
-  G1 p;
-  g1_load(p, a + i * G1_WORDS);
-  g1_double(p, p);
-  g1_store(out + i * G1_WORDS, p);
+// Dynamic shared memory of a bulk-copy block with IN input batches and a
+// ring of STAGES tiles of each: the stages' mbarriers (16 bytes), the ring
+// and the staged results (one tile).
+template <int IN, int STAGES>
+__host__ __device__ constexpr int g1b_smem_bytes() {
+  return 16 + (STAGES * IN + 1) * G1B_TILE_BYTES;
+}
+
+// Tiles of loads a bulk-copy block keeps in flight: two where BLOCKS blocks
+// an SM still fit its shared memory, else one (the add at 4 blocks or more).
+template <int IN, int BLOCKS>
+__host__ __device__ constexpr int g1b_stages() {
+  return SM_SMEM_BYTES / BLOCKS - 1024 >= g1b_smem_bytes<IN, 2>() ? 2 : 1;
+}
+
+__device__ __forceinline__ void g1_canon(G1& p) {
+  fe_canon<FQ>(p.x, p.x);
+  fe_canon<FQ>(p.y, p.y);
+  fe_canon<FQ>(p.z, p.z);
+}
+
+// o = p + q in canonical words: g1.cuh's g1_add with its layer 2 as three
+// sums of two products, one reduction each, then fe_canon.  The same
+// projective triple mod p as g1_add (X3 = t3 t1m - t4 yb as t3 t1m + t4
+// (2p - yb)).  o may alias p or q.
+__device__ __forceinline__ void g1_add_sum(G1& o, const G1& p, const G1& q) {
+  uint32_t t0[FQ_WORDS], t1[FQ_WORDS], t2[FQ_WORDS], t3[FQ_WORDS], t4[FQ_WORDS],
+      ty[FQ_WORDS], s1[FQ_WORDS], s2[FQ_WORDS];
+  uint32_t u1[FQ_WORDS], u2[FQ_WORDS], v1[FQ_WORDS], v2[FQ_WORDS];
+  // Layer 1, g1_add's operations in another order: X1X2, Y1Y2, Z1Z2, then
+  // the six sums of the cross terms, after which p and q are dead (fewer
+  // live registers), then the cross terms.
+  fq_mul(t0, p.x, q.x);
+  fq_mul(t1, p.y, q.y);
+  fq_mul(t2, p.z, q.z);
+  fq_add(s1, p.x, p.y);
+  fq_add(s2, q.x, q.y);
+  fq_add(u1, p.y, p.z);
+  fq_add(u2, q.y, q.z);
+  fq_add(v1, p.x, p.z);
+  fq_add(v2, q.x, q.z);
+  fq_mul(t3, s1, s2);
+  fq_add(s1, t0, t1);
+  fq_sub(t3, t3, s1);  // X1Y2 + X2Y1
+  fq_mul(t4, u1, u2);
+  fq_add(s1, t1, t2);
+  fq_sub(t4, t4, s1);  // Y1Z2 + Y2Z1
+  fq_mul(ty, v1, v2);
+  fq_add(s1, t0, t2);
+  fq_sub(ty, ty, s1);  // X1Z2 + X2Z1
+  fq_add(s1, t0, t0);
+  fq_add(t0, s1, t0);  // t0_3 = 3 X1X2
+  fq_mul9(t2, t2);     // t2b = 3b Z1Z2
+  fq_add(s1, t1, t2);  // z3l = Y1Y2 + 3b Z1Z2
+  fq_sub(t1, t1, t2);  // t1m = Y1Y2 - 3b Z1Z2
+  fq_mul9(ty, ty);     // yb = 3b (X1Z2 + X2Z1)
+  // Layer 2: three sums, each below 2.52p until fe_canon.
+  fe_mul_sum<FQ>(s2, t1, s1, ty, t0);  // t1m z3l + yb t0_3
+  fe_canon<FQ>(o.y, s2);
+  fe_neg<FQ>(ty, ty);                  // -yb
+  fe_mul_sum<FQ>(s2, t3, t1, t4, ty);  // t3 t1m - t4 yb
+  fe_mul_sum<FQ>(t2, s1, t4, t0, t3);  // z3l t4 + t0_3 t3
+  fe_canon<FQ>(o.x, s2);
+  fe_canon<FQ>(o.z, t2);
+}
+
+// o = 2p in canonical words: g1.cuh's g1_double with Y3 as one sum of two
+// products, then fe_canon.  o may alias p.
+__device__ __forceinline__ void g1_double_sum(G1& o, const G1& p) {
+  uint32_t t0[FQ_WORDS], t1[FQ_WORDS], zz[FQ_WORDS], xy[FQ_WORDS], z8[FQ_WORDS],
+      t2[FQ_WORDS], y3l[FQ_WORDS], u[FQ_WORDS];
+  // Layer 1 as g1_double: Y^2, YZ, Z^2, XY.
+  fe_sqr<FQ>(t0, p.y);
+  fq_mul(t1, p.y, p.z);
+  fe_sqr<FQ>(zz, p.z);
+  fq_mul(xy, p.x, p.y);
+  fq_add(z8, t0, t0);
+  fq_add(z8, z8, z8);
+  fq_add(z8, z8, z8);  // 8Y^2
+  fq_mul9(t2, zz);     // 3b Z^2
+  fq_add(y3l, t0, t2); // Y^2 + 3b Z^2
+  fq_add(u, t2, t2);
+  fq_add(u, u, t2);
+  fq_sub(t0, t0, u);   // t0m = Y^2 - 9b Z^2
+  // Layer 2.
+  fe_mul_sum<FQ>(u, t0, y3l, t2, z8);  // (Y^2 - 9bZ^2)(Y^2 + 3bZ^2) + 3bZ^2 8Y^2
+  fq_mul(xy, t0, xy);
+  fq_add(xy, xy, xy);                  // 2 XY (Y^2 - 9bZ^2)
+  fq_mul(zz, t1, z8);                  // 8 Y^3 Z
+  fe_canon<FQ>(o.y, u);
+  fe_canon<FQ>(o.x, xy);
+  fe_canon<FQ>(o.z, zz);
+}
+
+// out[i] = a[i] + b[i] (IN = 2) or 2 a[i] (IN = 1), canonical words, for
+// i < n.  SUM: g1_add_sum / g1_double_sum, else g1.cuh's g1_add /
+// g1_double then fe_canon.  BULK: tiles through the shared-memory ring and
+// the staged store, else each thread loads and stores its own row.  Blocks
+// walk tiles t = blockIdx.x, + gridDim.x, ...; every block has a tile.
+template <int IN, bool SUM, bool BULK, int BLOCKS>
+__global__ void __launch_bounds__(G1B_THREADS, BLOCKS)
+    g1_batch_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                    uint32_t* __restrict__ out, long long n) {
+  const int tid = threadIdx.x;
+  const long long tiles = (n + G1B_THREADS - 1) / G1B_THREADS;
+  auto op = [](G1& p, const G1& q) {
+    if constexpr (IN == 2) {
+      if constexpr (SUM) {
+        g1_add_sum(p, p, q);
+      } else {
+        g1_add(p, p, q);
+        g1_canon(p);
+      }
+    } else if constexpr (SUM) {
+      g1_double_sum(p, p);
+    } else {
+      g1_double(p, p);
+      g1_canon(p);
+    }
+  };
+  if constexpr (!BULK) {
+#pragma unroll 1
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const long long i = t * G1B_THREADS + tid;
+      if (i >= n) continue;
+      G1 p, q;
+      g1_load_nc(p, a + i * G1_WORDS);
+      if constexpr (IN == 2) g1_load_nc(q, b + i * G1_WORDS);
+      op(p, q);
+      g1_store(out + i * G1_WORDS, p);
+    }
+  } else {
+    extern __shared__ uint4 g1b_smem[];
+    constexpr int STAGES = g1b_stages<IN, BLOCKS>();
+    uint64_t* bar = reinterpret_cast<uint64_t*>(g1b_smem);       // (STAGES,)
+    uint32_t* ring = reinterpret_cast<uint32_t*>(g1b_smem + 1);  // (STAGES, IN, tile)
+    uint32_t* staged = ring + STAGES * IN * G1B_TILE_WORDS;      // (tile)
+    const uint32_t* src[2] = {a, b};
+    // Thread 0: tile t's rows of every input into stage s.
+    auto issue = [&](long long t, int s) {
+      const long long first = t * G1B_THREADS;
+      const long long rows = n - first < G1B_THREADS ? n - first : G1B_THREADS;
+      const uint32_t bytes = (uint32_t)(rows * G1_WORDS * 4);
+      bulk_expect(bar + s, IN * bytes);
+#pragma unroll
+      for (int k = 0; k < IN; k++)
+        bulk_load(ring + (s * IN + k) * G1B_TILE_WORDS, src[k] + first * G1_WORDS, bytes,
+                  bar + s);
+    };
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < STAGES; s++) bulk_barrier_init(bar + s);
+      bulk_fence_init();
+#pragma unroll
+      for (int s = 0; s < STAGES; s++) {
+        const long long t = blockIdx.x + (long long)s * gridDim.x;
+        if (t < tiles) issue(t, s);
+      }
+    }
+    __syncthreads();
+    int j = 0;  // this block's tiles so far: stage j % STAGES, phase j / STAGES
+#pragma unroll 1
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x, j++) {
+      const int s = j % STAGES;
+      const long long first = t * G1B_THREADS;
+      const long long rows = n - first < G1B_THREADS ? n - first : G1B_THREADS;
+      bulk_wait_phase(bar + s, (uint32_t)(j / STAGES) & 1u);
+      G1 p, q;
+      if (tid < rows) {
+        g1_load(p, ring + (s * IN * G1B_THREADS + tid) * G1_WORDS);
+        if constexpr (IN == 2) g1_load(q, ring + ((s * IN + 1) * G1B_THREADS + tid) * G1_WORDS);
+      }
+      if (tid == 0) bulk_wait_read();  // the last tile's store has read `staged`
+      __syncthreads();                 // stage s and `staged` are free
+      if (tid == 0) {
+        const long long next = t + (long long)STAGES * gridDim.x;
+        if (next < tiles) issue(next, s);
+      }
+      if (tid < rows) {
+        op(p, q);
+        g1_store(staged + tid * G1_WORDS, p);
+        bulk_fence_shared();
+      }
+      __syncthreads();
+      if (tid == 0) bulk_store(out + first * G1_WORDS, staged, (uint32_t)(rows * G1_WORDS * 4));
+    }
+    if (tid == 0) bulk_wait();
+  }
+}
+
+// Launch the batch kernel variant over n points: min(tiles, SMs x BLOCKS)
+// blocks on `st`; returns a cudaError_t.
+template <int IN, bool SUM, bool BULK, int BLOCKS = g1b_blocks<IN>()>
+int launch_g1_batch(const void* a, const void* b, void* out, long long n, cudaStream_t st) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const auto kernel = g1_batch_kernel<IN, SUM, BULK, BLOCKS>;
+  const int bytes = BULK ? g1b_smem_bytes<IN, g1b_stages<IN, BLOCKS>()>() : 0;
+  cudaError_t err;
+  if (BULK && (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          bytes)) != cudaSuccess)
+    return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = (n + G1B_THREADS - 1) / G1B_THREADS;
+  const long long most = (long long)sms * BLOCKS;
+  const unsigned blocks = (unsigned)(tiles < most ? tiles : most);
+  kernel<<<blocks, G1B_THREADS, bytes, st>>>((const uint32_t*)a, (const uint32_t*)b,
+                                              (uint32_t*)out, n);
+  return (int)cudaGetLastError();
 }
 
 // Bucket sums of idx (nb, cap): a team of TEAM threads per row, FOLD_BLOCK /
@@ -159,22 +411,15 @@ __global__ void __launch_bounds__(FOLD_BLOCK, FOLD_BLOCKS_PER_SM)
 // C entry points: each launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 = launched).
 
+// a, b, out: (n, 3, 8) words, 16-byte aligned, out apart from the inputs.
 extern "C" int svt_g1_add(const void* a, const void* b, void* out, long long n, void* stream) {
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + svt::PT_THREADS - 1) / svt::PT_THREADS);
-    svt::g1_add_kernel<<<blocks, svt::PT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
-  }
-  return (int)cudaGetLastError();
+  return svt::launch_g1_batch<2, svt::G1B_SUM, svt::g1b_bulk<2>()>(a, b, out, n,
+                                                                    (cudaStream_t)stream);
 }
 
 extern "C" int svt_g1_double(const void* a, void* out, long long n, void* stream) {
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + svt::PT_THREADS - 1) / svt::PT_THREADS);
-    svt::g1_double_kernel<<<blocks, svt::PT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (uint32_t*)out, n);
-  }
-  return (int)cudaGetLastError();
+  return svt::launch_g1_batch<1, svt::G1B_SUM, svt::g1b_bulk<1>()>(a, nullptr, out, n,
+                                                                    (cudaStream_t)stream);
 }
 
 // team: threads per bucket row, 32, 64 or 128 (the wrapper picks it from nb).

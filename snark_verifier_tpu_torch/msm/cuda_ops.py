@@ -28,7 +28,9 @@ as `pallas_ops.py:260-283, 602-648`) and `to_affine` / `affine_xy`
 (`ec/curve.py:261`).
 The verify MSM's plain version, `msm_windowed_plain` with `tree_sum`, is the
 JAX package's loop of group operations; on the card no loop launches
-`svt_g1_add` or `svt_g1_double` any more.
+`svt_g1_add` or `svt_g1_double` any more.  Those two write canonical words
+(their plain twins' lazy words after `canon`), so a comparison of kernel
+with twin canonicalizes both sides.
 """
 
 from __future__ import annotations
@@ -46,17 +48,21 @@ from ..ff import FQ_FIELD, FQW, FR_FIELD, FRW, digits4
 
 
 def add_plain(a, b):
-    """RC15 complete add in plain PyTorch (ec/curve.py)."""
+    """RC15 complete add in plain PyTorch (ec/curve.py): the JAX package's
+    formulas, lazy [0, 2p] words."""
     return limbs_to_words(G1.add(words_to_limbs(a), words_to_limbs(b)))
 
 
 def double_plain(a):
-    """RC15 complete doubling in plain PyTorch (ec/curve.py)."""
+    """RC15 complete doubling in plain PyTorch (ec/curve.py): lazy words."""
     return limbs_to_words(G1.double(words_to_limbs(a)))
 
 
 def add(a, b):
-    """(B,3,8) + (B,3,8) -> (B,3,8): one thread per pair."""
+    """(B,3,8) + (B,3,8) -> (B,3,8).  On the card `svt_g1_add` writes
+    canonical words ([0, p)): the plain version's projective triple after
+    `canon`, not its lazy words.  On the CPU, `add_plain`'s lazy words.
+    Either is lazy input to every function of the port."""
     _check("add", a, 3, (3, 8))
     _check("add", b, 3, (3, 8))
     _same_device("add", a, b)
@@ -73,7 +79,8 @@ def add(a, b):
 
 
 def double(a):
-    """(B,3,8) -> (B,3,8): one thread per point."""
+    """(B,3,8) -> (B,3,8).  On the card `svt_g1_double` writes canonical
+    words (`double_plain`'s after `canon`); on the CPU `double_plain`'s."""
     _check("double", a, 3, (3, 8))
     if a.device.type == "cpu":
         return double_plain(a)

@@ -81,7 +81,8 @@ def test_add_kernel_matches_twin(cuda):
     assert cuda_ops.LAUNCHES["add"] == 1
     twin = cuda_ops.add_plain(a, b)
     torch.cuda.synchronize()
-    assert torch.equal(got, twin)
+    # canonical words: the twin's lazy words after canon
+    assert torch.equal(words_to_limbs(got), FQ_FIELD.canon(words_to_limbs(got)))
     assert torch.equal(FQ_FIELD.canon(words_to_limbs(got)), FQ_FIELD.canon(words_to_limbs(twin)))
     assert to_affine_int(words_to_limbs(got[:5])) == want
 
@@ -91,9 +92,43 @@ def test_double_kernel_matches_twin(cuda):
     sa, _, _ = _special_pairs(cuda)
     a = torch.cat([sa, a])
     got = cuda_ops.double(a)
-    assert torch.equal(got, cuda_ops.double_plain(a))
+    assert torch.equal(words_to_limbs(got), FQ_FIELD.canon(words_to_limbs(got)))
+    assert torch.equal(FQ_FIELD.canon(words_to_limbs(got)),
+                       FQ_FIELD.canon(words_to_limbs(cuda_ops.double_plain(a))))
     P = py_ec.rand_points(1, seed=3)[0]
     assert to_affine_int(words_to_limbs(got[1:2])) == [py_ec.double(P)]
+
+
+# svt_g1_add / svt_g1_double walk tiles of 128 points with persistent blocks:
+# the batch sizes at a tile's edges, the sharded fold's 2 and ragged
+# multi-tile batches (up to several tiles a block on a card of 132 SMs).
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 1000, 132 * 3 * 128 + 77, 100_003])
+def test_add_and_double_kernels_at_ragged_sizes(cuda, n):
+    a = _rand_words(n, 10 + n % 97, cuda)
+    b = _rand_words(n, 20 + n % 89, cuda)
+    sa, sb, want = _special_pairs(cuda)
+    k = min(n, 5)
+    a[:k], b[:k] = sa[:k], sb[:k]
+    cuda_ops.reset_launches()
+    got_add, got_dbl = cuda_ops.add(a, b), cuda_ops.double(a)
+    assert cuda_ops.LAUNCHES["add"] == 1 and cuda_ops.LAUNCHES["double"] == 1
+    for got, twin in ((got_add, cuda_ops.add_plain(a, b)), (got_dbl, cuda_ops.double_plain(a))):
+        g = words_to_limbs(got)
+        assert torch.equal(g, FQ_FIELD.canon(g))
+        assert torch.equal(g, FQ_FIELD.canon(words_to_limbs(twin)))
+    assert to_affine_int(words_to_limbs(got_add[:k])) == want[:k]
+
+
+def test_add_kernel_at_the_sharded_fold_shape(cuda):
+    """(2, 3, 8): the two partial sums a fold level of the sharded MSM adds
+    at D = 4, canonical words equal to the twin's after canon."""
+    pts = [py_ec.scalar_mul(py_ec.G1_GEN, k) for k in (3, 5, 7, 11)]
+    parts = limbs_to_words(from_affine_int(pts, device=cuda)).view(4, 3, 8)
+    got = cuda_ops.add(parts[:2].contiguous(), parts[2:].contiguous())
+    twin = cuda_ops.add_plain(parts[:2].contiguous(), parts[2:].contiguous())
+    assert torch.equal(words_to_limbs(got), FQ_FIELD.canon(words_to_limbs(twin)))
+    assert to_affine_int(words_to_limbs(got)) == [py_ec.scalar_mul(py_ec.G1_GEN, 10),
+                                                  py_ec.scalar_mul(py_ec.G1_GEN, 16)]
 
 
 def test_fold_kernel_matches_twin_and_oracle(cuda):

@@ -218,9 +218,8 @@ def fe_canon(f, a):
 
 def _redc_row(f, e, o):
     m = (e[0] * PINV[f]) & MASK
-    env = dict(_env(f), e=e, o=o, m=m)
-    run_asm("fe_redc_odd", env)
-    run_asm("fe_redc_even", env)
+    run_asm("fe_mad_odd", dict(o=o, a=P_WORDS[f], b=m))  # fe_redc_odd: p's odd words
+    run_asm("fe_redc_even", dict(_env(f), e=e, o=o, m=m))
     assert e[0] == 0
 
 
@@ -241,6 +240,32 @@ def fe_mul(f, a, b):
         _row(f, o, e, a, b[i])
         if i + 1 < 8:
             _row(f, e, o, a, b[i + 1])
+    env = dict(e=e, o=o, r=[None] * 8)
+    run_asm("fe_merge", env)
+    return env["r"]
+
+
+def fe_mul_sum(f, a, b, c, d):
+    """fe_mul_sum's rows: a*b_i by fe_row_odd / fe_row_even, c*d_i by
+    fe_mad_odd / fe_row_even on the same accumulators, one reduction."""
+    e, o = [0] * 8, [0] * 8
+    for j in range(0, 8, 2):
+        pe, po = a[j] * b[0], a[j + 1] * b[0]
+        e[j], e[j + 1], o[j], o[j + 1] = pe & MASK, pe >> 32, po & MASK, po >> 32
+
+    def second(e, o, i):
+        run_asm("fe_mad_odd", dict(o=o, a=c, b=d[i]))
+        run_asm("fe_row_even", dict(e=e, o=o, a=c, b=d[i]))
+        _redc_row(f, e, o)
+
+    second(e, o, 0)
+    for i in range(1, 8, 2):
+        for ev, od, k in ((o, e, i), (e, o, i + 1)):
+            if k < 8:
+                env = dict(e=ev, o=od, a=a, b=b[k])
+                run_asm("fe_row_odd", env)
+                run_asm("fe_row_even", env)
+                second(ev, od, k)
     env = dict(e=e, o=o, r=[None] * 8)
     run_asm("fe_merge", env)
     return env["r"]
@@ -288,6 +313,16 @@ def lazy_mont(f, a, b):
     return t // R
 
 
+def lazy_mont_sum(f, a, b, c, d):
+    """(a·b + c·d + M·p) / R for the unique M < R that clears the low 256
+    bits."""
+    p = SPECS[f].p
+    t = a * b + c * d
+    M = (-t * pow(p, -1, R)) % R
+    assert (t + M * p) % R == 0
+    return (t + M * p) // R
+
+
 def edge_values(f):
     p = SPECS[f].p
     return [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p, (1 << 254) - 1, MASK, MASK << 224]
@@ -322,6 +357,31 @@ def test_mul_schedule_on_drawn_values(f):
     @given(lazy(f), lazy(f))
     def run(a, b):
         assert unwords(fe_mul(f, words(a), words(b))) == lazy_mont(f, a, b)
+
+    run()
+
+
+@pytest.mark.parametrize("f", ["fq", "fr"])
+def test_mul_sum_schedule_on_edge_and_drawn_values(f):
+    """fe_mul_sum against python ints over [0, 2p]: the extremes (a = b = c
+    = d = 2p among them, the largest running sum) and hypothesis draws.
+    The result lies below 2.52p, outside [0, 2p], and fe_canon maps it to
+    the canonical product sum; no statement drops a carry."""
+    p = SPECS[f].p
+    edges = [0, 1, p - 1, p, 2 * p - 1, 2 * p]
+    for a, b, c, d in [(2 * p,) * 4, (2 * p, 2 * p, 0, 0), (0, 0, 2 * p, 2 * p),
+                       (2 * p, 1, 2 * p, 2 * p - 1), (p, p, p, p)] + [
+            (x, y, y, x) for x in edges for y in edges]:
+        got = unwords(fe_mul_sum(f, words(a), words(b), words(c), words(d)))
+        assert got == lazy_mont_sum(f, a, b, c, d) and got < 2.52 * p, (a, b, c, d)
+        canon = unwords(fe_canon(f, words(got)))
+        assert canon == (a * b + c * d) * pow(R, -1, p) % p
+
+    @settings(max_examples=60, deadline=None, database=None, derandomize=True)
+    @given(lazy(f), lazy(f), lazy(f), lazy(f))
+    def run(a, b, c, d):
+        got = fe_mul_sum(f, words(a), words(b), words(c), words(d))
+        assert unwords(got) == lazy_mont_sum(f, a, b, c, d)
 
     run()
 
