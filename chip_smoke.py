@@ -30,10 +30,13 @@ Drives `snark_verifier_tpu_torch` only (never jax, never snark_verifier_tpu):
    kernel's bound and its plain twin's time; `add` and `double` also at a
    throughput shape, 2^19 of the MSM's bases, each equal to its plain
    version after canonicalization, with their ptxas registers and spills;
-6. the add-chain probe: CH = 16 chained RC15 adds, Fq multiplies and Fq
-   squares at B = 256 and 2^17, bit-identical to 16 steps of their plain
-   versions (the lone add's µs at B = 256 is each fold level's chain floor
-   per dependent add);
+6. the add-chain probe: CH = 16 chained RC15 adds (the least group law,
+   canonical words), Fq multiplies and Fq squares by both routes (0: the
+   integer words, 1: the FP64 limbs of csrc/fq_f64.cuh, canonical words)
+   at B = 256 and 2^17 (the multiplies also at 2^20), each equal to 16
+   steps of its plain version after canon, timed beside the integer and
+   the FP64 pipes' floors (the lone add's µs at B = 256 is each fold
+   level's chain floor per dependent add);
 7. the dense bucket folds (fold_buckets_chunked K=8, fold_buckets_halving 4
    layers per call, fold_buckets_grid_dense wb=512 4 layers) over the
    micro-benchmarks' (256, 4,624) matrix of G or the identity (numpy seed
@@ -290,6 +293,13 @@ SPLIT_SEGMENTS = (4, 7, 8, 12, 16, 24, 32, 48)  # fold_buckets_split's segments 
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 64 * 132 * 1.98e9
 MULADDS_PER_FQ_MUL = 136  # word-serial Montgomery, 8x32-bit words: 64 a*b + 8 m + 64 m*p
+# The FP64 pipe of one H100 SXM (64 FP64 FMAs or adds per SM per clock) and
+# csrc/fq_f64.cuh's FP64 operations a product (50 limb products at 3, m_i
+# p_0's high half alone at 1 for 5 of them, 10 conversions: 150) and a
+# square (15 + 25 limb products: 120).
+DFMA_PER_S = 64 * 132 * 1.98e9
+F64_OPS_PER_MUL = 150
+F64_OPS_PER_SQR = 120
 MULS_PER_PERMUTATION = 828  # 8 full rounds of 9 + 9, 57 partial rounds of 3 + 9
 # The multiplies one lane runs per permutation when a team of lanes shares
 # a state: 65 rounds of 3 (S-box) + 3 (its MDS row).  A warp alone on its
@@ -884,15 +894,39 @@ def dense_fold_phase(dev, kernels, us_per_add):
         tolerance="exact, affine"))
 
 
+def chain_floors(B, ch, square=False):
+    """The multiply chain's two floors at (B, ch), ms: the integer pipes'
+    (136 multiply-adds a product, 108 a square, at IMAD_PER_S) and the FP64
+    pipe's (csrc/fq_f64.cuh's FP64 operations, 150 a product, 120 a square,
+    at DFMA_PER_S)."""
+    steps = B * ch
+    return (steps * (MULADDS_PER_FQ_SQR if square else MULADDS_PER_FQ_MUL) / IMAD_PER_S * 1e3,
+            steps * (F64_OPS_PER_SQR if square else F64_OPS_PER_MUL) / DFMA_PER_S * 1e3)
+
+
 def probe_phase(dev, kernels):
     """The add-chain probe (micro_packed_dissect.py): CH = 16 chained RC15
-    adds and Fq multiplies on register-resident data, against CH steps of
-    their plain versions."""
+    adds (csrc/g1.cuh::g1_add_sum, canonical words) and Fq multiplies and
+    squares by both routes (0: fq.cuh's integer words, 1: fq_f64.cuh's FP64
+    limbs, canonical words) on register-resident data, each against CH
+    steps of its plain version after `canon`.  The bound of a multiply
+    chain is the smaller of the two pipes' floors (`chain_floors`); the
+    FP64 route is also timed at 2^20 lanes and at CH = 0 (its conversions
+    alone)."""
     import torch
-    from snark_verifier_tpu_torch.ff import FQ
+    from snark_verifier_tpu_torch.ec import words_to_limbs
+    from snark_verifier_tpu_torch.ff import FQ, FQ_FIELD
     from snark_verifier_tpu_torch.msm import cuda_ops
 
+    def canon_err(got, want):
+        return word_err(FQ_FIELD.canon(words_to_limbs(got)), FQ_FIELD.canon(words_to_limbs(want)))
+
+    def canonical(got):
+        return torch.equal(words_to_limbs(got), FQ_FIELD.canon(words_to_limbs(got)))
+
     CH = 16
+    routes = cuda_ops.FQ_CHAIN_ROUTES
+    default = cuda_ops.FQ_CHAIN_ROUTE
     rng = np.random.default_rng(3)
     ins = {B: (rand_lazy_words(rng, (B, 3), FQ.p, dev), rand_lazy_words(rng, (B, 3), FQ.p, dev))
            for B in PROBE_BATCHES}
@@ -902,42 +936,93 @@ def probe_phase(dev, kernels):
             for B, (a, b) in ins.items()}
     torch.cuda.synchronize()
     counts = {k: cuda_ops.LAUNCHES[k] for k in ("g1_add_chain", "fq_mul_chain")}
-    rows, errs, sqr_ms = {}, [0, 0], {}
+    use = {name: ptxas_usage(frag) for name, frag in (
+        ("add", "g1_add_chain_kernelILi"), ("mul_0", "fq_mul_chain_kernelILb0ELi0E"),
+        ("sqr_0", "fq_mul_chain_kernelILb1ELi0E"), ("mul_1", "fq_mul_chain_kernelILb0ELi1E"),
+        ("sqr_1", "fq_mul_chain_kernelILb1ELi1E"))}
+    log(f"# probe ptxas: {use}")
+    rows, errs = {}, [0, 0]
     for B, (a, b) in ins.items():
         x, y = a[:, 0].contiguous(), b[:, 0].contiguous()
-        errs[0] = max(errs[0], word_err(outs[B][0], cuda_ops.g1_add_chain_plain(a, b, CH)))
-        errs[1] = max(errs[1], word_err(outs[B][1], cuda_ops.fq_mul_chain_plain(x, y, CH)),
-                      word_err(cuda_ops.fq_sqr_chain(x, CH), cuda_ops.fq_sqr_chain_plain(x, CH)))
-        check(errs == [0, 0], f"a chain differs from {CH} steps of its plain version at B={B}")
-        ms_a = time_ms(lambda: cuda_ops.g1_add_chain(a, b, CH), 10)
-        ms_m = time_ms(lambda: cuda_ops.fq_mul_chain(x, y, CH), 10)
-        sqr_ms[B] = time_ms(lambda: cuda_ops.fq_sqr_chain(x, CH), 10)
+        want_a = cuda_ops.g1_add_chain_plain(a, b, CH)
+        check(canonical(outs[B][0]), f"the add chain wrote a word at or above p at B={B}")
+        errs[0] = max(errs[0], canon_err(outs[B][0], want_a))
+        want_m, want_s = cuda_ops.fq_mul_chain_plain(x, y, CH), cuda_ops.fq_sqr_chain_plain(x, CH)
+        errs[1] = max(errs[1], canon_err(outs[B][1], want_m))
+        for r in routes:
+            got_m, got_s = cuda_ops.fq_mul_chain(x, y, CH, route=r), cuda_ops.fq_sqr_chain(x, CH,
+                                                                                          route=r)
+            errs[1] = max(errs[1], canon_err(got_m, want_m), canon_err(got_s, want_s))
+            if r == 1:
+                check(canonical(got_m) and canonical(got_s),
+                      f"route 1 wrote a word at or above p at B={B}")
+        check(errs == [0, 0], f"a chain differs from {CH} steps of its plain version after canon "
+                              f"at B={B}: {errs}")
+        ms_a = kernel_ms(lambda: cuda_ops.g1_add_chain(a, b, CH), 10)
+        ms_m = {r: kernel_ms(lambda r=r: cuda_ops.fq_mul_chain(x, y, CH, route=r), 10)
+                for r in routes}
+        ms_s = {r: kernel_ms(lambda r=r: cuda_ops.fq_sqr_chain(x, CH, route=r), 10)
+                for r in routes}
+        ms_0 = {r: kernel_ms(lambda r=r: cuda_ops.fq_mul_chain(x, y, 0, route=r), 10)
+                for r in routes}
         pa = time_ms(lambda: cuda_ops.g1_add_chain_plain(a, b, CH), 1, warmup=0)
         pm = time_ms(lambda: cuda_ops.fq_mul_chain_plain(x, y, CH), 1, warmup=0)
         ba = bound_ms(3 * POINT_BYTES * B, B * CH * MULADDS_PER_ADD)
-        bm = bound_ms(3 * 32 * B, B * CH * MULADDS_PER_FQ_MUL)
-        rows[B] = (ms_a, pa, ba, ms_m, pm, bm)
+        fm, fs = chain_floors(B, CH), chain_floors(B, CH, square=True)
+        t_bytes = 3 * 32 * B / HBM_BYTES_PER_S * 1e3
+        bm = (min(fm), "operations") if min(fm) >= t_bytes else (t_bytes, "bytes")
+        rows[B] = dict(ms_a=ms_a, pa=pa, ba=ba, ms_m=ms_m, ms_s=ms_s, ms_0=ms_0, pm=pm, bm=bm,
+                       fm=fm, fs=fs)
         log(f"# probe B={B} CH={CH}: add chain {ms_a:.4f} ms = {ms_a / CH * 1e3:.3f} us/add-step, "
-            f"{B * CH / ms_a / 1e6:.3f} G adds/s (bound {ba[0]:.4f} ms, "
-            f"{B * CH / ba[0] / 1e6:.3f} G adds/s); Fq mul chain {ms_m:.4f} ms = "
-            f"{B * CH / ms_m / 1e6:.3f} G Fq-muls/s (bound {bm[0]:.4f} ms, "
-            f"{B * CH / bm[0] / 1e6:.3f} G Fq-muls/s), the same chain of squares (fe_sqr) "
-            f"{sqr_ms[B]:.4f} ms = {B * CH / sqr_ms[B] / 1e6:.3f} G squares/s; "
-            f"plain {pa:.1f} / {pm:.1f} ms")
-    small, big = PROBE_BATCHES
-    ms_a, pa, ba, ms_m, pm, bm = rows[big]
+            f"{B * CH / ms_a / 1e6:.3f} G adds/s (bound {ba[0]:.4f} ms, {ba[0] / ms_a:.1%}); "
+            f"plain {pa:.1f} ms; == the plain version after canon")
+        for r in routes:
+            log(f"# probe B={B} CH={CH} route {r}: mul chain {ms_m[r]:.4f} ms = "
+                f"{B * CH / ms_m[r] / 1e6:.3f} G Fq-muls/s ({fm[0] / ms_m[r]:.1%} of the integer "
+                f"floor {fm[0]:.4f} ms, {fm[1] / ms_m[r]:.1%} of the FP64 floor {fm[1]:.4f} ms); "
+                f"squares {ms_s[r]:.4f} ms = {B * CH / ms_s[r] / 1e6:.3f} G/s ({fs[0] / ms_s[r]:.1%}"
+                f" / {fs[1] / ms_s[r]:.1%} of {fs[0]:.4f} / {fs[1]:.4f} ms); CH=0 {ms_0[r]:.4f} ms;"
+                f" == the plain version after canon")
+        log(f"# probe B={B}: mul chain bound {bm[0]:.4f} ms; plain {pm:.1f} ms")
+    big = 1 << 20  # the FP64 route at a batch that fills the card
+    xb = rand_lazy_words(rng, (big,), FQ.p, dev)
+    yb = rand_lazy_words(rng, (big,), FQ.p, dev)
+    want_big = cuda_ops.fq_mul_chain_plain(xb, yb, CH)
+    ms_big = {}
+    for r in routes:
+        e = canon_err(cuda_ops.fq_mul_chain(xb, yb, CH, route=r), want_big)
+        check(e == 0, f"route {r} differs from the plain version after canon at B=2^20")
+        ms_big[r] = kernel_ms(lambda r=r: cuda_ops.fq_mul_chain(xb, yb, CH, route=r), 10)
+    fb = chain_floors(big, CH)
+    log(f"# probe B=2^20 CH={CH}: mul chain " + "; ".join(
+        f"route {r} {ms_big[r]:.4f} ms = {big * CH / ms_big[r] / 1e6:.3f} G Fq-muls/s "
+        f"({fb[0] / ms_big[r]:.1%} / {fb[1] / ms_big[r]:.1%} of the integer / FP64 floors "
+        f"{fb[0]:.4f} / {fb[1]:.4f} ms)" for r in routes))
+    del xb, yb, want_big
+    small, big_b = PROBE_BATCHES
+    r_s, r_b = rows[small], rows[big_b]
     kernels.append(dict(
         name="g1_add_chain", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
         replaces="benchmarks/micro_packed_dissect.py:48", launches=counts["g1_add_chain"],
-        max_abs_err=errs[0], ms=ms_a, plain_ms=pa, bound_ms=ba[0], bound_by=ba[1], library_ms=None,
-        shape=[big, 3, 8], ch=CH, ms_b256=rows[small][0], tolerance="exact, lazy words"))
+        max_abs_err=errs[0], ms=r_b["ms_a"], plain_ms=r_b["pa"], bound_ms=r_b["ba"][0],
+        bound_by=r_b["ba"][1], library_ms=None, shape=[big_b, 3, 8], ch=CH,
+        ms_b256=r_s["ms_a"], ptxas_registers=use["add"]["registers"],
+        ptxas_spill_bytes=use["add"]["spill_bytes"], tolerance="exact, canonical words"))
     kernels.append(dict(
         name="fq_mul_chain", route="cuda", source="snark_verifier_tpu_torch/csrc/fold_kernels.cu",
         replaces="benchmarks/micro_packed_dissect.py:48", launches=counts["fq_mul_chain"],
-        max_abs_err=errs[1], ms=ms_m, plain_ms=pm, bound_ms=bm[0], bound_by=bm[1], library_ms=None,
-        shape=[big, 8], ch=CH, ms_b256=rows[small][3], sqr_ms=sqr_ms[big],
-        sqr_ms_b256=sqr_ms[small], tolerance="exact, lazy words"))
-    return rows[small][0] / CH * 1e3
+        max_abs_err=errs[1], ms=r_b["ms_m"][default], plain_ms=r_b["pm"], bound_ms=r_b["bm"][0],
+        bound_by=r_b["bm"][1], library_ms=None, shape=[big_b, 8], ch=CH, fq_route=default,
+        ms_by_route={str(r): r_b["ms_m"][r] for r in routes},
+        sqr_ms_by_route={str(r): r_b["ms_s"][r] for r in routes},
+        ch0_ms_by_route={str(r): r_b["ms_0"][r] for r in routes},
+        ms_b256_by_route={str(r): r_s["ms_m"][r] for r in routes},
+        ms_b2p20_by_route={str(r): ms_big[r] for r in routes},
+        int_floor_ms=r_b["fm"][0], fp64_floor_ms=r_b["fm"][1],
+        sqr_int_floor_ms=r_b["fs"][0], sqr_fp64_floor_ms=r_b["fs"][1],
+        ptxas={k: use[k] for k in ("mul_0", "sqr_0", "mul_1", "sqr_1")},
+        tolerance="exact after canon (route 0 lazy words, route 1 canonical)"))
+    return r_s["ms_a"] / CH * 1e3
 
 
 def field_checks(dev):

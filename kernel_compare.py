@@ -13,8 +13,23 @@ with nvcc, each against the headers beside it, and its entry points are
 called as the port has declared them since the fold took a team size (the
 other checkout must be one whose `svt_fold_buckets` takes it):
 
-* `svt_fq_mul_chain(a, b, out, n, ch, stream)`: chains of dependent Fq
-  multiplies at B = 2^17, CH = 16 and 256;
+* `svt_fq_mul_chain(a, b, out, n, ch, stream)` (a parent whose entry takes
+  a route gets route 0): chains of dependent Fq multiplies and squares at
+  B = 2^17, CH = 16, 0 and 256, and at 2^20, CH = 16, beside this
+  checkout's both routes (0: fq.cuh's integer words, 1: fq_f64.cuh's FP64
+  limbs) and the variants of `csrc/probe/chain_variants.cu` (the FP64
+  square as x·x; route 2, even warps integer and odd warps FP64), each
+  held to the plain version after `canon`, with the integer and FP64
+  pipes' floors and each side's share, ptxas's registers and spills and
+  each chain kernel's SASS opcode counts and its loop's instructions by
+  class (cuobjdump); each route sustained at 2^20, CH = 256 with the SM
+  clock and power `nvidia-smi` reads meanwhile, and the card's own FP64
+  FMA rate (the probe's `svt_f64_peak`);
+* `svt_g1_add_chain(a, b, out, n, ch, stream)` (`--only add_chain`) at B =
+  256 and 2^17, CH = 16, beside this checkout's (the least group law,
+  canonical words) and each blocks-an-SM variant of
+  `csrc/probe/chain_variants.cu`, held to the plain version after `canon`,
+  with the bound (1,416 multiply-adds an add) and each one's share;
 * `svt_fold_buckets(points, idx, nb, cap, sentinel, out, team, stream)`: one
   main window (256, cap) and the whole top window of the 2^`log2n` MSM's
   slot indices (points [1..n]·G, scalars from numpy seed 42), each with the
@@ -128,6 +143,7 @@ import numpy as np
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARENT_UNITS = {
     "fold_kernels": {"svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
+                     "svt_g1_add_chain": [_P, _P, _P, _LL, _I, _P],
                      "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P]},
     "msm_kernels": {"svt_fold_buckets": [_P, _P, _LL, _LL, _I, _P, _I, _P],
                     "svt_g1_add": [_P, _P, _P, _LL, _P], "svt_g1_double": [_P, _P, _LL, _P]},
@@ -220,6 +236,27 @@ def kernel_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def sustained_clock(fn, seconds=2.0):
+    """(median SM clock in MHz, median power draw in W) that nvidia-smi reads
+    every 100 ms while `fn` runs back to back for `seconds` (the first three
+    samples dropped)."""
+    import torch
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, text=True)
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    proc.terminate()
+    lines = [ln.split(",") for ln in proc.communicate()[0].splitlines() if "," in ln][3:]
+    mhz = sorted(float(a) for a, _ in lines)
+    watts = sorted(float(b) for _, b in lines)
+    return (mhz[len(mhz) // 2], watts[len(watts) // 2]) if lines else (None, None)
+
+
 def word_err(got, want):
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
@@ -306,7 +343,8 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None, help="also write the rows to this file")
     ap.add_argument("--only", default=None,
                     help="comma-separated parts to run: g1_batch (svt_g1_add, "
-                         "svt_g1_double and the probe's variants), fq_mul_chain, msm (the folds), "
+                         "svt_g1_double and the probe's variants), fq_mul_chain (both routes), "
+                         "add_chain, msm (the folds), "
                          "msm_loops (the point loops), loop_variants (msm_loops and the "
                          "probe's variants), poseidon_permute, field_inv, keccak_read, fr_powers, "
                          "points_to_fr, h_coeffs, to_affine, fr_tape (default all)")
@@ -346,6 +384,14 @@ def main() -> int:
              "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / "compare" / "libg1_batch_variants.so"),
              str(_build.SRC_DIR / "probe" / "g1_batch_variants.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    chain_build = None
+    if selected("fq_mul_chain") or selected("add_chain"):  # the chain probe's other variants
+        (_build.BUILD_DIR / "compare").mkdir(parents=True, exist_ok=True)
+        chain_build = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / "compare" / "libchain_variants.so"),
+             str(_build.SRC_DIR / "probe" / "chain_variants.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     parent = build_parent(args.parent, _build.BUILD_DIR / "compare")
     other = None
     if selected("h_coeffs"):  # the other store route, this checkout's probe
@@ -368,6 +414,16 @@ def main() -> int:
         variants["g1_add"].argtypes = [_I, _I, _I, _P, _P, _P, _LL, _P]
         variants["g1_double"].argtypes = [_I, _I, _I, _P, _P, _LL, _P]
         for f in variants.values():
+            f.restype = ctypes.c_int
+    chain_lib, chain_log = None, ""
+    if chain_build is not None:
+        chain_log = chain_build.communicate()[0]
+        if chain_build.returncode:
+            raise RuntimeError(f"nvcc failed for csrc/probe/chain_variants.cu:\n{chain_log}")
+        chain_lib = ctypes.CDLL(str(_build.BUILD_DIR / "compare" / "libchain_variants.so"))
+        chain_lib.svt_g1_add_chain_variant.argtypes = [_I, _P, _P, _P, _LL, _I, _P]
+        chain_lib.svt_fq_mul_chain_variant.argtypes = [_I, _P, _P, _P, _LL, _I, _I, _P]
+        for f in (chain_lib.svt_g1_add_chain_variant, chain_lib.svt_fq_mul_chain_variant):
             f.restype = ctypes.c_int
     print(f"# card: {card}; builds {time.time() - t0:.1f}s", flush=True)
     rows = []
@@ -396,20 +452,225 @@ def main() -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
+    def ptxas_lines(log, fragment):
+        """ptxas's registers, stack and spills of each kernel whose mangled
+        name holds `fragment`, printed and returned {name: usage}."""
+        lines, found = log.splitlines(), {}
+        for i, line in enumerate(lines):
+            if "entry function" in line and fragment in line:
+                name = re.search(r"'(\S+)'", line).group(1)
+                found[name] = " ".join(x.strip() for x in lines[i + 1:i + 4]
+                                       if "Function" not in x)
+                print(f"# ptxas {name}: {found[name]}", flush=True)
+        return found
+
+    def sass_counts(lib, fragment):
+        """{kernel: ({opcode: count}, {class: count} of its loop)} from the
+        SASS (cuobjdump) of each kernel in `lib` whose mangled name holds
+        `fragment`; the loop is the span of its first backward branch, its
+        classes FP64 (D*), ALU (IADD3, LOP3, SHF, ISETP, SEL, LEA) and IMAD
+        (IMAD*); {} without cuobjdump."""
+        tool = Path(_build._nvcc()).with_name("cuobjdump")
+        if not tool.exists():
+            return {}
+        text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                              text=True).stdout
+        funcs, cur = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = funcs.setdefault(m.group(1), []) if fragment in m.group(1) else None
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                         r"\s*([^;]*)", line)
+            if cur is not None and m:
+                cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        out = {}
+        for name, ins in funcs.items():
+            ops, loop = {}, {}
+            for _, op, _ in ins:
+                ops[op] = ops.get(op, 0) + 1
+            back = [(addr, int(t.group(1), 16)) for addr, op, rest in ins if op == "BRA"
+                    for t in [re.search(r"0x([0-9a-f]+)", rest)] if t
+                    and int(t.group(1), 16) < addr]
+            if back:
+                end, start = back[0]
+                for addr, op, _ in ins:
+                    if start <= addr <= end:
+                        base = op.split(".")[0]
+                        cls = ("FP64" if base.startswith("D") else "IMAD" if base == "IMAD"
+                               else "ALU" if base in ("IADD3", "LOP3", "SHF", "ISETP", "SEL",
+                                                      "LEA") else "other")
+                        loop[cls] = loop.get(cls, 0) + 1
+            out[name] = (ops, loop)
+        return out
+
     if selected("fq_mul_chain"):
         # ------------------------------------------------------- multiply chain
+        # Both routes of this checkout beside the parent's chain, the FP64
+        # square in both forms (csrc/probe/chain_variants.cu), each held to
+        # the plain version after canon (route 1 writes canonical words).
+        from snark_verifier_tpu_torch.ec import words_to_limbs
+        from snark_verifier_tpu_torch.ff import FQ_FIELD
+
+        def canon_err(got, want):
+            return word_err(FQ_FIELD.canon(words_to_limbs(got)),
+                            FQ_FIELD.canon(words_to_limbs(want)))
+
+        fold_src = (args.parent / "fold_kernels.cu").read_text()
+        parent_route = "int route" in re.search(r"int svt_fq_mul_chain\((.*?)\)", fold_src,
+                                                re.S).group(1)
+        if parent_route:
+            parent["svt_fq_mul_chain"].argtypes = [_P, _P, _P, _LL, _I, _I, _P]
+        ptxas_lines(_build.build_log, "fq_mul_chain_kernel")
+        ptxas_lines(chain_log, "fq_mul_chain")
+        for name, (ops, loop) in sass_counts(_build.library_path(),
+                                             "fq_mul_chain_kernel").items():
+            print(f"# sass {name}: {json.dumps(dict(sorted(ops.items())))}; the chain loop's "
+                  f"instructions by class {json.dumps(loop)}", flush=True)
         rng = np.random.default_rng(3)
-        B = 1 << 17
-        a = rand_lazy_words(rng, (B,), FQ.p, dev)
-        b = rand_lazy_words(rng, (B,), FQ.p, dev)
-        for ch in (16, 256):
+        xs = rand_lazy_words(rng, (1 << 20,), FQ.p, dev)
+        ys = rand_lazy_words(rng, (1 << 20,), FQ.p, dev)
+        xo = torch.empty_like(xs)
+        runs = {r: (lambda r=r: cuda_ops.fq_mul_chain(xs, ys, 256, route=r))
+                for r in cuda_ops.FQ_CHAIN_ROUTES}
+        if chain_lib is not None:  # route 2, the probe's: both routes side by side
+            runs[2] = lambda: call(chain_lib.svt_fq_mul_chain_variant, 1, xs.data_ptr(),
+                                   ys.data_ptr(), xo.data_ptr(), 1 << 20, 256, 2)
+        for route, run in runs.items():  # the clocks a sustained chain runs at
+            mhz, watts = sustained_clock(run)
+            ms = kernel_ms(run, 5)
+            row = dict(kind="fq_mul_chain_clock", B=1 << 20, ch=256, route=route, ms=ms,
+                       sm_mhz_median=mhz, power_w_median=watts,
+                       g_muls_per_s=(1 << 20) * 256 / ms / 1e6,
+                       muls_per_sm_clock=(1 << 20) * 256 / (ms * 1e-3) / (
+                           torch.cuda.get_device_properties(dev).multi_processor_count * mhz * 1e6)
+                       if mhz else None,
+                       card=card)
+            print(json.dumps(row), flush=True)
+            rows.append(dict(row, parent_err=0, this_err=0))
+        del xs, ys, xo
+        if chain_lib is not None:  # the card's own FP64 FMA rate (the probe's peak kernel)
+            chain_lib.svt_f64_peak.argtypes = [_P, _LL, _I, _I, _P]
+            chain_lib.svt_f64_peak.restype = ctypes.c_int
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            n_peak, iters = 1 << 20, 1024
+            buf = torch.empty(n_peak, dtype=torch.float64, device=dev)
+            for rz in (0, 1):
+                run = lambda rz=rz: call(chain_lib.svt_f64_peak, buf.data_ptr(), n_peak, iters,
+                                         rz)
+                mhz, watts = sustained_clock(run)
+                ms = kernel_ms(run, 5)
+                fmas = n_peak * iters * 8
+                row = dict(kind="f64_peak", n=n_peak, iters=iters, rz=rz, ms=ms, sm_mhz_median=mhz,
+                           power_w_median=watts, fma_per_s=fmas / (ms * 1e-3),
+                           fma_per_sm_clock=fmas / (ms * 1e-3) / (sms * mhz * 1e6) if mhz
+                           else None, card=card)
+                print(json.dumps(row), flush=True)
+                rows.append(dict(row, parent_err=0, this_err=0))
+            del buf
+        for B in (1 << 17, 1 << 20):
+            a = rand_lazy_words(rng, (B,), FQ.p, dev)
+            b = rand_lazy_words(rng, (B,), FQ.p, dev)
+            for ch in ((16, 0, 256) if B == 1 << 17 else (16,)):
+                for square in (False, True):
+                    out = torch.empty_like(a)
+                    bp = None if square else b.data_ptr()
+                    want = (cuda_ops.fq_sqr_chain_plain(a, ch) if square
+                            else cuda_ops.fq_mul_chain_plain(a, b, ch))
+                    muls = B * ch
+                    int_floor = muls * (108 if square else 136) / (64 * 132 * 1.98e9) * 1e3
+                    f64_floor = muls * (120 if square else 150) / (64 * 132 * 1.98e9) * 1e3
+
+                    def run_parent(bp=bp, out=out, ch=ch):
+                        call(parent["svt_fq_mul_chain"], a.data_ptr(), bp, out.data_ptr(), B, ch,
+                             *((0,) if parent_route else ()))
+
+                    run_parent()
+                    for route in cuda_ops.FQ_CHAIN_ROUTES:
+                        def run_this(route=route, square=square, ch=ch):
+                            return (cuda_ops.fq_sqr_chain(a, ch, route=route) if square
+                                    else cuda_ops.fq_mul_chain(a, b, ch, route=route))
+
+                        compare("fq_sqr_chain" if square else "fq_mul_chain", run_parent,
+                                run_this, out, canon_err, want, 10, timer=kernel_ms, B=B, ch=ch,
+                                route=route, muls=muls, int_floor_ms=int_floor,
+                                fp64_floor_ms=f64_floor, bound_ms=min(int_floor, f64_floor))
+                        r = rows[-1]
+                        if ch:
+                            r.update(this_int_floor_share=int_floor / max(r["this_ms"]),
+                                     this_fp64_floor_share=f64_floor / max(r["this_ms"]),
+                                     parent_int_floor_share=int_floor / max(r["parent_ms"]))
+                    # the probe's variants (route, dedicated square) beside route 1
+                    for route, dedicated in ((1, 0), (2, 1)):
+                        if not square and dedicated == 0:
+                            continue
+                        vout = torch.empty_like(a)
+
+                        def run_v(vout=vout, bp=bp, ch=ch, dedicated=dedicated, route=route):
+                            call(chain_lib.svt_fq_mul_chain_variant, dedicated, a.data_ptr(), bp,
+                                 vout.data_ptr(), B, ch, route)
+
+                        run_v()
+                        compare(("fq_sqr" if square else "fq_mul") + "_chain_variant", run_v,
+                                lambda ch=ch, square=square: (
+                                    cuda_ops.fq_sqr_chain(a, ch, route=1) if square
+                                    else cuda_ops.fq_mul_chain(a, b, ch, route=1)),
+                                vout, canon_err, want, 10, timer=kernel_ms, B=B, ch=ch,
+                                route=route, dedicated=dedicated, muls=muls,
+                                parent="csrc/probe/chain_variants.cu (route={}, dedicated={}); "
+                                       "this: route 1".format(route, dedicated))
+            del a, b
+
+    if selected("add_chain"):
+        # ----------------------------------------------------------- add chain
+        # This checkout's chain (g1_add_sum, canonical words, persistent
+        # blocks) beside the parent's, and each blocks-an-SM variant of
+        # csrc/probe/chain_variants.cu beside the library's, held to the
+        # plain version after canon.
+        from snark_verifier_tpu_torch.ec import words_to_limbs
+        from snark_verifier_tpu_torch.ff import FQ_FIELD
+
+        def canon_err(got, want):
+            return word_err(FQ_FIELD.canon(words_to_limbs(got)),
+                            FQ_FIELD.canon(words_to_limbs(want)))
+
+        ptxas_lines(_build.build_log, "g1_add_chain_kernel")
+        ptxas_lines(chain_log, "g1_add_chain_kernel")
+        rng = np.random.default_rng(3)
+        ch = 16
+        for B in (256, 1 << 17):
+            a = rand_lazy_words(rng, (B, 3), FQ.p, dev)
+            b = rand_lazy_words(rng, (B, 3), FQ.p, dev)
+            want = cuda_ops.g1_add_chain_plain(a, b, ch)
             out = torch.empty_like(a)
-            compare("fq_mul_chain",
-                    lambda: call(parent["svt_fq_mul_chain"], a.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), B, ch),
-                    lambda: cuda_ops.fq_mul_chain(a, b, ch), out, word_err,
-                    cuda_ops.fq_mul_chain_plain(a, b, ch), 10, B=B, ch=ch,
-                    muls=B * ch)
+            bound = max(B * ch * 1416 / (64 * 132 * 1.98e9), 3 * 96 * B / 3.35e12) * 1e3
+
+            def run_parent(out=out, a=a, b=b, B=B):
+                call(parent["svt_g1_add_chain"], a.data_ptr(), b.data_ptr(), out.data_ptr(), B,
+                     ch)
+
+            run_parent()
+            compare("g1_add_chain", run_parent, lambda a=a, b=b: cuda_ops.g1_add_chain(a, b, ch),
+                    out, canon_err, want, 10, timer=kernel_ms, B=B, ch=ch, bound_ms=bound)
+            r = rows[-1]
+            r.update(parent_bound_share=bound / max(r["parent_ms"]),
+                     this_bound_share=bound / max(r["this_ms"]))
+            for blocks in (3, 4, 5, 6):
+                vout = torch.empty_like(a)
+
+                def run_v(vout=vout, a=a, b=b, B=B, blocks=blocks):
+                    call(chain_lib.svt_g1_add_chain_variant, blocks, a.data_ptr(), b.data_ptr(),
+                         vout.data_ptr(), B, ch)
+
+                run_v()
+                compare("g1_add_chain_variant", run_v,
+                        lambda a=a, b=b: cuda_ops.g1_add_chain(a, b, ch), vout, canon_err, want,
+                        10, timer=kernel_ms, B=B, ch=ch, blocks=blocks, bound_ms=bound,
+                        parent=f"csrc/probe/chain_variants.cu (blocks={blocks})")
+                r = rows[-1]
+                r.update(variant_bound_share=bound / max(r["parent_ms"]))
+            del a, b, want
 
     def ladder_points():
         """The 2^log2n MSM's points [1..n]·G, (n, 3, 8) words."""

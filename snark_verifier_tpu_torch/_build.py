@@ -40,7 +40,7 @@ _SIGNATURES = {
     # fold_kernels.cu
     "svt_fold_segments": [_P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P, _P],
     "svt_g1_add_chain": [_P, _P, _P, _LL, _I, _P],
-    "svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _P],
+    "svt_fq_mul_chain": [_P, _P, _P, _LL, _I, _I, _P],
     # field_kernels.cu
     "svt_field_mul": [_I, _P, _LL, _P, _LL, _P, _LL, _P],
     "svt_field_add": [_I, _P, _LL, _P, _LL, _P, _LL, _P],

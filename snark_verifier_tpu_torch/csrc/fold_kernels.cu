@@ -29,8 +29,22 @@
 // multiply-bound (a full fold of (256, 4624) points: 0.116 ms of multiplies
 // against 0.034 ms of reads).  The 64-bit products of fq.cuh run at half
 // that rate (msm_kernels.cu), so half the bound is the most a fold reaches.
-// The chains read and write 2 * 96 bytes per lane once and do CH * 1632 (or
-// CH * 136) multiply-adds: bound by operations at any CH > 1.
+// The chains read and write 2 * 96 bytes per lane once and do CH * 1416 (the
+// least add, g1.cuh's g1_add_sum) or CH * 136 multiply-adds: bound by
+// operations at any CH > 1.  A multiply's other floor is the FP64 pipe's
+// (64 FMAs an SM a clock): fq_f64.cuh's 150 FP64 operations a product.
+//
+// What the chains' design does about it.
+// * The add chain runs g1_add_sum (layer 2 as three sums of two products,
+//   one reduction each: 1416 multiply-adds, not g1_add's 1632) and writes
+//   canonical words.  A thread's chain of dependent carry chains is paced by
+//   the warps an SM holds, so the blocks are persistent, min(tiles, SMs x
+//   ADD_CHAIN_BLOCKS), at the launch bound's residency; the probe
+//   csrc/probe/chain_variants.cu builds 3 to 6 blocks an SM from this text.
+// * The multiply chain takes a route: 0, fq.cuh's integer fe_mul / fe_sqr
+//   (122 wide multiply-adds, IMAD.WIDE at 32 an SM a clock); 1, fq_f64.cuh's
+//   FP64 limbs, the products on the FP64 pipe and the column sums on the
+//   integer ALU, with one conversion in and one out (canonical words).
 //
 // What the fold's design does about it.  A lone warp waits ~950 clocks on
 // each multiply; the multiply pipes are busy only with about seven warps of
@@ -63,6 +77,7 @@
 
 #include <cstdint>
 
+#include "fq_f64.cuh"
 #include "g1.cuh"
 
 namespace svt {
@@ -71,6 +86,16 @@ constexpr int SEG_BLOCK = 128;
 // Resident blocks per SM the register bound allows for (<= 168 registers).
 constexpr int SEG_BLOCKS_PER_SM = 3;
 constexpr int CHAIN_THREADS = 128;
+// The library's add chain: blocks an SM (the launch bound and the grid),
+// and the FP64 square chain's form (the dedicated square, or the product of
+// x by itself); csrc/probe/chain_variants.cu builds the others.  Measured
+// at 2^17 lanes, CH = 16 (NVIDIA H100 80GB HBM3, 700 W, kernel_compare.py
+// --only fq_mul_chain,add_chain): the add chain at 4 blocks 0.431 ms (128
+// registers, 8 bytes of spills), at 3 0.513 (162, none: 1,024 tiles on 396
+// blocks leave a third tile to most of them), 5 0.487, 6 0.519 (spills);
+// the dedicated square 8% faster than the product by itself.
+constexpr int ADD_CHAIN_BLOCKS = 4;
+constexpr bool F64_SQR_DEDICATED = true;
 
 // One output slot per team of `team` lanes (a power of two <= 32, so a team
 // lies inside one warp).  A slot's members are first + k * S, k < count;
@@ -119,22 +144,57 @@ __global__ void __launch_bounds__(SEG_BLOCK, SEG_BLOCKS_PER_SM)
   if (t == 0 && valid) g1_store(out + slot * G1_WORDS, acc);
 }
 
-__global__ void __launch_bounds__(CHAIN_THREADS)
+// The add chain: out[i] = a[i] + ch * b[i] by ch steps of g1.cuh's
+// g1_add_sum, canonical words (a lazy a[i] is canonicalized at ch = 0).
+// Persistent blocks of CHAIN_THREADS walk tiles of as many lanes with a
+// stride of the grid, min(tiles, SMs x BLOCKS) blocks, BLOCKS the launch
+// bound's.
+template <int BLOCKS>
+__global__ void __launch_bounds__(CHAIN_THREADS, BLOCKS)
     g1_add_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                         uint32_t* __restrict__ out, long long n, int ch) {
-  const long long i = (long long)blockIdx.x * CHAIN_THREADS + threadIdx.x;
-  if (i >= n) return;
-  G1 p, q;
-  g1_load(p, a + i * G1_WORDS);
-  g1_load(q, b + i * G1_WORDS);
+  const long long tiles = (n + CHAIN_THREADS - 1) / CHAIN_THREADS;
 #pragma unroll 1
-  for (int k = 0; k < ch; k++) g1_add(p, p, q);
-  g1_store(out + i * G1_WORDS, p);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long i = t * CHAIN_THREADS + threadIdx.x;
+    if (i >= n) continue;
+    G1 p, q;
+    g1_load_nc(p, a + i * G1_WORDS);
+    g1_load_nc(q, b + i * G1_WORDS);
+#pragma unroll 1
+    for (int k = 0; k < ch; k++) g1_add_sum(p, p, q);
+    if (ch == 0) g1_canon(p);
+    g1_store(out + i * G1_WORDS, p);
+  }
 }
 
-// SQUARE: ch steps of x <- x^2 through fe_sqr (b is not read); else ch steps
-// of x <- x*b through fe_mul.
-template <bool SQUARE>
+// Launch the add chain at BLOCKS blocks an SM over n lanes on `st`;
+// returns a cudaError_t.
+template <int BLOCKS>
+int launch_g1_add_chain(const void* a, const void* b, void* out, long long n, int ch,
+                        cudaStream_t st) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = (n + CHAIN_THREADS - 1) / CHAIN_THREADS;
+  const long long most = (long long)sms * BLOCKS;
+  const unsigned blocks = (unsigned)(tiles < most ? tiles : most);
+  g1_add_chain_kernel<BLOCKS><<<blocks, CHAIN_THREADS, 0, st>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, ch);
+  return (int)cudaGetLastError();
+}
+
+// The multiply chain: ch steps of x <- x*b, or x <- x^2 (SQUARE: b is not
+// read).  ROUTE 0: fq.cuh's integer fe_mul / fe_sqr on the lazy words
+// (lazy output).  ROUTE 1: fq_f64.cuh's FP64 limbs (canonical output);
+// DEDICATED: its square of 15 limb products, else the product of x by
+// itself.  ROUTE 2 (the probe's, csrc/probe/chain_variants.cu): the
+// warps of even index in their block take route 0, the odd ones route 1,
+// so that the integer multiplies and the FP64 pipe run side by side.
+template <bool SQUARE, int ROUTE, bool DEDICATED>
 __global__ void __launch_bounds__(CHAIN_THREADS)
     fq_mul_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                         uint32_t* __restrict__ out, long long n, int ch) {
@@ -146,16 +206,52 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
     x[k] = a[i * FQ_WORDS + k];
     y[k] = SQUARE ? 0u : b[i * FQ_WORDS + k];
   }
+  if (ROUTE == 1 || (ROUTE == 2 && ((threadIdx.x >> 5) & 1))) {
+    if constexpr (ROUTE != 0) {
+      if constexpr (SQUARE) {
+        f64_sqr_chain<DEDICATED>(x, x, ch);
+      } else {
+        f64_mul_chain(x, x, y, ch);
+      }
+    }
+  } else if constexpr (ROUTE != 1) {
 #pragma unroll 1
-  for (int k = 0; k < ch; k++) {
-    if constexpr (SQUARE) {
-      fe_sqr<FQ>(x, x);
-    } else {
-      fq_mul(x, x, y);
+    for (int k = 0; k < ch; k++) {
+      if constexpr (SQUARE) {
+        fe_sqr<FQ>(x, x);
+      } else {
+        fq_mul(x, x, y);
+      }
     }
   }
 #pragma unroll
   for (int k = 0; k < FQ_WORDS; k++) out[i * FQ_WORDS + k] = x[k];
+}
+
+// Launch the multiply chain (b == nullptr: the squares) by route ROUTE over
+// n lanes on `st`; returns a cudaError_t.
+template <int ROUTE, bool DEDICATED>
+int launch_fq_mul_chain_route(const void* a, const void* b, void* out, long long n, int ch,
+                              cudaStream_t st) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((n + CHAIN_THREADS - 1) / CHAIN_THREADS);
+  const auto* x = (const uint32_t*)a;
+  const auto* y = (const uint32_t*)b;
+  auto* o = (uint32_t*)out;
+  if (b == nullptr)
+    fq_mul_chain_kernel<true, ROUTE, DEDICATED><<<blocks, CHAIN_THREADS, 0, st>>>(x, y, o, n, ch);
+  else
+    fq_mul_chain_kernel<false, ROUTE, DEDICATED><<<blocks, CHAIN_THREADS, 0, st>>>(x, y, o, n, ch);
+  return (int)cudaGetLastError();
+}
+
+// The library's routes, 0 and 1; any other is refused.
+template <bool DEDICATED>
+int launch_fq_mul_chain(const void* a, const void* b, void* out, long long n, int ch, int route,
+                        cudaStream_t st) {
+  if (route == 0) return launch_fq_mul_chain_route<0, DEDICATED>(a, b, out, n, ch, st);
+  if (route == 1) return launch_fq_mul_chain_route<1, DEDICATED>(a, b, out, n, ch, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace svt
@@ -181,26 +277,17 @@ extern "C" int svt_fold_segments(const void* mat, long long nb, long long w, lon
   return (int)cudaGetLastError();
 }
 
+// a, b, out: (n, 3, 8) words; out = a + ch * b in canonical words.
 extern "C" int svt_g1_add_chain(const void* a, const void* b, void* out, long long n, int ch,
                                 void* stream) {
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + svt::CHAIN_THREADS - 1) / svt::CHAIN_THREADS);
-    svt::g1_add_chain_kernel<<<blocks, svt::CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, ch);
-  }
-  return (int)cudaGetLastError();
+  return svt::launch_g1_add_chain<svt::ADD_CHAIN_BLOCKS>(a, b, out, n, ch, (cudaStream_t)stream);
 }
 
+// a, b, out: (n, 8) Fq words; b == nullptr: the squares.  route 0: the
+// integer chain (lazy words), 1: the FP64 chain (canonical words); any other
+// route is refused (cudaErrorInvalidValue).
 extern "C" int svt_fq_mul_chain(const void* a, const void* b, void* out, long long n, int ch,
-                                void* stream) {
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + svt::CHAIN_THREADS - 1) / svt::CHAIN_THREADS);
-    if (b == nullptr)  // the squaring chain
-      svt::fq_mul_chain_kernel<true><<<blocks, svt::CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
-          (const uint32_t*)a, nullptr, (uint32_t*)out, n, ch);
-    else
-      svt::fq_mul_chain_kernel<false><<<blocks, svt::CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
-          (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, ch);
-  }
-  return (int)cudaGetLastError();
+                                int route, void* stream) {
+  return svt::launch_fq_mul_chain<svt::F64_SQR_DEDICATED>(a, b, out, n, ch, route,
+                                                         (cudaStream_t)stream);
 }

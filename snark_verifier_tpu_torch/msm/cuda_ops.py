@@ -428,7 +428,10 @@ def g1_add_chain_plain(a, b, ch: int):
 
 def g1_add_chain(a, b, ch: int):
     """(B,3,8), (B,3,8) -> a + ch·b as ch chained RC15 adds per lane, with
-    both operands in registers."""
+    both operands in registers.  On the card `svt_g1_add_chain` runs the
+    least group law (csrc/g1.cuh::g1_add_sum) and writes canonical words:
+    the plain version's projective triple after `canon`.  On the CPU,
+    `g1_add_chain_plain`'s lazy words."""
     _check("g1_add_chain", a, 3, (3, 8))
     _check("g1_add_chain", b, 3, (3, 8))
     _same_device("g1_add_chain", a, b)
@@ -443,6 +446,19 @@ def g1_add_chain(a, b, ch: int):
     return out
 
 
+# `svt_fq_mul_chain`'s routes: 0, csrc/fq.cuh's integer Montgomery words
+# (lazy output); 1, csrc/fq_f64.cuh's FP64 limbs (canonical output).  The
+# default is the route that measured faster on the card (PERF.md §6, row 8).
+FQ_CHAIN_ROUTES = (0, 1)
+FQ_CHAIN_ROUTE = 0
+
+
+def _chain_route(name: str, route: int) -> int:
+    if route not in FQ_CHAIN_ROUTES:
+        raise ValueError(f"{name}: unknown route {route!r} (routes: {FQ_CHAIN_ROUTES})")
+    return route
+
+
 def fq_mul_chain_plain(a, b, ch: int):
     """ch steps of a <- a·b (Fq Montgomery) in plain PyTorch."""
     x, y = words_to_limbs(a), words_to_limbs(b)
@@ -451,11 +467,15 @@ def fq_mul_chain_plain(a, b, ch: int):
     return limbs_to_words(x)
 
 
-def fq_mul_chain(a, b, ch: int):
-    """(B,8), (B,8) Fq words -> ch chained Montgomery multiplies per lane."""
+def fq_mul_chain(a, b, ch: int, route: int = FQ_CHAIN_ROUTE):
+    """(B,8), (B,8) Fq words -> ch chained Montgomery multiplies per lane, by
+    `route` on the card (route 1 writes canonical words: the plain
+    version's after `canon`).  On the CPU, `fq_mul_chain_plain` whatever the
+    route; an unknown route raises on either."""
     _check("fq_mul_chain", a, 2, (8,))
     _check("fq_mul_chain", b, 2, (8,))
     _same_device("fq_mul_chain", a, b)
+    route = _chain_route("fq_mul_chain", route)
     if a.shape != b.shape or ch < 0:
         raise ValueError("fq_mul_chain: shapes differ or ch < 0")
     if a.device.type == "cpu":
@@ -463,7 +483,7 @@ def fq_mul_chain(a, b, ch: int):
     out = torch.empty_like(a)
     if a.shape[0]:
         _launch("fq_mul_chain", load_library().svt_fq_mul_chain, a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), a.shape[0], ch, device=a.device)
+                out.data_ptr(), a.shape[0], ch, route, device=a.device)
     return out
 
 
@@ -475,11 +495,12 @@ def fq_sqr_chain_plain(a, ch: int):
     return limbs_to_words(x)
 
 
-def fq_sqr_chain(a, ch: int):
+def fq_sqr_chain(a, ch: int, route: int = FQ_CHAIN_ROUTE):
     """(B,8) Fq words -> ch chained Montgomery squarings per lane: the same
-    kernel as `fq_mul_chain`, stepping through the dedicated square
-    (csrc/fq.cuh::fe_sqr)."""
+    kernel as `fq_mul_chain`, stepping through the route's square
+    (csrc/fq.cuh::fe_sqr, or csrc/fq_f64.cuh's)."""
     _check("fq_sqr_chain", a, 2, (8,))
+    route = _chain_route("fq_sqr_chain", route)
     if ch < 0:
         raise ValueError("fq_sqr_chain: ch < 0")
     if a.device.type == "cpu":
@@ -487,7 +508,7 @@ def fq_sqr_chain(a, ch: int):
     out = torch.empty_like(a)
     if a.shape[0]:
         _launch("fq_mul_chain", load_library().svt_fq_mul_chain, a.data_ptr(), None,
-                out.data_ptr(), a.shape[0], ch, device=a.device)
+                out.data_ptr(), a.shape[0], ch, route, device=a.device)
     return out
 
 

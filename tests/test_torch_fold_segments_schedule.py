@@ -260,3 +260,182 @@ def test_split_second_pass_team():
     best = min(cuda_ops.chain_adds(segs, t) for t in cuda_ops.TEAMS)
     assert cuda_ops.chain_adds(segs, team) == best
     assert team == min(t for t in cuda_ops.TEAMS if cuda_ops.chain_adds(segs, t) == best)
+
+
+# ------------------------------------------- the chain probe's own C++ (g++)
+
+# csrc/probe/chain_variants.cu (which includes ../fold_kernels.cu) on the
+# host: the launches of fold_kernels.cu run each block's threads one after
+# another (the chains have no barrier), a stub of the CUDA runtime
+# (tests/test_torch_g1_batch_schedule.py's, with the SM count a parameter),
+# the portable fq.cuh of tests/test_torch_g1_team_schedule.py, the real
+# g1.cuh and fq_f64.cuh (the intrinsics of tests/test_torch_fq_f64_schedule.py).
+# Reads (mode, variant, n, ch, route, sms, has_b, dedicated) and the
+# inputs; mode 0 the add chain (variant 0: the entry point, else the blocks
+# an SM), 1 the multiply chain (b absent: the squares; variant 0: the entry
+# point, 1: the probe's variant of the given route and square form).
+CHAIN_HARNESS = r"""
+#include <cstdio>
+#include <vector>
+#include "cuda_runtime.h"
+thread_local dim3_ threadIdx, blockIdx;
+dim3_ gridDim;
+int svt_sms = 1, svt_smem_limit = 232448;
+template <class Kernel> void svt_grid(long long blocks, int threads, Kernel kernel) {
+  gridDim.x = (unsigned)blocks;
+  for (long long blk = 0; blk < blocks; blk++)
+    for (int t = 0; t < threads; t++) {
+      blockIdx.x = (unsigned)blk; threadIdx.x = (unsigned)t;
+      kernel();
+    } }
+#include "probe/chain_variants.cpp"
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  long long h[8];
+  if (fread(h, 8, 8, f) != 8) return 2;
+  const long long mode = h[0], variant = h[1], n = h[2];
+  const int ch = (int)h[3], route = (int)h[4];
+  svt_sms = (int)h[5];
+  const bool has_b = h[6] != 0;
+  const int words = mode == 0 ? 24 : 8;
+  std::vector<uint32_t> a(n * words + 4), b(n * words + 4), out(n * words + 4);
+  if (n && fread(a.data(), 4, n * words, f) != (size_t)(n * words)) return 3;
+  if (n && has_b && fread(b.data(), 4, n * words, f) != (size_t)(n * words)) return 3;
+  const void* bp = has_b ? b.data() : nullptr;
+  int err;
+  if (mode == 0)
+    err = variant ? svt_g1_add_chain_variant((int)variant, a.data(), bp, out.data(), n, ch, nullptr)
+                  : svt_g1_add_chain(a.data(), bp, out.data(), n, ch, nullptr);
+  else if (variant == 0)
+    err = svt_fq_mul_chain(a.data(), bp, out.data(), n, ch, route, nullptr);
+  else
+    err = svt_fq_mul_chain_variant((int)h[7], a.data(), bp, out.data(), n, ch, route, nullptr);
+  if (err) return 10 + err;
+  FILE* o = fopen(argv[2], "wb");
+  fwrite(out.data(), 4, n * words, o);
+  fclose(o);
+  return 0; }
+"""
+
+CHAIN_N = 1000  # 8 tiles of 128 lanes, the last ragged
+CHAIN_CH = 5
+
+
+@pytest.fixture(scope="module")
+def chain_harness(tmp_path_factory):
+    import shutil
+    import subprocess
+
+    import test_torch_fq_f64_schedule as f64
+    import test_torch_g1_batch_schedule as batch
+    import test_torch_g1_team_schedule as team
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to run the kernels' C++ on the host")
+    d = tmp_path_factory.mktemp("chain_schedule")
+    (d / "probe").mkdir()
+    (d / "cuda_runtime.h").write_text(batch.RUNTIME_STUB + f64.INTRINSICS + r"""
+inline long long min(long long a, long long b) { return a < b ? a : b; }  // the fold's
+""")
+    (d / "fq.cuh").write_text(team.FIELD_STUB)
+    for h in ("g1.cuh", "fq_f64.cuh"):
+        shutil.copy(batch.CSRC / h, d / h)
+    src = team._host_source((batch.CSRC / "fold_kernels.cu").read_text())
+    assert "<<<" not in src
+    (d / "fold_kernels.cu").write_text(src)
+    probe = team._host_source((batch.CSRC / "probe" / "chain_variants.cu").read_text())
+    assert "<<<" not in probe
+    (d / "probe" / "chain_variants.cpp").write_text(probe)
+    (d / "harness.cpp").write_text(CHAIN_HARNESS)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-frounding-math", "-I",
+                    str(d), "-o", str(d / "harness"), str(d / "harness.cpp")],
+                   check=True, capture_output=True, timeout=300)
+
+    def run(mode, a, b, variant, ch, route=0, sms=1, dedicated=1, expect_rc=0):
+        n = a.shape[0]
+        inp, out = d / "in.bin", d / "out.bin"
+        with open(inp, "wb") as f:
+            f.write(np.array([mode, variant, n, ch, route, sms, b is not None, dedicated],
+                             np.int64).tobytes())
+            for x in (a,) if b is None else (a, b):
+                f.write(np.ascontiguousarray(x.numpy(), dtype=np.int32).tobytes())
+        r = subprocess.run([str(d / "harness"), str(inp), str(out)], capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == expect_rc, (r.returncode, r.stderr)
+        if expect_rc:
+            return None
+        return torch.from_numpy(np.fromfile(out, np.int32).reshape(a.shape))
+
+    return run
+
+
+def _canon_words(w):
+    from snark_verifier_tpu_torch.ff import FQ_FIELD
+
+    return FQ_FIELD.canon(words_to_limbs(w))
+
+
+@pytest.mark.parametrize("variant", [0, 3, 4, 5, 6],
+                         ids=["entry", "blocks-3", "blocks-4", "blocks-5", "blocks-6"])
+def test_add_chain_kernel_matches_plain_and_python_ints(chain_harness, variant):
+    """svt_g1_add_chain (the library's blocks an SM) and every variant of
+    csrc/probe/chain_variants.cu: canonical words equal to CH steps of the
+    plain version after `canon`, and p + CH q as python ints, with the
+    identity, P = Q and P = -Q among the lanes; persistent blocks on 1 SM
+    walk the 8 tiles with a stride of the grid, on 132 SMs a tile each.
+    CH = 0 writes a itself, canonical."""
+    import test_torch_g1_batch_schedule as batch
+
+    ps, qs, pw, qw = batch._inputs(CHAIN_N, 90 + variant)
+    got = chain_harness(0, pw, qw, variant, CHAIN_CH)
+    assert torch.equal(words_to_limbs(got), _canon_words(got)), "a word at or above p"
+    assert torch.equal(_canon_words(got), _canon_words(cuda_ops.g1_add_chain_plain(pw, qw,
+                                                                                   CHAIN_CH)))
+    want = []
+    for p, q in zip(ps, qs):
+        for _ in range(CHAIN_CH):
+            p = py_ec.add(p, q)
+        want.append(p)
+    assert to_affine_int(words_to_limbs(got)) == want
+    assert torch.equal(chain_harness(0, pw, qw, variant, CHAIN_CH, sms=132), got)
+    got0 = chain_harness(0, pw, qw, variant, 0)
+    assert torch.equal(words_to_limbs(got0), _canon_words(pw))
+
+
+@pytest.mark.parametrize("route,square,variant,dedicated", [
+    (0, False, 0, 1), (0, True, 0, 1), (1, False, 0, 1), (1, True, 0, 1), (1, True, 1, 0),
+    (2, False, 1, 1), (2, True, 1, 1)],
+    ids=["int-mul", "int-square", "f64-mul", "f64-square", "f64-square-by-mul", "mixed-mul",
+         "mixed-square"])
+def test_mul_chain_kernel_routes_match_plain(chain_harness, route, square, variant, dedicated):
+    """svt_fq_mul_chain by route, and the probe's variants (the FP64 square
+    as the product by itself; route 2's warps of both routes in one
+    launch): route 0's lazy words equal CH steps of the plain version word
+    for word, route 1's are canonical and equal them after `canon`, route
+    2's lanes each one or the other; the entry point refuses an unknown
+    route (cudaErrorInvalidValue)."""
+    rng = np.random.default_rng(7 + route)
+    a = _fq_lazy(rng, CHAIN_N)
+    b = None if square else _fq_lazy(rng, CHAIN_N)
+    got = chain_harness(1, a, b, variant, CHAIN_CH, route=route, dedicated=dedicated)
+    want = (cuda_ops.fq_sqr_chain_plain(a, CHAIN_CH) if square
+            else cuda_ops.fq_mul_chain_plain(a, b, CHAIN_CH))
+    lanes = torch.arange(CHAIN_N)
+    f64 = (lanes % 128 // 32) % 2 == 1 if route == 2 else torch.full((CHAIN_N,), route == 1)
+    assert torch.equal(got[~f64], want[~f64])
+    assert torch.equal(words_to_limbs(got[f64]), _canon_words(got[f64])), "a word at or above p"
+    assert torch.equal(_canon_words(got), _canon_words(want))
+    if variant == 0:
+        chain_harness(1, a, b, 0, CHAIN_CH, route=2, expect_rc=11)
+
+
+def _fq_lazy(rng, n):
+    """n lazy Fq words in [0, 2p], the edges 0, p and 2p first."""
+    from snark_verifier_tpu_torch.ff import limbs_to_words
+    from snark_verifier_tpu_torch.ff.spec import FQ
+
+    vals = [int.from_bytes(rng.bytes(32), "little") % (2 * FQ.p + 1) for _ in range(n)]
+    vals[:3] = [0, FQ.p, 2 * FQ.p]
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), dtype="<u2")
+    return limbs_to_words(torch.from_numpy(raw.astype(np.int64).reshape(n, 16)))

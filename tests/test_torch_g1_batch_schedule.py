@@ -6,7 +6,7 @@ the host: a schedule twin.
 g++ (C++20) compiles msm_kernels.cu with each `kernel<<<grid, block, ...>>>`
 launch turned into a call of the harness's grid runner, a stub of the CUDA
 runtime, tests/test_torch_g1_team_schedule.py's portable stand-in for
-csrc/fq.cuh (with `fe_mul_sum` added; tests/test_torch_mul_schedule.py runs
+csrc/fq.cuh (`fe_mul_sum` among its functions; tests/test_torch_mul_schedule.py runs
 the real one's carry chains word by word) and a host emulation of
 csrc/bulk.cuh:
 
@@ -20,8 +20,9 @@ csrc/bulk.cuh:
   alignment and size.
 
 A block's threads are std::threads that take turns, each running from one
-`__syncthreads` to the next, in thread order or in reverse; blocks run one
-after another, `gridDim` and the blocks' walk over the tiles are the entry
+`__syncthreads` to the next, in thread order or in reverse, and handing the
+turn to the next by its semaphore; blocks run one after another on the same
+threads, `gridDim` and the blocks' walk over the tiles are the entry
 point's own (the SM count of the stub is a parameter: on 1 SM the double's
 5 blocks walk a ragged batch of 16 tiles three or four tiles a block, each
 stage of the ring used twice).
@@ -88,27 +89,7 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = svt_sms; return 0; }
 """
 
-FIELD_STUB = team.FIELD_STUB.replace("}  // namespace svt", r"""
-// (a b + c d + M p) / R, word-serial, both products a row, one reduction.
-template <int F> inline void fe_mul_sum(uint32_t r[8], const uint32_t a[8], const uint32_t b[8],
-                                        const uint32_t c[8], const uint32_t d[8]) {
-  uint32_t t[10] = {0};
-  for (int i = 0; i < 8; i++) {
-    for (int k = 0; k < 2; k++) {
-      const uint32_t* x = k ? c : a;
-      const uint32_t y = k ? d[i] : b[i];
-      uint64_t cy = 0;
-      for (int j = 0; j < 8; j++) { cy += (uint64_t)x[j] * y + t[j]; t[j] = (uint32_t)cy; cy >>= 32; }
-      cy += t[8]; t[8] = (uint32_t)cy; t[9] += (uint32_t)(cy >> 32);
-    }
-    const uint32_t m = t[0] * 0xe4866389u;
-    uint64_t cy = ((uint64_t)m * PW[0] + t[0]) >> 32;
-    for (int j = 1; j < 8; j++) { cy += (uint64_t)m * PW[j] + t[j]; t[j - 1] = (uint32_t)cy; cy >>= 32; }
-    cy += t[8]; t[7] = (uint32_t)cy; cy >>= 32;
-    cy += t[9]; t[8] = (uint32_t)cy; t[9] = (uint32_t)(cy >> 32);
-  }
-  fe_copy(r, t); }
-}  // namespace svt""")
+FIELD_STUB = team.FIELD_STUB  # fq.cuh's functions, fe_mul_sum among them
 
 # bulk.cuh on the host.  `svt_copy_early`: copies at their issue, else at
 # the wait.  Only thread 0 issues and waits on stores; every thread waits on
@@ -175,9 +156,9 @@ inline void bulk_wait_phase(uint64_t* bar, uint32_t parity) {
 # inputs; runs the entry point (entry = 1) or the given variant of the
 # template.
 HARNESS = r"""
-#include <condition_variable>
 #include <cstdio>
-#include <mutex>
+#include <memory>
+#include <semaphore>
 #include <thread>
 #include <vector>
 #include "cuda_runtime.h"
@@ -187,49 +168,61 @@ int svt_sms = 1, svt_smem_limit = 232448;
 bool svt_copy_early = false;
 static bool forward = false;
 // A block: its threads take turns in `order`, each running until its next
-// __syncthreads or its end.
+// __syncthreads or its end, then handing the turn to the next thread in
+// order that has not ended (its own semaphore: one thread wakes a turn),
+// or to the grid runner once all have.
 struct Block {
-  std::mutex m;
-  std::condition_variable cv;
   std::vector<int> order;
   std::vector<char> done;
   size_t pos = 0;
+  std::vector<std::unique_ptr<std::binary_semaphore>> turn;
+  std::binary_semaphore finished{0};
 };
-static thread_local Block* cur;
+static Block* cur;
 static thread_local int me;
-static void advance(Block& b) {
-  do b.pos++; while (b.pos < b.order.size() && b.done[b.order[b.pos]]);
-  if (b.pos == b.order.size()) {
-    b.pos = 0;
-    while (b.pos < b.order.size() && b.done[b.order[b.pos]]) b.pos++;
+static void pass(Block& b) {
+  const size_t n = b.order.size();
+  for (size_t s = 1; s <= n; s++) {
+    const size_t q = (b.pos + s) % n;
+    if (!b.done[b.order[q]]) {
+      b.pos = q;
+      b.turn[b.order[q]]->release();
+      return;
+    }
   }
-  b.cv.notify_all();
-}
-static void wait_turn(Block& b, std::unique_lock<std::mutex>& l) {
-  b.cv.wait(l, [&] { return b.pos < b.order.size() && b.order[b.pos] == me; });
+  b.finished.release();
 }
 void __syncthreads() {
-  std::unique_lock<std::mutex> l(cur->m);
-  advance(*cur);
-  wait_turn(*cur, l);
+  pass(*cur);
+  cur->turn[me]->acquire();
 }
+// The grid's blocks one after another on one set of threads.
 template <class Kernel> void svt_grid(long long blocks, int threads, Kernel kernel) {
   gridDim.x = (unsigned)blocks;
-  for (long long blk = 0; blk < blocks; blk++) {
-    Block b;
-    for (int t = 0; t < threads; t++) b.order.push_back(forward ? t : threads - 1 - t);
-    b.done.assign(threads, 0);
-    std::vector<std::thread> th;
-    for (int t = 0; t < threads; t++)
-      th.emplace_back([&, t] {
-        cur = &b; me = t; threadIdx.x = (unsigned)t; blockIdx.x = (unsigned)blk;
-        { std::unique_lock<std::mutex> l(b.m); wait_turn(b, l); }
+  Block b;
+  for (int t = 0; t < threads; t++) {
+    b.order.push_back(forward ? t : threads - 1 - t);
+    b.turn.emplace_back(new std::binary_semaphore(0));
+  }
+  cur = &b;
+  std::vector<std::thread> th;
+  for (int t = 0; t < threads; t++)
+    th.emplace_back([&, t] {
+      me = t; threadIdx.x = (unsigned)t;
+      for (long long blk = 0; blk < blocks; blk++) {
+        b.turn[t]->acquire();
+        blockIdx.x = (unsigned)blk;
         kernel();
-        std::unique_lock<std::mutex> l(b.m);
         b.done[t] = 1;
-        advance(b); });
-    for (auto& x : th) x.join();
-  } }
+        pass(b);
+      } });
+  for (long long blk = 0; blk < blocks; blk++) {
+    b.done.assign(threads, 0);
+    b.pos = 0;
+    b.turn[b.order[0]]->release();
+    b.finished.acquire();
+  }
+  for (auto& x : th) x.join(); }
 #include "msm_kernels.cpp"
 namespace svt { alignas(16) uint4 g1b_smem[g1b_smem_bytes<2, 2>() / 16]; }
 template <int IN, int K>

@@ -70,6 +70,25 @@ inline void fq_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) { fe
 inline void fq_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) { fe_sub<FQ>(r, a, b); }
 inline void fq_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) { fe_mul<FQ>(r, a, b); }
 template <int F> inline void fe_sqr(uint32_t r[8], const uint32_t a[8]) { fe_mul<F>(r, a, a); }
+// (a b + c d + M p) / R, word-serial, both products a row, one reduction.
+template <int F> inline void fe_mul_sum(uint32_t r[8], const uint32_t a[8], const uint32_t b[8],
+                                        const uint32_t c[8], const uint32_t d[8]) {
+  uint32_t t[10] = {0};
+  for (int i = 0; i < 8; i++) {
+    for (int k = 0; k < 2; k++) {
+      const uint32_t* x = k ? c : a;
+      const uint32_t y = k ? d[i] : b[i];
+      uint64_t cy = 0;
+      for (int j = 0; j < 8; j++) { cy += (uint64_t)x[j] * y + t[j]; t[j] = (uint32_t)cy; cy >>= 32; }
+      cy += t[8]; t[8] = (uint32_t)cy; t[9] += (uint32_t)(cy >> 32);
+    }
+    const uint32_t m = t[0] * 0xe4866389u;
+    uint64_t cy = ((uint64_t)m * PW[0] + t[0]) >> 32;
+    for (int j = 1; j < 8; j++) { cy += (uint64_t)m * PW[j] + t[j]; t[j - 1] = (uint32_t)cy; cy >>= 32; }
+    cy += t[8]; t[7] = (uint32_t)cy; cy >>= 32;
+    cy += t[9]; t[8] = (uint32_t)cy; t[9] = (uint32_t)(cy >> 32);
+  }
+  fe_copy(r, t); }
 }  // namespace svt""")
 
 # Runs a grid one block at a time, a thread per lane, a barrier per warp

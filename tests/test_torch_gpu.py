@@ -395,14 +395,63 @@ def test_dense_drivers_on_card_match_oracle(cuda, driver):
     assert got == want
 
 
+def _canon_words(w):
+    return FQ_FIELD.canon(words_to_limbs(w))
+
+
 def test_chain_kernels_match_twins(cuda):
+    """The add chain writes canonical words (csrc/g1.cuh::g1_add_sum), equal
+    to the plain version's after `canon`; the integer multiply and square
+    chains (route 0) equal theirs word for word, one launch a call."""
     a, b = _rand_words(300, 13, cuda), _rand_words(300, 14, cuda)
-    assert torch.equal(cuda_ops.g1_add_chain(a, b, 5), cuda_ops.g1_add_chain_plain(a, b, 5))
+    got = cuda_ops.g1_add_chain(a, b, 5)
+    assert torch.equal(words_to_limbs(got), _canon_words(got))
+    assert torch.equal(_canon_words(got), _canon_words(cuda_ops.g1_add_chain_plain(a, b, 5)))
     x, y = a[:, 0].contiguous(), b[:, 1].contiguous()
-    assert torch.equal(cuda_ops.fq_mul_chain(x, y, 7), cuda_ops.fq_mul_chain_plain(x, y, 7))
+    assert torch.equal(cuda_ops.fq_mul_chain(x, y, 7, route=0),
+                       cuda_ops.fq_mul_chain_plain(x, y, 7))
     cuda_ops.reset_launches()
-    assert torch.equal(cuda_ops.fq_sqr_chain(x, 7), cuda_ops.fq_sqr_chain_plain(x, 7))
+    assert torch.equal(cuda_ops.fq_sqr_chain(x, 7, route=0), cuda_ops.fq_sqr_chain_plain(x, 7))
     assert cuda_ops.LAUNCHES["fq_mul_chain"] == 1
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 132 * 6 * 128 + 77])
+def test_add_chain_canonical_at_ragged_batches(cuda, n):
+    """Persistent blocks over a ragged last tile, and more tiles than one
+    wave: canonical words equal to the plain version after `canon`; CH = 0
+    writes a itself, canonical."""
+    a, b = _rand_words(n, 20 + n % 7, cuda), _rand_words(n, 30 + n % 5, cuda)
+    for ch in (0, 3):
+        got = cuda_ops.g1_add_chain(a, b, ch)
+        assert torch.equal(words_to_limbs(got), _canon_words(got))
+        assert torch.equal(_canon_words(got), _canon_words(cuda_ops.g1_add_chain_plain(a, b, ch)))
+
+
+@pytest.mark.parametrize("ch", [0, 1, 7, 16])
+def test_fp64_chain_route_matches_twins_after_canon(cuda, ch):
+    """Route 1 (csrc/fq_f64.cuh): canonical words equal to the plain
+    multiply and square chains after `canon`, with 0, p and 2p among the
+    lazy inputs; one launch a call."""
+    x = _rand_words(4099, 40 + ch, cuda)[:, 0].contiguous()
+    y = _rand_words(4099, 50 + ch, cuda)[:, 2].contiguous()
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in (0, FQ.p, 2 * FQ.p)),
+                        dtype="<u2").astype(np.int64).reshape(3, 16)
+    x[:3] = limbs_to_words(torch.as_tensor(raw, device=cuda))
+    cuda_ops.reset_launches()
+    for got, want in ((cuda_ops.fq_mul_chain(x, y, ch, route=1),
+                       cuda_ops.fq_mul_chain_plain(x, y, ch)),
+                      (cuda_ops.fq_sqr_chain(x, ch, route=1), cuda_ops.fq_sqr_chain_plain(x, ch))):
+        assert torch.equal(words_to_limbs(got), _canon_words(got))
+        assert torch.equal(_canon_words(got), _canon_words(want))
+    assert cuda_ops.LAUNCHES["fq_mul_chain"] == 2
+
+
+def test_chain_unknown_route_raises(cuda):
+    x = _rand_words(8, 60, cuda)[:, 0].contiguous()
+    for call in (lambda: cuda_ops.fq_mul_chain(x, x, 2, route=2),
+                 lambda: cuda_ops.fq_sqr_chain(x, 2, route=-1)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def _word_vals(t):
