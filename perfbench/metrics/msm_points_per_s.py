@@ -1,0 +1,8 @@
+"""MSM points a second: n times the commitments completed in the window
+over the window's seconds."""
+
+from harness import stats
+
+
+def read(run):
+    return stats.rate(run.work, run.window_s)

@@ -1,0 +1,12 @@
+"""The fold levels a tree: layer 1's groups and top fold, layer 2's root
+fold (`fold_groups_s` + `fold_top_s` + `fold_root_s`).
+The program's own step timings (each step between two synchronizes),
+taken in the traced run's last part; None where it has none."""
+
+KEYS = ('fold_groups_s', 'fold_top_s', 'fold_root_s')
+
+
+def read(run):
+    if not run.timings:
+        return None
+    return 1e3 * sum(sum(t.get(k, 0.0) for k in KEYS) for t in run.timings) / len(run.timings)

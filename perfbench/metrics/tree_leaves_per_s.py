@@ -1,0 +1,8 @@
+"""Leaves folded a second: the leaves of every tree completed in the window
+over the window's seconds."""
+
+from harness import stats
+
+
+def read(run):
+    return stats.rate(run.work, run.window_s)

@@ -1,0 +1,11 @@
+"""The transcript's read a batch, Poseidon or keccak (`read_s`).
+The program's own step timings (each step between two synchronizes),
+taken in the traced run's last part; None where it has none."""
+
+KEYS = ('read_s',)
+
+
+def read(run):
+    if not run.timings:
+        return None
+    return 1e3 * sum(sum(t.get(k, 0.0) for k in KEYS) for t in run.timings) / len(run.timings)
