@@ -4,7 +4,11 @@ launch on the caller's stream, and the launch counts.
 `LAUNCHES` counts each kernel's launches since the last `reset_launches()`:
 a wrapper adds one where it launches its kernel, and nowhere else.
 `chip_smoke.py` reads the counts around the main paths to show that they
-ran through the kernels.
+ran through the kernels.  `COUNTERS` counts the program's other events
+the same way, each where it happens: `msm_attempts` an `msm` run by
+`msm_checked` (more than one a commitment where a bucket overflowed),
+`host_waits` a place on the verify, tree and MSM paths where the host
+blocks on the device (`utils.timing._wait`).
 """
 
 from __future__ import annotations
@@ -36,9 +40,13 @@ LAUNCHES = {
 }
 
 
+COUNTERS = {"msm_attempts": 0, "host_waits": 0}
+
+
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, COUNTERS):
+        for k in counts:
+            counts[k] = 0
 
 
 def check(name: str, t, ndim: int, tail: tuple = ()):

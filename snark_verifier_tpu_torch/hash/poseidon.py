@@ -37,6 +37,7 @@ from .._launch import check, launch, same_device
 from ..device import device_key
 from ..ff import FR, FR_FIELD, FRW, limbs_to_words, np_limbs_to_words, words_to_limbs
 from ..ff.spec import int_to_limbs
+from ..utils.timing import _wait
 from .grain import generate_constants
 
 T, RATE, R_F, R_P = 3, 2, 8, 57
@@ -217,7 +218,8 @@ class PoseidonSponge:
         self.device = torch.device(device)
         init = torch.zeros((T, 8), dtype=torch.int32)
         init[0] = FRW.from_int(1 << 64)
-        self.state = init.to(self.device).expand(batch, T, 8).contiguous()
+        on_device = _wait("sponge_init", lambda: init.to(self.device))
+        self.state = on_device.expand(batch, T, 8).contiguous()
         self.buf: List = []
 
     def update(self, elements: Sequence):

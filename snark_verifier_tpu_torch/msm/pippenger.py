@@ -29,10 +29,11 @@ import numpy as np
 import torch
 
 from .._build import load_library
-from .._launch import check as _check, launch as _launch
+from .._launch import COUNTERS, check as _check, launch as _launch
 from ..device import resolve_device
 from ..ec.g1 import G1, limbs_to_words, words_to_limbs
 from ..ff.spec import FR
+from ..utils.timing import _step, _wait
 from . import cuda_ops
 
 C_BITS = 8  # default window size
@@ -205,7 +206,10 @@ def msm(points, scalars_u16, capacity: Optional[int] = None, c: int = C_BITS, de
 
     Returns (result (3,16) int64 limbs on the device, overflow bool tensor):
     a set flag means a bucket held more than `capacity` points and the
-    result is wrong; `msm_checked` retries."""
+    result is wrong; `msm_checked` retries.  Its steps are spans
+    ("svt::msm.points", ".digits", ".slots", ".top_slots", ".fold",
+    ".reduce"; `utils.timing`), and its one read of the device, the top
+    digits' check, the wait "svt::wait.msm_digits"."""
     dev = resolve_device(device)
     pts = _as_limbs(points, "points", (3, 16), dev)
     sc = _as_limbs(scalars_u16, "scalars_u16", (16,), dev)
@@ -217,34 +221,45 @@ def msm(points, scalars_u16, capacity: Optional[int] = None, c: int = C_BITS, de
     n_buckets = 1 << c
     if capacity is None:
         capacity = default_capacity(n, n_buckets)
-    points_ext = torch.cat([limbs_to_words(pts), _identity(1, dev)], dim=0)
+    points_ext = _step("msm.points",
+                       lambda: torch.cat([limbs_to_words(pts), _identity(1, dev)], dim=0))
 
-    digits = extract_digits(sc, c)  # (W, n)
+    digits = _step("msm.digits", lambda: extract_digits(sc, c))  # (W, n)
     trange = top_range(c)
-    if int(digits[-1].max()) >= trange:
+    if _wait("msm_digits", lambda: int(digits[-1].max())) >= trange:
         raise ValueError("msm: scalars must be canonical (< r)")
-    idx_all, overflow = _slot_indices(digits[:-1], n_buckets, capacity)
+    idx_all, overflow = _step("msm.slots",
+                              lambda: _slot_indices(digits[:-1], n_buckets, capacity))
     tcap = max(capacity, top_capacity(n, c))
-    top_idx, top_o = _slot_indices(digits[-1:], trange, tcap)
+    top_idx, top_o = _step("msm.top_slots", lambda: _slot_indices(digits[-1:], trange, tcap))
 
-    buckets = bucket_sums(points_ext, idx_all, top_idx[0])
-    acc = bucket_reduce(buckets, c)
+    buckets = _step("msm.fold", lambda: bucket_sums(points_ext, idx_all, top_idx[0]))
+    acc = _step("msm.reduce", lambda: bucket_reduce(buckets, c))
     return words_to_limbs(acc[0]), overflow | top_o
 
 
 def msm_checked(points, scalars_u16, capacity: Optional[int] = None, c: int = C_BITS,
                 device=None):
     """`msm`, growing capacity on bucket overflow until the result is exact
-    (adversarial scalar distributions), as in the JAX package."""
+    (adversarial scalar distributions), as in the JAX package.  The call is
+    the span "svt::msm", each `msm` in it "svt::msm.attempt", counted in
+    `COUNTERS["msm_attempts"]`."""
     n = points.shape[0]
     cap = capacity or default_capacity(n, 1 << c)
-    while True:
-        out, ovf = msm(points, scalars_u16, capacity=cap, c=c, device=device)
-        if not bool(ovf):
-            return out
-        if cap >= max(n, 8):
-            return out  # capacity covers every point; overflow impossible
-        cap = min(max(n, 8), cap * 4)
+
+    def attempts():
+        nonlocal cap
+        while True:
+            COUNTERS["msm_attempts"] += 1
+            out, ovf = _step("msm.attempt",
+                             lambda: msm(points, scalars_u16, capacity=cap, c=c, device=device))
+            if not _wait("msm_overflow", lambda: bool(ovf)):
+                return out
+            if cap >= max(n, 8):
+                return out  # capacity covers every point; overflow impossible
+            cap = min(max(n, 8), cap * 4)
+
+    return _step("msm", attempts)
 
 
 def msm_int(bases, tables: dict, scalars, device=None):

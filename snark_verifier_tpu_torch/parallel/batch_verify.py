@@ -24,7 +24,8 @@ from typing import List, Sequence
 
 from ..device import resolve_device
 from ..pcs.kzg.decider import decide_all
-from ..sdk.aggregation import _step, batch_succinct_verify
+from ..sdk.aggregation import batch_succinct_verify
+from ..utils.timing import _step
 from .mesh import Mesh, assemble, split
 
 
@@ -87,11 +88,17 @@ def batch_verify_sharded(snarks: Sequence, srs, mesh: Mesh, scheme_name: str = "
     """-> (B,) bool on the mesh's first device; B must divide by the size of
     mesh axis `axis_name`.  The schemes "shplonk" and "gwc", each with the
     transcripts "poseidon" and "evm" (instance-committing-key protocols and
-    old accumulators included).  `timings`, when given, gets `succinct_s`
-    and `decide_s`, host seconds of each phase over every shard, each ended
-    by a synchronize of every device, and the succinct phase's steps summed
-    over the shards."""
-    accs = _step(timings, "succinct_s", mesh, lambda: batch_succinct_verify_sharded(
-        snarks, srs, mesh, scheme_name, axis_name, transcript, timings))
-    return _step(timings, "decide_s", mesh,
-                 lambda: batch_decide_sharded(accs, srs, mesh, axis_name))
+    old accumulators included).  The call is the span "svt::verify", its
+    phases "svt::verify.succinct" and "svt::verify.decide" (`utils.timing`).
+    `timings`, when given, gets `succinct_s` and `decide_s`, host seconds of
+    each phase over every shard, each ended by a synchronize of every
+    device, and the succinct phase's steps summed over the shards."""
+
+    def call():
+        accs = _step("verify.succinct", lambda: batch_succinct_verify_sharded(
+            snarks, srs, mesh, scheme_name, axis_name, transcript, timings),
+            timings, "succinct_s", mesh)
+        return _step("verify.decide", lambda: batch_decide_sharded(accs, srs, mesh, axis_name),
+                     timings, "decide_s", mesh)
+
+    return _step("verify", call)

@@ -55,8 +55,8 @@ from ...loader.tape_loader import (
 )
 from ...msm import cuda_ops
 from ...sdk import aot
-from ...sdk.aggregation import _step
 from ...transcript.poseidon_transcript import PoseidonTranscript
+from ...utils.timing import _step
 from ..kzg.multiopen import Query
 from .bgh19 import Bgh19
 from .ipa import Ipa, IpaAccumulator, IpaAs, IpaSuccinctVerifyingKey, _mont_words
@@ -239,10 +239,12 @@ class IpaPlan:
         if given.shape[1] != self.n_given or lanes.shape[1] != self.n_lanes:
             raise ValueError(f"IpaPlan: {given.shape[1]} scalars and {lanes.shape[1]} points "
                              f"given, the plan takes {self.n_given} and {self.n_lanes}")
-        tr = _step(timings, "read_s", dev, lambda: self.read(given, scalars, points, lanes))
-        inputs = _step(timings, "gather_s", dev, lambda: self.gather(given, tr))
-        outs = _step(timings, "fr_tape_s", dev, lambda: self.scalars(inputs))
-        ok, table = _step(timings, "msm_s", dev, lambda: self.accept(outs, points, lanes))
+        tr = _step("ipa.read", lambda: self.read(given, scalars, points, lanes), timings, "read_s",
+                   dev)
+        inputs = _step("ipa.gather", lambda: self.gather(given, tr), timings, "gather_s", dev)
+        outs = _step("ipa.fr_tape", lambda: self.scalars(inputs), timings, "fr_tape_s", dev)
+        ok, table = _step("ipa.msm", lambda: self.accept(outs, points, lanes), timings, "msm_s",
+                          dev)
         xi = inputs[self.xi_rows].transpose(0, 1)
         return IpaAccumulator(xi, table[:, self.u_index]), ok
 
@@ -357,14 +359,14 @@ def _batch(kind: str, items: Sequence, device, timings):
                              f"{len(keys)} keys and {len(shapes)} shapes")
         return ipa_plan(kind, items[0].svk, shapes.pop(), device=dev)
 
-    plan = _step(timings, "plan_s", dev, lookup)
+    plan = _step("ipa.plan", lookup, timings, "plan_s", dev)
 
     def stack():
         hosts = [it.host for it in items]
         return tuple(torch.from_numpy(np.stack([h[i] for h in hosts], 0)).to(dev)
                      for i in range(4))
 
-    given, lanes, sc, pts = _step(timings, "stack_s", dev, stack)
+    given, lanes, sc, pts = _step("ipa.stack", stack, timings, "stack_s", dev)
     return plan.run(given, sc, pts, lanes, timings)
 
 

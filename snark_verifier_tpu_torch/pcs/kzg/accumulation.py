@@ -34,7 +34,7 @@ package's rule, once a call.
 from __future__ import annotations
 
 import random
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -45,7 +45,7 @@ from ...ff import FQW, FRW
 from ...ff.spec import FR
 from ...msm import cuda_ops
 from ...transcript.poseidon_transcript import PoseidonTranscript
-from ...utils.timing import METER
+from ...utils.timing import METER, _step
 
 MAX_CHAIN = 32  # the most accumulators one fold transcript absorbs in fold_hierarchical
 
@@ -169,30 +169,35 @@ class KzgAs:
         return None if g is None or n <= MAX_CHAIN else g
 
     @staticmethod
-    def fold_hierarchical(pairs, step: Optional[Callable] = None):
+    def fold_hierarchical(pairs, timings: Optional[dict] = None):
         """The two-level fold of (N, 2, 3, 8) accumulators -> (lhs, rhs),
         each (3, 8).  Groups of `group_size(N)` consecutive accumulators fold
         as one batch of independent transcripts, then one transcript folds
-        the group accumulators.  `step(key, fn)` runs each level
-        (`fold_groups_s`, then `fold_top_s`; `fold_top_s` alone where N
-        folds once), so a caller can time it."""
-        step = step or (lambda key, fn: fn())
+        the group accumulators.  Each level is a span, "svt::fold.groups"
+        then "svt::fold.top" ("svt::fold.top" alone where N folds once);
+        `timings`, when given, gets their host seconds under `fold_groups_s`
+        and `fold_top_s`, each between two synchronizes of the pairs'
+        device."""
         N = pairs.shape[0]
         g = KzgAs.group_size(N)
         if g is not None:
-            lhs, rhs = step("fold_groups_s",
-                            lambda: KzgAs._fold_once(pairs.reshape(N // g, g, 2, 3, 8)))
+            lhs, rhs = _step("fold.groups",
+                             lambda: KzgAs._fold_once(pairs.reshape(N // g, g, 2, 3, 8)),
+                             timings, "fold_groups_s", pairs.device)
             pairs = torch.stack([lhs, rhs], 1)
-        lhs, rhs = step("fold_top_s", lambda: KzgAs._fold_once(pairs[None]))
+        lhs, rhs = _step("fold.top", lambda: KzgAs._fold_once(pairs[None]), timings,
+                         "fold_top_s", pairs.device)
         return lhs[0], rhs[0]
 
     @staticmethod
     def _fold_once(pairs):
         """One stacked fold level, a fresh transcript per lane, no blind:
-        pairs (G, N, 2, 3, 8) -> (lhs, rhs), each (G, 3, 8)."""
-        td = fold_transcript(pairs.shape[0], pairs.device)
-        proof = KzgAs.read_proof_stacked(False, pairs, td)
-        return KzgAs.verify_stacked(pairs, proof)
+        pairs (G, N, 2, 3, 8) -> (lhs, rhs), each (G, 3, 8); the read of the
+        proof ("svt::fold.read") and the weighted MSM ("svt::fold.verify")
+        each a span."""
+        proof = _step("fold.read", lambda: KzgAs.read_proof_stacked(
+            False, pairs, fold_transcript(pairs.shape[0], pairs.device)))
+        return _step("fold.verify", lambda: KzgAs.verify_stacked(pairs, proof))
 
     # --------------------------------------------------------------- prover
 

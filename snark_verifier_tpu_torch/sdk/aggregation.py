@@ -21,7 +21,6 @@ of several protocols, one batch per protocol and one shared fold.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -35,6 +34,7 @@ from ..pcs.kzg.accumulation import KzgAs
 from ..pcs.kzg.decider import decide
 from ..pcs.kzg.multiopen import Bdfg21, Gwc19
 from ..transcript.poseidon_transcript import PoseidonTranscript
+from ..utils.timing import _step, _wait
 from ..verifier.plonk.plan import succinct_plan
 from .snark import Snark
 
@@ -45,9 +45,9 @@ TRANSCRIPTS = ("poseidon", "evm")
 def _stack_streams(snarks: Sequence[Snark], device):
     """-> scalars (B, n, 8), points (B, m, 2, 8) words: one upload each."""
     pairs = [s.host_streams() for s in snarks]
-    sc = torch.from_numpy(np.stack([p[0] for p in pairs], 0)).to(device)
-    pts = torch.from_numpy(np.stack([p[1] for p in pairs], 0)).to(device)
-    return sc, pts
+    sc, pts = (torch.from_numpy(np.stack([p[i] for p in pairs], 0)) for i in (0, 1))
+    return (_wait("stack_scalars", lambda: sc.to(device)),
+            _wait("stack_points", lambda: pts.to(device)))
 
 
 def _instance_block(snarks: Sequence[Snark], device, mont: bool = True):
@@ -61,7 +61,8 @@ def _instance_block(snarks: Sequence[Snark], device, mont: bool = True):
         vals = [v for col in s.instances for v in col]
         for k, v in enumerate(vals):
             flat[b, k] = int_to_limbs((v % p) * R % p)
-    return torch.from_numpy(np_limbs_to_words(flat)).to(device)
+    block = torch.from_numpy(np_limbs_to_words(flat))
+    return _wait("instances", lambda: block.to(device))
 
 
 def _instance_columns(block, num_instance):
@@ -79,29 +80,6 @@ def _stack_instances(snarks: Sequence[Snark], device):
     return _instance_columns(_instance_block(snarks, device), snarks[0].protocol.num_instance)
 
 
-def _synchronize(where):
-    """Wait for `where`: a device, or a mesh (`parallel.mesh.Mesh`, each of
-    its cards)."""
-    if not isinstance(where, torch.device):
-        where.synchronize()
-    elif where.type == "cuda":
-        torch.cuda.synchronize(where)
-
-
-def _step(timings, key: str, where, fn):
-    """fn(); with `timings`, its host seconds added under `key` (a sharded
-    path sums its shards), between two synchronizes of `where`, a device or
-    a mesh."""
-    if timings is None:
-        return fn()
-    _synchronize(where)
-    t = time.perf_counter()
-    r = fn()
-    _synchronize(where)
-    timings[key] = timings.get(key, 0.0) + time.perf_counter() - t
-    return r
-
-
 def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",
                           transcript: str = "poseidon", device=None, timings: dict = None):
     """One batched succinct verification of B same-protocol snarks on
@@ -111,6 +89,7 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     program is recorded on its first batch in this process and replayed
     (`verifier/plonk/plan.py`).
 
+    Each step is a span (`utils.timing._step`, "svt::verify.<step>").
     `timings`, when given, gets each step's host seconds, each step between
     two synchronizes: `stack_s` (stack and upload), `plan_s` (the protocol
     check and the plan lookup, the recording on a first batch), `read_s`
@@ -137,11 +116,17 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
         return succinct_plan(snarks[0].protocol, SCHEMES[scheme_name], scheme_name, transcript,
                              digest=digests.pop(), device=dev)
 
-    plan = _step(timings, "plan_s", dev, lookup)
+    plan = _step("verify.plan", lookup, timings, "plan_s", dev)
     ick = plan.protocol.instance_committing_key is not None
-    sc, pts, inst, inst_plain = _step(
-        timings, "stack_s", dev, lambda: _stack_streams(snarks, dev)
-        + (_instance_block(snarks, dev), _instance_block(snarks, dev, mont=False) if ick else None))
+
+    def stack():
+        streams = _step("verify.streams", lambda: _stack_streams(snarks, dev))
+        inst = _step("verify.instances", lambda: _instance_block(snarks, dev))
+        plain = _step("verify.instances",
+                      lambda: _instance_block(snarks, dev, mont=False)) if ick else None
+        return streams + (inst, plain)
+
+    sc, pts, inst, inst_plain = _step("verify.stack", stack, timings, "stack_s", dev)
     instances = _instance_columns(inst, plan.protocol.num_instance)
 
     def read():
@@ -151,11 +136,12 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
         return plan.read(instances, PoseidonTranscript(sc, pts, dev, lanes=lanes),
                          TorchLoader(B, dev)), lanes
 
-    reads, lanes = _step(timings, "read_s", dev, read)
-    inputs = _step(timings, "gather_s", dev, lambda: plan.gather(instances, reads, B))
-    outs = _step(timings, "fr_tape_s", dev, lambda: plan.scalars(inputs))
-    return _step(timings, "msm_s", dev,
-                 lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs, lanes))
+    reads, lanes = _step("verify.read", read, timings, "read_s", dev)
+    inputs = _step("verify.gather", lambda: plan.gather(instances, reads, B), timings, "gather_s",
+                   dev)
+    outs = _step("verify.fr_tape", lambda: plan.scalars(inputs), timings, "fr_tape_s", dev)
+    return _step("verify.msm", lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs, lanes),
+                 timings, "msm_s", dev)
 
 
 def batch_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",

@@ -34,7 +34,8 @@ from ..parallel.comm_model import collective_inventory
 from ..parallel.mesh import Mesh, all_gather, split
 from ..pcs.kzg.accumulation import KzgAs, fold_transcript
 from ..pcs.kzg.decider import decide
-from .aggregation import _step, batch_succinct_verify, stack_pairs
+from ..utils.timing import _step
+from .aggregation import batch_succinct_verify, stack_pairs
 
 
 def _fold(accs: List[Tuple]):
@@ -83,7 +84,10 @@ def _layer2(parts, line: Mesh, axis_name: str):
 def _build_sharded(snarks: Sequence, srs, mesh: Mesh, scheme_name: str = "shplonk",
                    axis_name: str = "batch"):
     """-> run(timings=None): the two-layer tree of `snarks` over the devices
-    of mesh axis `axis_name` (the leaves must divide by the axis's size)."""
+    of mesh axis `axis_name` (the leaves must divide by the axis's size).
+    A run is the span "svt::tree", its phases "svt::tree.succinct", the
+    fold levels ("svt::fold.groups", "svt::fold.top", layer 2's
+    "svt::fold.root") and "svt::tree.decide" (`utils.timing`)."""
     if not snarks:
         raise ValueError("tree_aggregate_sharded: no leaf")
     line = mesh.along(axis_name)
@@ -91,17 +95,19 @@ def _build_sharded(snarks: Sequence, srs, mesh: Mesh, scheme_name: str = "shplon
     shards = split(list(snarks), line, axis_name)
 
     def run(timings=None):
-        def step(key, fn):
-            return _step(timings, key, line, fn)
+        def tree():
+            accs = _step("tree.succinct", lambda: [
+                batch_succinct_verify(part, srs, scheme_name, device=dev, timings=timings)
+                for part, dev in zip(shards, devices)], timings, "succinct_s", line)
+            # layer 1: each device folds its shard, accumulator-major
+            parts = [KzgAs.fold_hierarchical(stack_pairs(a), timings) for a in accs]
+            root_l, root_r = _step("fold.root", lambda: _layer2(parts, line, axis_name),
+                                   timings, "fold_root_s", line)
+            ok = _step("tree.decide", lambda: decide(srs, root_l, root_r), timings, "decide_s",
+                       line)
+            return root_l, root_r, ok
 
-        accs = step("succinct_s", lambda: [
-            batch_succinct_verify(part, srs, scheme_name, device=dev, timings=timings)
-            for part, dev in zip(shards, devices)])
-        # layer 1: each device folds its shard, accumulator-major
-        parts = [KzgAs.fold_hierarchical(stack_pairs(a), step=step) for a in accs]
-        root_l, root_r = step("fold_root_s", lambda: _layer2(parts, line, axis_name))
-        ok = step("decide_s", lambda: decide(srs, root_l, root_r))
-        return root_l, root_r, ok
+        return _step("tree", tree)
 
     return run
 
@@ -112,10 +118,11 @@ def tree_aggregate_sharded(snarks: Sequence, srs, mesh: Mesh, scheme_name: str =
     ok) on the mesh's first device: each root side (3, 8), ok a 0-dim bool,
     the root's one pairing check.  `timings`, when given, gets the host
     seconds of each phase summed over the shards, each ended by a
-    synchronize of every device: the succinct phase's steps and
-    `succinct_s`; layer 1's `fold_groups_s` (where a shard has more than 32
-    accumulators) and `fold_top_s`; layer 2's `fold_root_s` (its gathers and
-    fold); `decide_s`."""
+    synchronize (of the shard's device for a shard's steps, else of every
+    device): the succinct phase's steps and `succinct_s`; layer 1's
+    `fold_groups_s` (where a shard has more than 32 accumulators) and
+    `fold_top_s`; layer 2's `fold_root_s` (its gathers and fold);
+    `decide_s`."""
     return _build_sharded(snarks, srs, mesh, scheme_name, axis_name)(timings)
 
 

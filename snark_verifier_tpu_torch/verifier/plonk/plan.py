@@ -70,6 +70,7 @@ from ...msm import cuda_ops
 from ...pcs.kzg.accumulator import accumulator_from_limbs
 from ...sdk import aot
 from ...transcript.evm_transcript import PrecomputedChallengeTranscript
+from ...utils.timing import _wait
 from .verifier import PlonkSuccinctVerifier
 
 _PLANS: Dict[tuple, "SuccinctPlan"] = {}
@@ -281,8 +282,10 @@ class SuccinctPlan:
             for rec in acc:
                 pts = scs = None
                 if rec.scaled:
-                    rows = torch.tensor([r for r, _ in rec.scaled], device=dev)
-                    idx = torch.tensor([self._base_index(s) for _, s in rec.scaled], device=dev)
+                    rows = _wait("msm_rows", lambda: torch.tensor(
+                        [r for r, _ in rec.scaled], device=dev))
+                    idx = _wait("msm_bases", lambda: torch.tensor(
+                        [self._base_index(s) for _, s in rec.scaled], device=dev))
                     pts = table.index_select(1, idx)
                     scs = outs.index_select(0, rows).transpose(0, 1).contiguous()
                 plain = [table[:, self._base_index(s)] for s in rec.plain]

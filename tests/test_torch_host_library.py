@@ -2,11 +2,10 @@
 python-int oracles: `utils/hypercube.py`, `hash/poseidon_optimized.py`,
 `utils/native.py` (the g++-built host core, compiled here from the port's
 own `csrc/host/bn254.cpp`), and `utils/timing.py` (`METER`, counted by a
-CPU fold and decide by the JAX package's rules; the timer and the profile)."""
+CPU fold and decide by the JAX package's rules; the profile's `svt::` spans)."""
 
-import io
+import json
 import random
-from contextlib import redirect_stderr
 
 import pytest
 import torch
@@ -149,15 +148,14 @@ def test_fold_and_decide_count_by_the_jax_rules():
         del timing.METER.spans[span]
 
 
-def test_timer_and_profile_trace(tmp_path, monkeypatch):
-    err = io.StringIO()
-    with redirect_stderr(err):
-        with timing.timer("quiet"):
-            pass
-        monkeypatch.setenv("SNARK_TPU_TIMERS", "1")
-        with timing.timer("loud"):
-            pass
-    assert "quiet" not in err.getvalue() and "[timer] loud:" in err.getvalue()
+def test_timer_and_profile_trace(tmp_path):
+    """profile_trace's Chrome trace holds the port's `svt::` spans, the
+    inner inside the outer."""
     with timing.profile_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        timing._step("tree", lambda: timing._step("fold.top", lambda: torch.ones(4).sum()))
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    span = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("name", "").startswith("svt::")}
+    assert set(span) == {"svt::tree", "svt::fold.top"}
+    assert span["svt::tree"][0] <= span["svt::fold.top"][0] <= span["svt::fold.top"][1] \
+        <= span["svt::tree"][1]
