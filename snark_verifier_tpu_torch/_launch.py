@@ -8,7 +8,9 @@ ran through the kernels.  `COUNTERS` counts the program's other events
 the same way, each where it happens: `msm_attempts` an `msm` run by
 `msm_checked` (more than one a commitment where a bucket overflowed),
 `host_waits` a place on the verify, tree and MSM paths where the host
-blocks on the device (`utils.timing._wait`).
+blocks on the device (`utils.timing._wait`), `packed_uploads` a batch
+whose streams and instances went to the device as one packed, non-blocking
+upload (`sdk.aggregation._pack_inputs`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ LAUNCHES = {
 }
 
 
-COUNTERS = {"msm_attempts": 0, "host_waits": 0}
+COUNTERS = {"msm_attempts": 0, "host_waits": 0, "packed_uploads": 0}
 
 
 def reset_launches():

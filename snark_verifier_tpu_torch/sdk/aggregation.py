@@ -5,7 +5,8 @@ counterpart of the JAX package's `sdk/aggregation.py` (`_stack_streams`
 `aggregate_heterogeneous` :146).
 
 B snarks of one protocol verify as one batch on one device: their streams
-are stacked on the host and uploaded once per stream, the transcript reads
+and instances are written into one host block (pinned for a card) and sent
+as one non-blocking upload (`_pack_inputs`), the transcript reads
 the proofs (Poseidon: one `svt_poseidon_absorb` launch per challenge;
 keccak, "evm": one `svt_keccak_read` launch for the whole read, over the
 schedule the plan recorded), the
@@ -21,20 +22,21 @@ of several protocols, one batch per protocol and one shared fold.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .._launch import COUNTERS
 from ..device import resolve_device
-from ..ff import np_limbs_to_words
-from ..ff.spec import FR, int_to_limbs
+from ..ff.spec import FR
 from ..loader.base import TorchLoader
 from ..pcs.kzg.accumulation import KzgAs
 from ..pcs.kzg.decider import decide
 from ..pcs.kzg.multiopen import Bdfg21, Gwc19
 from ..transcript.poseidon_transcript import PoseidonTranscript
-from ..utils.timing import _step, _wait
+from ..utils.timing import _step
 from ..verifier.plonk.plan import succinct_plan
 from .snark import Snark
 
@@ -42,27 +44,103 @@ SCHEMES = {"shplonk": Bdfg21, "gwc": Gwc19}
 TRANSCRIPTS = ("poseidon", "evm")
 
 
-def _stack_streams(snarks: Sequence[Snark], device):
-    """-> scalars (B, n, 8), points (B, m, 2, 8) words: one upload each."""
+def _host_block(n: int, device) -> torch.Tensor:
+    """A fresh host block of n int32 words for one upload to `device`:
+    pinned where `device` is a CUDA card, so the copy is queued and the host
+    goes on (torch's caching host allocator serves the block and does not
+    hand it out again before the copy that reads it has run), plain memory
+    elsewhere, where the upload is the block itself."""
+    return torch.empty(n, dtype=torch.int32, pin_memory=torch.device(device).type == "cuda")
+
+
+def _carve(block, shapes) -> list:
+    """Contiguous views of the 1-D `block` (a tensor, or its numpy view on
+    the host), one a shape, back to back.  Every shape ends in whole 8-word
+    elements, so each view starts on a 32-byte boundary of the block."""
+    views, k = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        views.append(block[k:k + n].reshape(shape))
+        k += n
+    return views
+
+
+def _write_words(view: np.ndarray, values):
+    """Fr values in [0, p) -> their 32 little-endian bytes each, joined and
+    written over the host view's int32 words in one copy."""
+    view.reshape(-1)[:] = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in values), "<i4")
+
+
+def _stack_streams(snarks: Sequence[Snark], device, out=None):
+    """-> scalars (B, n, 8), points (B, m, 2, 8) words of every lane's
+    `host_streams`: one host block, one upload.  With `out`, numpy views
+    (scalars, points) of a batch's packed host block, the words are written
+    there and nothing is uploaded."""
     pairs = [s.host_streams() for s in snarks]
-    sc, pts = (torch.from_numpy(np.stack([p[i] for p in pairs], 0)) for i in (0, 1))
-    return (_wait("stack_scalars", lambda: sc.to(device)),
-            _wait("stack_points", lambda: pts.to(device)))
+    block = None
+    if out is None:
+        shapes = [(len(snarks),) + a.shape for a in pairs[0]]
+        block = _host_block(sum(map(math.prod, shapes)), device)
+        out = _carve(block.numpy(), shapes)
+    for i, view in enumerate(out):
+        parts = [pair[i] for pair in pairs]  # zip(*pairs) would hold B iterators: a GC pass
+        if set(map(len, parts)) != {view.shape[1]}:  # the copy checks the total
+            raise ValueError("the batch's proof streams differ in shape")
+        view.reshape(-1)[:] = np.frombuffer(b"".join(parts), np.int32)
+    if block is None:
+        return out
+    return tuple(_carve(block.to(device, non_blocking=True), shapes))
 
 
-def _instance_block(snarks: Sequence[Snark], device, mont: bool = True):
+def _instance_block(snarks: Sequence[Snark], device, mont: bool = True, out=None):
     """-> (B, n_inst, 8) Fr words of every lane's instances, column by
     column, in Montgomery form (`mont`) or as canonical plain words (the
-    scalars of an instance commitment): one host block, one upload."""
-    p, R = FR.p, (1 << 256) if mont else 1
-    num_instance = snarks[0].protocol.num_instance
-    flat = np.zeros((len(snarks), sum(num_instance), 16), np.uint32)
-    for b, s in enumerate(snarks):
-        vals = [v for col in s.instances for v in col]
-        for k, v in enumerate(vals):
-            flat[b, k] = int_to_limbs((v % p) * R % p)
-    block = torch.from_numpy(np_limbs_to_words(flat))
-    return _wait("instances", lambda: block.to(device))
+    scalars of an instance commitment): one host block, one upload.  With
+    `out`, numpy views (Montgomery, plain) of a batch's packed host block,
+    either None, each view given is written from one walk over the lanes
+    and nothing is uploaded."""
+    shape = (len(snarks), sum(snarks[0].protocol.num_instance), 8)
+    if out is None:
+        block = _host_block(math.prod(shape), device).view(shape)
+        host = block.numpy()
+        _instance_block(snarks, device, out=(host, None) if mont else (None, host))
+        return block.to(device, non_blocking=True)
+    p = FR.p
+    vals = [v for s in snarks for col in s.instances for v in col]
+    if len(vals) != shape[0] * shape[1]:
+        raise ValueError(f"{len(vals)} instance values for {shape[0]} lanes of {shape[1]}")
+    mont_out, plain_out = out
+    if mont_out is not None:
+        _write_words(mont_out, [(v << 256) % p for v in vals])  # v·R mod p, R = 2^256
+    if plain_out is not None:
+        _write_words(plain_out, [v % p for v in vals])
+    return out
+
+
+def _pack_inputs(snarks: Sequence[Snark], device, plain: bool):
+    """A batch's inputs -> [scalars (B, n, 8), points (B, m, 2, 8),
+    instances (B, n_inst, 8)] words on `device`, and the instances as plain
+    words (B, n_inst, 8) after them where `plain`: written into one host
+    block (`_stack_streams`, `_instance_block`) and sent as one
+    non-blocking upload (the span "svt::verify.upload", one count of
+    `COUNTERS["packed_uploads"]`), each a contiguous view of the one
+    device block."""
+    B, s0 = len(snarks), snarks[0]
+    n_inst = sum(s0.protocol.num_instance)
+    shapes = [(B, len(s0.scalars), 8), (B, len(s0.points), 2, 8), (B, n_inst, 8)]
+    if plain:
+        shapes.append((B, n_inst, 8))
+    block = _host_block(sum(map(math.prod, shapes)), device)
+    sc, pts, *inst = _carve(block.numpy(), shapes)
+    _step("verify.streams", lambda: _stack_streams(snarks, device, out=(sc, pts)))
+    _step("verify.instances",
+          lambda: _instance_block(snarks, device, out=(inst[0], inst[1] if plain else None)))
+
+    def upload():
+        COUNTERS["packed_uploads"] += 1
+        return _carve(block.to(device, non_blocking=True), shapes)
+
+    return _step("verify.upload", upload)
 
 
 def _instance_columns(block, num_instance):
@@ -119,14 +197,9 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     plan = _step("verify.plan", lookup, timings, "plan_s", dev)
     ick = plan.protocol.instance_committing_key is not None
 
-    def stack():
-        streams = _step("verify.streams", lambda: _stack_streams(snarks, dev))
-        inst = _step("verify.instances", lambda: _instance_block(snarks, dev))
-        plain = _step("verify.instances",
-                      lambda: _instance_block(snarks, dev, mont=False)) if ick else None
-        return streams + (inst, plain)
-
-    sc, pts, inst, inst_plain = _step("verify.stack", stack, timings, "stack_s", dev)
+    sc, pts, inst, *plain = _step("verify.stack", lambda: _pack_inputs(snarks, dev, ick), timings,
+                                  "stack_s", dev)
+    inst_plain = plain[0] if plain else None
     instances = _instance_columns(inst, plan.protocol.num_instance)
 
     def read():

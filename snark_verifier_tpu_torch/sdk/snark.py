@@ -5,8 +5,8 @@
 
 A proof is kept as its pre-parsed transcript streams: Fr scalars and affine
 G1 points, python ints in transcript order.  `host_streams` turns them into
-one numpy block each in the port's word layout, so stacking a batch is one
-upload per stream.
+one numpy block each in the port's word layout, which a batch packs into
+its one upload (`sdk/aggregation.py::_pack_inputs`).
 """
 
 from __future__ import annotations

@@ -27,8 +27,8 @@ A protocol with an instance committing key (the query-instance family)
 commits to each lane's instance columns before the read: the commitment
 depends only on the instances and the protocol's points, so
 `commit_instances` computes it for the whole batch in one `svt_msm_windowed`
-launch over the instances as canonical words (converted on the host,
-`sdk/aggregation.py::_instance_block(..., mont=False)`: no launch), and the
+launch over the instances as canonical words (converted on the host into
+the batch's packed block, `sdk/aggregation.py::_pack_inputs`: no launch), and the
 read absorbs it as a lane point.  The Poseidon read maps every column's
 point Fq -> Fr in one `svt_points_to_fr` launch; the keccak read takes
 them as canonical affine Fq words, normalised in one `svt_points_to_fr`

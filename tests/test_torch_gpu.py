@@ -1567,3 +1567,131 @@ def test_cli_commands_on_card(cuda, capsys, argv, launched):
         assert span == {"msm": 20, "msm_terms": 80, "pairing": 4}
     if argv[0] == "aggregate":  # one batch decide, two folds of 4, two decides
         assert span == {"msm": 4, "msm_terms": 16, "pairing": 6}
+
+
+# ------------------------------------------------ a batch's inputs as one packed upload
+
+
+def _uploads_one_at_a_time(snarks, device):
+    """The streams and instances as the three uploads of pageable blocks
+    that the packed upload replaced, instances one python int at a time."""
+    p, R = FR.p, 1 << 256
+
+    def words(vals):
+        arr = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in vals],
+                       np.uint32).view(np.int32)
+        return torch.from_numpy(arr.reshape(len(snarks), -1, 8)).to(device)
+
+    pairs = [s.host_streams() for s in snarks]
+    vals = [v % p for s in snarks for col in s.instances for v in col]
+    return [torch.from_numpy(np.stack([q[i] for q in pairs])).to(device) for i in (0, 1)] + [
+        words([v * R % p for v in vals]), words(vals)]
+
+
+def test_packed_upload_equals_the_three_uploads_on_card(cuda):
+    """`_pack_inputs` at B = 1,024 (16 fixtures tiled) and B = 1: every
+    view on the card, contiguous, 32-byte aligned, word for word the
+    blocks the separate uploads gave; one packed upload, no host wait.
+    The standalone stacks give the same words."""
+    from snark_verifier_tpu_torch._launch import COUNTERS
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+
+    _, base = _fixtures("snark", 16)
+    for B in (1024, 1):
+        snarks = [base[i % 16] for i in range(B)]
+        want = _uploads_one_at_a_time(snarks, cuda)
+        reset_launches()
+        views = agg._pack_inputs(snarks, cuda, plain=True)
+        assert COUNTERS["packed_uploads"] == 1 and COUNTERS["host_waits"] == 0
+        torch.cuda.synchronize()
+        assert len({v.untyped_storage().data_ptr() for v in views}) == 1
+        for got, w in zip(views, want):
+            assert got.device == w.device and got.is_contiguous() and got.data_ptr() % 32 == 0
+            assert torch.equal(got, w)
+        sc, pts = agg._stack_streams(snarks, cuda)
+        assert torch.equal(sc, want[0]) and torch.equal(pts, want[1])
+        assert torch.equal(agg._instance_block(snarks, cuda), want[2])
+        assert torch.equal(agg._instance_block(snarks, cuda, mont=False), want[3])
+
+
+def test_packed_blocks_in_flight_are_never_overwritten_on_card(cuda):
+    """Two batches packed while the stream is held back (their copies still
+    queued when the host writes the next block), then two batch verifies
+    back to back with no synchronize between them, the second with two
+    tampered lanes: every block arrives as written and every bit is the
+    python-int verifier's."""
+    from snark_verifier_tpu_torch.sdk import aggregation as agg
+
+    srs, base = _fixtures("snark", 8)
+    tampered = []
+    for i in (0, 5):
+        s = base[i]
+        inst = [list(c) for c in s.instances]
+        inst[0][0] = (inst[0][0] + 1) % FR.p
+        tampered.append(Snark(s.protocol, inst, s.scalars, s.points))
+    first = [base[i % 8] for i in range(64)]
+    second = [tampered[0] if i % 16 == 3 else tampered[1] if i % 16 == 9 else base[(i * 3) % 8]
+              for i in range(64)]
+    want = [_uploads_one_at_a_time(b, cuda) for b in (first, second)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))
+    got = [agg._pack_inputs(b, cuda, plain=False) for b in (first, second, first, second)]
+    torch.cuda.synchronize()
+    for k, views in enumerate(got):
+        assert all(torch.equal(g, w) for g, w in zip(views, want[k % 2])), k
+
+    def oracle(s):
+        (lhs, rhs), = succinct_verify_native(s, srs)
+        return pp.pairing_check([(lhs, srs.g2), (rhs, pp.g2_neg(srs.s_g2))])
+
+    bits = {id(s): oracle(s) for s in base + tampered}
+    assert [bits[id(s)] for s in tampered] == [False, False]
+    torch.cuda._sleep(int(2e8))
+    oks = [batch_verify(b, srs) for b in (first, second)]
+    for b, ok in zip((first, second), oks):
+        assert ok.tolist() == [bits[id(s)] for s in b]
+
+
+def test_packed_uploads_and_host_waits_per_batch_on_card(cuda, monkeypatch):
+    """A Poseidon batch verify makes one packed upload and three host waits
+    (the sponge's initial state, the MSM's rows and bases); the
+    instance-committing keccak batch one packed upload and two waits.  No
+    wait is left at the stack, and every wait is a span."""
+    import contextlib
+    import copy
+
+    from snark_verifier_tpu_torch._launch import COUNTERS
+    from snark_verifier_tpu_torch.utils import timing
+    from snark_verifier_tpu_torch.verifier.plonk.protocol import Query
+
+    seen = []
+
+    @contextlib.contextmanager
+    def rec(name):
+        seen.append(name)
+        yield
+
+    monkeypatch.setattr(timing, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(timing, "_record", rec)
+    srs, snarks = _fixtures("snark", 3)
+    _, loaded = _fixtures("evmsnark", 3)
+    proto = copy.deepcopy(loaded[0].protocol)
+    proto.instance_committing_key = {"bases": py_ec.rand_points(proto.num_instance[0], seed=3),
+                                     "constant": py_ec.rand_points(1, seed=4)[0]}
+    n_eval = len(proto.evaluations)
+    proto.evaluations.append(Query(len(proto.preprocessed), 0))
+    proto.queries.append(Query(len(proto.preprocessed), 0))
+    ick = [Snark(proto, s.instances, s.scalars[:n_eval] + [12345 + i] + s.scalars[n_eval:],
+                 s.points) for i, s in enumerate(loaded)]
+    for run, waits in ((lambda: batch_verify(snarks, srs), 3),
+                       (lambda: batch_succinct_verify(ick, srs, "shplonk", "evm"), 2)):
+        for _ in range(2):  # the first call records the plan
+            seen.clear()
+            reset_launches()
+            run()
+            torch.cuda.synchronize()
+            sites = [n for n in seen if n.startswith("svt::wait.")]
+            assert COUNTERS["packed_uploads"] == 1 and "svt::verify.upload" in seen
+            assert COUNTERS["host_waits"] == len(sites) == waits, sites
+            assert not {"svt::wait.stack_scalars", "svt::wait.stack_points",
+                        "svt::wait.instances"} & set(sites)

@@ -10,7 +10,9 @@ torch.profiler run of a small MSM, and, for the verify and the tree, whose
 plain paths run too many small operations for a CPU profile of them to
 stay short, through the same record-function entry point with a
 recorder in the profiler's place.  Every `_wait` is one span and one count
-of `host_waits`; an MSM whose digits crowd one bucket counts its retry.
+of `host_waits`; a batch's inputs go up as one upload (`svt::verify.upload`,
+one count of `packed_uploads`) with no wait; an MSM whose digits crowd one
+bucket counts its retry.
 
 Tolerance: exact (names, nesting, counts, accept bits)."""
 
@@ -137,7 +139,10 @@ def test_batch_verify_spans_nest_under_svt_verify(proofs, recorder):
     assert recorder.parents("svt::verify.instances") == {"svt::verify.stack"}
     assert recorder.parents("svt::verify.plan") == {"svt::verify.succinct"}
     assert recorder.parents("svt::verify.decide") == {"svt::verify"}
-    assert recorder.parents("svt::wait.stack_scalars") == {"svt::verify.streams"}
+    assert recorder.parents("svt::verify.upload") == {"svt::verify.stack"}
+    assert not {"svt::wait.stack_scalars", "svt::wait.stack_points",
+                "svt::wait.instances"} & recorder.names()
+    assert _launch.COUNTERS["packed_uploads"] == 1
     assert recorder.parents("svt::wait.msm_rows") == {"svt::verify.msm"}
     _waits_match_their_count(recorder)
 
@@ -190,7 +195,7 @@ def test_a_crowded_bucket_counts_each_attempt_and_its_waits(recorder):
     _launch.reset_launches()
     n = 40  # one 4-bit bucket holds all 40 points, above the first capacity (29)
     out = msm_checked(_points(n), scalars_from_int([0x1234567] * n), c=4, device="cpu")
-    assert _launch.COUNTERS == {"msm_attempts": 2, "host_waits": 4}
+    assert _launch.COUNTERS == {"msm_attempts": 2, "host_waits": 4, "packed_uploads": 0}
     assert [s for s, outer in recorder.spans if outer == ("svt::msm",)] == [
         "svt::msm.attempt", "svt::wait.msm_overflow"] * 2
     want = py_ec.scalar_mul(py_ec.G1_GEN, 0x1234567 * n * (n + 1) // 2 % FR.p)
