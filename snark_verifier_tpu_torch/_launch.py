@@ -10,7 +10,9 @@ the same way, each where it happens: `msm_attempts` an `msm` run by
 `host_waits` a place on the verify, tree and MSM paths where the host
 blocks on the device (`utils.timing._wait`), `packed_uploads` a batch
 whose streams and instances went to the device as one packed, non-blocking
-upload (`sdk.aggregation._pack_inputs`).
+upload (`sdk.aggregation._pack_inputs`), `lanes_invalid` a lane of a verify
+batch that the screen answered False (`parallel.batch_verify._screen`): a
+key that appears with its first count, and that `reset_launches()` drops.
 """
 
 from __future__ import annotations
@@ -43,12 +45,14 @@ LAUNCHES = {
 
 
 COUNTERS = {"msm_attempts": 0, "host_waits": 0, "packed_uploads": 0}
+_COUNTERS_ALWAYS = tuple(COUNTERS)
 
 
 def reset_launches():
-    for counts in (LAUNCHES, COUNTERS):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    COUNTERS.clear()
+    COUNTERS.update(dict.fromkeys(_COUNTERS_ALWAYS, 0))
 
 
 def check(name: str, t, ndim: int, tail: tuple = ()):

@@ -20,11 +20,16 @@ process and, through `sdk/aot.py`, across processes.
 
 from __future__ import annotations
 
+import time
 from typing import List, Sequence
 
+import torch
+
+from .._launch import COUNTERS
 from ..device import resolve_device
 from ..pcs.kzg.decider import decide_all
 from ..sdk.aggregation import batch_succinct_verify
+from ..sdk.snark import Snark
 from ..utils.timing import _step
 from .mesh import Mesh, assemble, split
 
@@ -37,7 +42,9 @@ def batch_verify(snarks: Sequence, srs, scheme_name: str = "shplonk",
     and "gwc" (GWC19), each with the transcripts "poseidon" and "evm"
     (keccak); anything else raises ValueError.  Every accumulator a proof
     yields (the fresh one and any old ones its instances carry) must pass
-    for the proof to be accepted."""
+    for the proof to be accepted; a proof that `Snark.validate` refuses (a
+    point off the curve, a value not reduced, an old accumulator that
+    decodes off the curve) is answered False in its own lane."""
     return batch_verify_sharded(snarks, srs, Mesh([resolve_device(device)], ("batch",)),
                                 scheme_name, timings=timings, transcript=transcript)
 
@@ -82,23 +89,61 @@ def batch_decide_sharded(accumulators: List[List], srs, mesh: Mesh,
     return assemble([decide_all(srs, accs).all(dim=0) for accs in accumulators], line)
 
 
+def _screen(snarks: Sequence, device):
+    """The per-lane validation screen (`Snark.screen_all`: `validate`,
+    memoized on each lane) -> (lanes, valid).  `lanes` is the
+    batch with each lane that fails the screen replaced by the batch's
+    first lane that passes, so the batch keeps its size and the shapes it
+    was warmed with; None where no lane passes.  `valid` is the (B,) bool
+    of the lanes that pass, on `device` (sent from pinned memory without a
+    wait), or None where every lane passes.  Each failing lane is one count
+    of `COUNTERS["lanes_invalid"]`, a key that appears with the first one
+    after a `reset_launches()`."""
+    ok = Snark.screen_all(snarks)
+    if False not in ok:
+        return snarks, None
+    bad = ok.count(False)
+    COUNTERS["lanes_invalid"] = COUNTERS.get("lanes_invalid", 0) + bad
+    host = torch.tensor(ok, dtype=torch.bool)
+    valid = (host.pin_memory() if device.type == "cuda" else host).to(device, non_blocking=True)
+    if bad == len(snarks):
+        return None, valid
+    stand_in = snarks[ok.index(True)]
+    return [s if v else stand_in for s, v in zip(snarks, ok)], valid
+
+
 def batch_verify_sharded(snarks: Sequence, srs, mesh: Mesh, scheme_name: str = "shplonk",
                          axis_name: str = "batch", timings: dict = None,
                          transcript: str = "poseidon"):
     """-> (B,) bool on the mesh's first device; B must divide by the size of
     mesh axis `axis_name`.  The schemes "shplonk" and "gwc", each with the
     transcripts "poseidon" and "evm" (instance-committing-key protocols and
-    old accumulators included).  The call is the span "svt::verify", its
-    phases "svt::verify.succinct" and "svt::verify.decide" (`utils.timing`).
-    `timings`, when given, gets `succinct_s` and `decide_s`, host seconds of
-    each phase over every shard, each ended by a synchronize of every
-    device, and the succinct phase's steps summed over the shards."""
+    old accumulators included).  A lane that `Snark.validate` refuses is
+    answered False and the others are verified as before (`_screen`); a
+    batch with no valid lane launches nothing.  The call is the span
+    "svt::verify", its phases "svt::verify.screen", "svt::verify.succinct"
+    and "svt::verify.decide" (`utils.timing`).  `timings`, when given, gets
+    `succinct_s` and `decide_s`, host seconds of each phase over every
+    shard, each ended by a synchronize of every device, the succinct
+    phase's steps summed over the shards, and `screen_s` where the screen
+    refused a lane (a batch of valid lanes records the keys it did
+    before the screen)."""
 
     def call():
+        if timings is not None:
+            mesh.synchronize()
+        t = time.perf_counter()
+        lanes, valid = _step("verify.screen", lambda: _screen(snarks, mesh.first))
+        if timings is not None and valid is not None:  # a batch with lanes the screen refused
+            mesh.synchronize()
+            timings["screen_s"] = timings.get("screen_s", 0.0) + time.perf_counter() - t
+        if lanes is None:
+            return valid
         accs = _step("verify.succinct", lambda: batch_succinct_verify_sharded(
-            snarks, srs, mesh, scheme_name, axis_name, transcript, timings),
+            lanes, srs, mesh, scheme_name, axis_name, transcript, timings),
             timings, "succinct_s", mesh)
-        return _step("verify.decide", lambda: batch_decide_sharded(accs, srs, mesh, axis_name),
-                     timings, "decide_s", mesh)
+        ok = _step("verify.decide", lambda: batch_decide_sharded(accs, srs, mesh, axis_name),
+                   timings, "decide_s", mesh)
+        return ok if valid is None else ok & valid
 
     return _step("verify", call)

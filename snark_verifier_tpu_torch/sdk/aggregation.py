@@ -173,7 +173,8 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     check and the plan lookup, the recording on a first batch), `read_s`
     (the instance commitment of an instance-committing-key protocol, the
     transcript and read_proof), `gather_s`, `fr_tape_s`, `msm_s` (the
-    bases and the MSM).
+    bases and the MSM), and `acc_decode_s` (the old accumulators' limb
+    decode) where the protocol names `accumulator_indices`.
 
     Supported: the schemes "shplonk" and "gwc", each with the transcripts
     "poseidon" and "evm" (keccak); anything else raises ValueError."""
@@ -213,8 +214,12 @@ def batch_succinct_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shpl
     inputs = _step("verify.gather", lambda: plan.gather(instances, reads, B), timings, "gather_s",
                    dev)
     outs = _step("verify.fr_tape", lambda: plan.scalars(inputs), timings, "fr_tape_s", dev)
-    return _step("verify.msm", lambda: plan.accumulators(outs, pts, srs.g_dev(dev), inputs, lanes),
+    accs = _step("verify.msm", lambda: plan.accumulators(outs, pts, srs.g_dev(dev), lanes),
                  timings, "msm_s", dev)
+    if plan.has_old_accumulators:
+        accs += _step("verify.acc_decode", lambda: plan.old_accumulators(inputs), timings,
+                      "acc_decode_s", dev)
+    return accs
 
 
 def batch_verify(snarks: Sequence[Snark], srs, scheme_name: str = "shplonk",

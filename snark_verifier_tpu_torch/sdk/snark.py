@@ -95,6 +95,30 @@ class Snark:
                     raise errors.InvalidInstances(f"old accumulator {name} decodes off-curve")
         return self
 
+    def screen(self) -> bool:
+        """Whether `validate` passes, memoized on the object as
+        `host_streams` memoizes its streams: a batch's screen
+        (`parallel.batch_verify`) reads one attribute a lane after the
+        first call.  A failing proof is a False, not an exception."""
+        ok = getattr(self, "_valid", None)
+        if ok is None:
+            try:
+                self.validate()
+                ok = True
+            except (errors.TranscriptError, errors.InvalidInstances):
+                ok = False
+            self._valid = ok
+        return ok
+
+    @staticmethod
+    def screen_all(snarks) -> List[bool]:
+        """Each snark's `screen`: one attribute read a snark where every one
+        was screened before."""
+        try:
+            return [s._valid for s in snarks]
+        except AttributeError:
+            return [s.screen() for s in snarks]
+
     def host_streams(self):
         """-> (scalars (n, 8), points (m, 2, 8)) int32 numpy Montgomery
         words, validated first.  Memoized: a batch tiles a few fixture

@@ -99,8 +99,8 @@ class CircuitSpec:
             raise ValueError("user challenges in the last advice phase would collide with "
                              "theta (same restriction the reference layout implies)")
         for c in self.permutation_columns:
-            if c.kind not in ("fixed", "advice"):
-                raise ValueError("instance not permutable here")
+            if c.kind not in ("fixed", "advice", "instance"):
+                raise ValueError(f"unknown column kind {c.kind!r} in the permutation")
 
     # ---- layout (mirrors Polynomials offsets, halo2.rs:284-417)
 
@@ -435,12 +435,18 @@ class CircuitSpec:
 
 def compile_protocol(spec: CircuitSpec, fixed_cols: List[List[int]],
                      copies: List[Tuple[Tuple[Col, int], Tuple[Col, int]]],
-                     srs, device=None) -> PlonkProtocol:
+                     srs, device=None,
+                     accumulator_indices: Sequence[Sequence[Tuple[int, int]]] = ()
+                     ) -> PlonkProtocol:
     """Commit the preprocessed polynomials (fixed + permutation sigmas) on
     `device` (None: the card) and assemble the PlonkProtocol (reference
     compile(), halo2.rs:82-156).
 
     copies: [((col, row), (col, row))] copy constraints; rows must be active.
+    A copy may name an instance column where the spec permutes it (its
+    values then enter the grand product as any other column's).
+    accumulator_indices: the (column, row) instances of each old
+    accumulator the proofs carry as 12 limbs (`pcs/kzg/accumulator.py`).
     """
     domain = Domain.bn254(spec.k)
     if len(fixed_cols) != spec.num_fixed:
@@ -465,6 +471,7 @@ def compile_protocol(spec: CircuitSpec, fixed_cols: List[List[int]],
         queries=spec.queries(),
         quotient=QuotientPolynomial(1, spec.quotient_numerator()),
         transcript_initial_state=digest,
+        accumulator_indices=[[tuple(ij) for ij in acc] for acc in accumulator_indices],
     )
 
 

@@ -46,7 +46,8 @@ card, `run_plain` on the CPU: the canonical MSM scalars) -> `accumulators`
 `svt_msm_windowed` launch per accumulator side with scaled terms: GWC19's
 two sides are two launches, SHPLONK's rhs has none).  An old accumulator the
 protocol's instances carry (`TapeLoader.accumulator_from_limbs`) is decoded
-from the batch's instance inputs on the device (`pcs/kzg/accumulator.py`).
+from the batch's instance inputs on the device (`old_accumulators`,
+`pcs/kzg/accumulator.py`), a step of its own after the MSMs.
 """
 
 from __future__ import annotations
@@ -266,17 +267,27 @@ class SuccinctPlan:
             return self.n_points + self.n_lanes + src[1]
         return self.n_points + self.n_lanes + len(self.const_points)  # the generator
 
-    def accumulators(self, outs, points, g, inputs, lanes=None) -> List:
+    @property
+    def has_old_accumulators(self) -> bool:
+        return any(isinstance(acc, LimbRecord) for acc in self.accs)
+
+    def old_accumulators(self, inputs) -> List:
+        """The old accumulators the instances carry, decoded from their
+        limbs in the (n_in, B, 8) block of `gather` -> [(lhs, rhs)], each
+        (B, 3, 8); they follow the fresh ones (`accumulators`)."""
+        return [accumulator_from_limbs([inputs[k] for k in acc.inputs])
+                for acc in self.accs if isinstance(acc, LimbRecord)]
+
+    def accumulators(self, outs, points, g, lanes=None) -> List:
         """outs (n_out, B, 8) canonical scalars, points (B, m, 2, 8) the
-        stream's affine points, g (3, 8), inputs the (n_in, B, 8) block of
-        `gather`, lanes the (B, l, 3, 8) lane points of `commit` -> [(lhs,
-        rhs)], each (B, 3, 8)."""
+        stream's affine points, g (3, 8), lanes the (B, l, 3, 8) lane points
+        of `commit` -> the fresh accumulators [(lhs, rhs)], each (B, 3, 8):
+        the MSMs."""
         table = self.base_table(points, g, lanes)
         B, dev = table.shape[0], table.device
         result = []
         for acc in self.accs:
             if isinstance(acc, LimbRecord):
-                result.append(accumulator_from_limbs([inputs[k] for k in acc.inputs]))
                 continue
             sides = []
             for rec in acc:
